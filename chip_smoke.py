@@ -1,0 +1,485 @@
+#!/usr/bin/env python3
+"""On-card check of the PyTorch/CUDA port (`gdmix_tpu_torch`), one H100.
+
+    python3 chip_smoke.py        # from the root of a checkout
+
+Phases, each printing one result line; any failure exits non-zero:
+  1. device  — the card's name and power limit (nvidia-smi); TF32 off.
+  2. build   — the hand-written CUDA kernels from csrc/, nvcc for sm_90a.
+  3. kernels — each kernel against its plain PyTorch version at the main
+               path's shapes, on inputs made from a numpy seed.
+  4. fit     — RandomEffectLRModel.fit_flat at full width: the primary
+               random-effect workload (100k entities, 24 features, pareto
+               sample counts 2..64), then a moderate-support cut
+               (64 < dim ≤ 128) that runs the batch-major Newton and its
+               linear solve. Kernel launch counts are zeroed before and
+               read after; a small cut is checked against the float64 CPU
+               solve.
+  5. cli     — `python -m gdmix_tpu_torch.gdmix --action=train
+               --stage=random_effect` on a small written dataset.
+Then one JSON line of per-kernel results and, last, the device line.
+Exits non-zero without a result when no card is present. Imports no JAX.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+F32_TOL = 5e-3     # the JAX package's own lanes-vs-batch-major bound
+F64_REL_TOL = 1e-9
+
+
+def _say(phase: str, **fields) -> None:
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
+          flush=True)
+
+
+def _check(cond: bool, what: str) -> None:
+    if not cond:
+        raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def _time_ms(fn, reps: int) -> float:
+    """Mean device time of `fn` over `reps` runs after one warm-up, by CUDA
+    events (the plain versions synchronize inside; the events still bracket
+    all of their device work)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# ------------------------------------------------------------------ inputs --
+
+def lr_problem(B, n, dim, seed):
+    """Per-entity LR problems, batch-major float32: X [B, n, dim] with the
+    intercept column first, ragged counts, weights 0 on padding rows, both
+    classes in every entity's real rows."""
+    rng = np.random.RandomState(seed)
+    X = np.empty((B, n, dim), np.float32)
+    X[:, :, 0] = 1.0
+    X[:, :, 1:] = rng.randn(B, n, dim - 1).astype(np.float32) * 0.8
+    cnt = rng.randint(2, n + 1, B)
+    w = ((np.arange(n)[None, :] < cnt[:, None])
+         * rng.uniform(0.5, 2.0, (B, n))).astype(np.float32)
+    off = rng.randn(B, n).astype(np.float32) * 0.3
+    z = np.einsum("bnd,bd->bn", X, rng.randn(B, dim).astype(np.float32)) + off
+    y = (rng.uniform(size=(B, n)) < 1 / (1 + np.exp(-z))).astype(np.float32)
+    y[:, 0] = 1.0
+    y[:, 1] = 0.0
+    return X, y, w, off, cnt.astype(np.float32)
+
+
+def make_workload_flat(num_entities, seed=0, d=24, max_nnz=4, count_lo=2,
+                       count_hi=64, pareto_a=1.5):
+    """The primary random-effect workload as a columnar FlatGroups:
+    long-tail (pareto) per-entity sample counts, sparse records over a
+    d-wide feature bag, labels from a per-entity logistic model."""
+    from gdmix_tpu_torch.data.bucketing import FlatGroups
+    rng = np.random.RandomState(seed)
+    counts = np.clip((rng.pareto(pareto_a, num_entities) * 8
+                      + count_lo).astype(int), count_lo, count_hi)
+    total = int(counts.sum())
+    idx_all = rng.randint(0, d, size=(total, max_nnz)).astype(np.int32)
+    val_all = rng.randn(total, max_nnz)
+    nnz_all = rng.randint(1, max_nnz + 1, size=total).astype(np.int32)
+    mask = np.arange(max_nnz)[None, :] < nnz_all[:, None]
+    val_all = val_all * mask
+    w_true = np.repeat(rng.randn(num_entities), counts)
+    z = val_all.sum(1) * 0.5 + w_true
+    y_all = (rng.rand(total) < 1 / (1 + np.exp(-z))).astype(np.float64)
+    return FlatGroups(
+        entity_ids=np.array([str(e) for e in range(num_entities)], object),
+        counts=counts.astype(np.int64),
+        columns={"uid": np.arange(total, dtype=np.int64), "response": y_all,
+                 "offset": 0.1 * rng.randn(total)},
+        indices=idx_all, values=val_all, rec_nnz=nnz_all)
+
+
+def _write_metadata(tmp, d):
+    from gdmix_tpu_torch.io.feature_list import write_feature_list
+    os.makedirs(tmp, exist_ok=True)
+    md_file = os.path.join(tmp, "tensor_metadata.json")
+    with open(md_file, "w") as f:
+        json.dump({"features": [
+            {"name": "per_entity", "dtype": "float", "shape": [d],
+             "isSparse": True},
+            {"name": "user_id", "dtype": "string", "shape": [],
+             "isSparse": False},
+            {"name": "uid", "dtype": "long", "shape": [], "isSparse": False},
+            {"name": "offset", "dtype": "float", "shape": [],
+             "isSparse": False}],
+            "labels": [{"name": "response", "dtype": "float", "shape": [],
+                        "isSparse": False}]}, f)
+    feature_file = os.path.join(tmp, "features.csv")
+    write_feature_list([(f"f{i}", "") for i in range(d)], feature_file)
+    return md_file, feature_file
+
+
+def stage_model(d, tmp, dtype="float32", device=None):
+    """RandomEffectLRModel with the primary workload's settings."""
+    from gdmix_tpu_torch.models.random_effect_lr import RandomEffectLRModel
+    from gdmix_tpu_torch.params import Params, REParams
+    md_file, feature_file = _write_metadata(tmp, d)
+    model_params = REParams(
+        metadata_file=md_file, output_model_dir=tmp,
+        feature_bag="per_entity", feature_file=feature_file,
+        partition_entity="user_id", l2_reg_weight=1.0,
+        regularize_bias=False, dtype=dtype, lbfgs_tolerance=1e-12,
+        lbfgs_pgtol=1e-5, num_of_lbfgs_iterations=100,
+        sparsity_threshold=0.0)
+    base_params = Params(
+        action="train", stage="random_effect",
+        model_type="logistic_regression", label_column_name="response",
+        uid_column_name="uid",
+        prediction_score_column_name="predictionScore")
+    return RandomEffectLRModel(model_params, base_params,
+                               device=device), base_params
+
+
+# ------------------------------------------------------------------ phases --
+
+def phase_device():
+    import torch
+    _check(torch.cuda.is_available(), "no CUDA device (torch.cuda)")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=120)
+    _check(smi.returncode == 0, f"nvidia-smi: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0].strip()
+    print(card, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _say("device", kind=repr(torch.cuda.get_device_name(0)),
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda)
+    return card
+
+
+def phase_build():
+    from gdmix_tpu_torch.ops import _cuda
+    t0 = time.perf_counter()
+    for name in ("linsolve", "newton_lanes"):
+        _cuda.load(name)
+    _say("build", seconds=round(time.perf_counter() - t0, 2),
+         nvcc={k: round(v, 2) for k, v in _cuda.build_seconds.items()})
+    for name, rep in _cuda.ptxas_report.items():
+        for line in rep.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas[{name}] {line.strip()}")
+
+
+def phase_kernels():
+    import torch
+    from gdmix_tpu_torch.ops import linsolve, newton_lanes as nl
+    dev = torch.device("cuda:0")
+    res = {}
+    kw = dict(lam=1.0, unreg_bias=True, maxiter=100, ftol=1e-12, pgtol=1e-5)
+
+    # K1: the whole solve, primary tiers n = 8, 16, 32 at dim 25
+    worst = 0.0
+    for n in (8, 16, 32):
+        X, y, w, off, cnt = (torch.from_numpy(a).to(dev)
+                             for a in lr_problem(65536, n, 25, seed=n))
+        th0 = torch.zeros(65536, 25, device=dev)
+        k = lambda: nl.newton_full(th0, X, y, w, off, cnt, **kw)
+        p = lambda: nl.newton_full_plain(th0, X, y, w, off, cnt, **kw)
+        (thk, ck, ik), (thp, cp, ip) = k(), p()
+        torch.cuda.synchronize()
+        both = ck & cp
+        err = float((thk - thp).abs()[both].max())
+        agree = float((ck == cp).float().mean())
+        ms, pms = _time_ms(k, 5), _time_ms(p, 2)
+        _say("kernels", kernel="newton_full", B=65536, n=n, dim=25,
+             max_abs_dtheta=f"{err:.3e}", converged_agree=f"{agree:.6f}",
+             converged=f"{float(ck.float().mean()):.6f}",
+             iters_max=int(ik.max()), ms=f"{ms:.3f}", plain_ms=f"{pms:.3f}")
+        _check(err <= F32_TOL, f"newton_full n={n}: max|dθ| {err}")
+        _check(agree >= 0.999, f"newton_full n={n}: converged flags agree "
+                               f"on {agree}")
+        worst = max(worst, err)
+        if n == 8:
+            res["newton_full"] = dict(ms=ms, plain_ms=pms)
+    res["newton_full"]["max_abs_err"] = worst
+
+    # K2: one Newton iteration, the n = 64 tier and a heavy-tail n = 512
+    worst = 0.0
+    for n, B in ((64, 16384), (512, 2048)):
+        X, y, w, off, cnt = (torch.from_numpy(a).to(dev)
+                             for a in lr_problem(B, n, 25, seed=n))
+        th = torch.from_numpy((np.random.RandomState(7).randn(B, 25)
+                              * 0.3).astype(np.float32)).to(dev)
+        fk = dict(lam=1.0, unreg_bias=True)
+        k = lambda: nl.newton_fgd(X, y, w, off, cnt, th, **fk)
+        p = lambda: nl.newton_fgd_plain(X, y, w, off, cnt, th, **fk)
+        (fa, ga, da), (fb, gb, db) = k(), p()
+        f_rel = float(((fa - fb).abs() / fb.abs().clamp_min(1.0)).max())
+        g_err = float((ga - gb).abs().max())
+        d_err = float((da - db).abs().max())
+        ms, pms = _time_ms(k, 20), _time_ms(p, 5)
+        _say("kernels", kernel="newton_fgd", B=B, n=n, dim=25,
+             f_rel=f"{f_rel:.3e}", max_abs_dg=f"{g_err:.3e}",
+             max_abs_ddelta=f"{d_err:.3e}", ms=f"{ms:.3f}",
+             plain_ms=f"{pms:.3f}")
+        _check(f_rel <= 1e-4 and g_err <= 1e-4 and d_err <= F32_TOL,
+               f"newton_fgd n={n}: f {f_rel} g {g_err} delta {d_err}")
+        worst = max(worst, d_err)
+        if n == 64:
+            res["newton_fgd"] = dict(ms=ms, plain_ms=pms)
+    res["newton_fgd"]["max_abs_err"] = worst
+
+    # K3: damped SPD solves at the batch-major Newton's width, f32 and f64
+    B, d = 4096, 100
+    rng = np.random.RandomState(3)
+    Q = torch.from_numpy(rng.randn(B, d, d)).to(dev)
+    H64 = Q @ Q.transpose(1, 2) / d + torch.eye(d, dtype=Q.dtype,
+                                                device=dev)
+    g64 = torch.from_numpy(rng.randn(B, d)).to(dev)
+    for dt, tol in ((torch.float64, F64_REL_TOL), (torch.float32, 1e-4)):
+        H, g = H64.to(dt).contiguous(), g64.to(dt).contiguous()
+        k = lambda: linsolve.spd_solve_batched(H, g)
+        p = lambda: linsolve.gj_solve_plain(H, g)
+        xk, xp = k(), p()
+        err = float((xk - xp).abs().max())
+        rel = err / float(xp.abs().max())
+        ms, pms = _time_ms(k, 10), _time_ms(p, 3)
+        _say("kernels", kernel="spd_solve_batched", B=B, d=d,
+             dtype=str(dt).split(".")[1], max_abs_dx=f"{err:.3e}",
+             rel=f"{rel:.3e}", ms=f"{ms:.3f}", plain_ms=f"{pms:.3f}")
+        _check(rel <= tol, f"spd_solve_batched {dt}: rel err {rel}")
+        if dt == torch.float32:
+            res["spd_solve_batched"] = dict(ms=ms, plain_ms=pms,
+                                            max_abs_err=err)
+    return res
+
+
+def _converged_share(model):
+    conv, total = model.last_fit_converged
+    return conv / max(total, 1)
+
+
+def phase_fit(card):
+    import torch
+    from gdmix_tpu_torch.ops import linsolve, newton_lanes as nl
+    counters = (nl.newton_full, nl.newton_fgd, linsolve.spd_solve_batched)
+    with tempfile.TemporaryDirectory(prefix="gdx_smoke_fit_") as tmp:
+        fg = make_workload_flat(100_000, seed=0)
+        model, schema = stage_model(24, os.path.join(tmp, "primary"))
+        wide = make_workload_flat(16384, seed=4, d=120, max_nnz=8,
+                                  count_lo=16, count_hi=64)
+        wmodel, wschema = stage_model(120, os.path.join(tmp, "wide"))
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        # ---- the main path: one cold fit of each workload ----
+        t0 = time.perf_counter()
+        table = model.fit_flat(fg, {}, schema)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        primary_launches = {c.__name__: c.launches for c in counters}
+        wtable = wmodel.fit_flat(wide, {}, wschema)
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+        # ----
+        share = _converged_share(model)
+        wshare = _converged_share(wmodel)
+        t0 = time.perf_counter()
+        model.fit_flat(fg, {}, schema)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        E = len(fg)
+        _say("fit", workload="primary", entities=E,
+             converged=f"{share:.6f}", cold_s=f"{cold_s:.3f}",
+             warm_s=f"{warm_s:.3f}",
+             models_per_s=f"{E / warm_s:.1f}",
+             phases={k: round(v, 3) for k, v in model.last_fit_phases.items()},
+             launches=primary_launches,
+             peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+             card=repr(card))
+        _say("fit", workload="support_120", entities=len(wide),
+             converged=f"{wshare:.6f}", launches=launches)
+        _check(share >= 0.999, f"primary converged share {share}")
+        _check(wshare >= 0.999, f"support_120 converged share {wshare}")
+        _check(primary_launches["newton_full"] > 0
+               and primary_launches["newton_fgd"] > 0,
+               f"primary fit skipped a kernel: {primary_launches}")
+        _check(all(v > 0 for v in launches.values()),
+               f"a kernel of the path never launched: {launches}")
+        _check(len(table) == E and len(wtable) == len(wide),
+               "model count")
+        _check(bool(np.isfinite(table.coef_vals).all()
+                    and np.isfinite(table.icpt).all()), "non-finite model")
+
+        # the exported model reloads intact
+        path = os.path.join(tmp, "part-00000.avro")
+        model._save_model(path, table)
+        back = model._load_weights(path)
+        _check(len(back) == E, "avro reload count")
+
+        # a small cut against the float64 CPU solve (batch-major Cholesky,
+        # no kernel): coefficients of well-sampled entities agree
+        from gdmix_tpu_torch.data.bucketing import select_entities
+        small = select_entities(fg, np.arange(4096))
+        gm, _ = stage_model(24, os.path.join(tmp, "gpu"))
+        cm, _ = stage_model(24, os.path.join(tmp, "cpu"), dtype="float64",
+                            device="cpu")
+        tg, tc = gm.fit_flat(small, {}, schema), cm.fit_flat(small, {},
+                                                             schema)
+        # well-posed entities: 16+ records with both classes (one class
+        # sends the unregularized intercept off to infinity, where the two
+        # precisions stop at different points of a flat objective)
+        counts = np.asarray(small.counts)
+        pos = np.add.reduceat(small.columns["response"],
+                              np.cumsum(counts) - counts)
+        rows = np.flatnonzero((counts >= 16) & (pos > 0) & (pos < counts))
+        dmax = 0.0
+        for eid in np.asarray(small.entity_ids)[rows]:
+            dmax = max(dmax, float(np.abs(tg[eid].theta
+                                          - tc[eid].theta).max()))
+        _say("fit", reference="float64 cpu", entities=len(small),
+             compared=len(rows), max_abs_dtheta=f"{dmax:.3e}")
+        _check(dmax <= F32_TOL, f"fit vs float64 reference: {dmax}")
+    return launches
+
+
+def _write_cli_dataset(tmp, num_users=2000, d=24, seed=11):
+    """A per-user grouped TFRecord dataset in RandomEffectDriver's layout:
+    <tmp>/trainingData/active/partitionId=0/data.tfrecord."""
+    from gdmix_tpu_torch.io.feature_list import write_feature_list
+    from gdmix_tpu_torch.io.input_pipeline import (EntityGroup,
+                                                   write_per_entity_grouped)
+    rng = np.random.RandomState(seed)
+    groups, uid = [], 0
+    for e in range(num_users):
+        n = int(rng.randint(4, 64))
+        idx = [np.sort(rng.choice(d, rng.randint(1, 5), replace=False))
+               for _ in range(n)]
+        val = [rng.randn(len(i)) for i in idx]
+        logit = rng.randn() + np.array([v.sum() * 0.5 for v in val])
+        y = (rng.rand(n) < 1 / (1 + np.exp(-logit))).astype(np.float64)
+        groups.append(EntityGroup(
+            entity_id=str(e + 1000),
+            columns={"uid": np.arange(uid, uid + n, dtype=np.int64),
+                     "response": y,
+                     "offset": (0.1 * rng.randn(n)).astype(np.float32),
+                     "weight": np.ones(n, np.float32)},
+            ragged_indices=[i.astype(np.int64) for i in idx],
+            ragged_values=val))
+        uid += n
+    md_file = os.path.join(tmp, "tensor_metadata.json")
+    with open(md_file, "w") as f:
+        json.dump({"features": [
+            {"name": "per_entity", "dtype": "float", "shape": [d],
+             "isSparse": True},
+            {"name": "user_id", "dtype": "long", "shape": [],
+             "isSparse": False},
+            {"name": "uid", "dtype": "long", "shape": [], "isSparse": False},
+            {"name": "weight", "dtype": "float", "shape": [],
+             "isSparse": False},
+            {"name": "offset", "dtype": "float", "shape": [],
+             "isSparse": False}],
+            "labels": [{"name": "response", "dtype": "float", "shape": [],
+                        "isSparse": False}]}, f)
+    part = os.path.join(tmp, "trainingData", "active", "partitionId=0")
+    os.makedirs(part)
+    write_per_entity_grouped(os.path.join(part, "data.tfrecord"), groups,
+                             "user_id", "long", "per_entity")
+    feature_file = os.path.join(tmp, "features.csv")
+    write_feature_list([(f"f{i}", "") for i in range(d)], feature_file)
+    plist = os.path.join(tmp, "partitionList.txt")
+    with open(plist, "w") as f:
+        f.write("0")
+    return md_file, feature_file, plist, uid
+
+
+def phase_cli():
+    from gdmix_tpu_torch.io.model_avro import load_sparse_models_from_avro
+    from gdmix_tpu_torch.io.scores import read_scores
+    from gdmix_tpu_torch.params import SchemaParams
+    with tempfile.TemporaryDirectory(prefix="gdx_smoke_cli_") as tmp:
+        md_file, feature_file, plist, n_rec = _write_cli_dataset(tmp)
+        model_dir = os.path.join(tmp, "models")
+        score_dir = os.path.join(tmp, "scores")
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "gdmix_tpu_torch.gdmix",
+             "--action=train", "--stage=random_effect",
+             "--model_type=logistic_regression",
+             "--label_column_name=response", "--uid_column_name=uid",
+             "--weight_column_name=weight",
+             "--prediction_score_column_name=predictionScore",
+             f"--partition_list_file={plist}",
+             f"--training_score_dir={score_dir}",
+             f"--metadata_file={md_file}",
+             f"--training_data_dir={os.path.join(tmp, 'trainingData')}",
+             "--feature_bag=per_entity", f"--feature_file={feature_file}",
+             "--partition_entity=user_id",
+             f"--output_model_dir={model_dir}", "--l2_reg_weight=1.0",
+             "--regularize_bias=false", "--dtype=float32"],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], file=sys.stderr)
+        _check(proc.returncode == 0, f"CLI exit code {proc.returncode}")
+        models = load_sparse_models_from_avro(
+            os.path.join(model_dir, "part-00000.avro"), feature_file)
+        schema = SchemaParams(uid_column_name="uid",
+                              label_column_name="response",
+                              prediction_score_column_name="predictionScore")
+        scores = read_scores(os.path.join(score_dir, "partitionId=0"),
+                             schema)
+        ok = (len(models) == 2000 and len(scores["uid"]) == n_rec
+              and bool(np.isfinite(scores["predictionScore"]).all()))
+        _say("cli", rc=proc.returncode, models=len(models),
+             score_rows=len(scores["uid"]), wall_s=f"{wall:.2f}")
+        _check(ok, "CLI outputs: model count, score rows or finite scores")
+
+
+KERNELS = (
+    ("newton_full", "gdmix_tpu_torch/csrc/newton_lanes.cu",
+     "gdmix_tpu/ops/pallas/newton_lanes.py:175"),
+    ("newton_fgd", "gdmix_tpu_torch/csrc/newton_lanes.cu",
+     "gdmix_tpu/ops/pallas/newton_lanes.py:137"),
+    ("spd_solve_batched", "gdmix_tpu_torch/csrc/linsolve.cu",
+     "gdmix_tpu/ops/pallas/linsolve.py:27"),
+)
+
+
+def main():
+    sys.path.insert(0, ROOT)
+    import gdmix_tpu_torch  # noqa: F401  (outside a checkout: fail first)
+    card = phase_device()
+    import torch
+    phase_build()
+    res = phase_kernels()
+    launches = phase_fit(card)
+    phase_cli()
+    rows = [dict(name=name, route="cuda", source=src, replaces=rep,
+                 launches=launches[name],
+                 max_abs_err=res[name]["max_abs_err"], ms=res[name]["ms"],
+                 plain_ms=res[name]["plain_ms"])
+            for name, src, rep in KERNELS]
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

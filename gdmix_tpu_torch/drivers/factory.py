@@ -1,0 +1,28 @@
+"""Driver/model factories (reference gdmix/factory/*.py)."""
+from __future__ import annotations
+
+from gdmix_tpu_torch import constants
+from gdmix_tpu_torch.drivers.driver import Driver, RandomEffectDriver
+from gdmix_tpu_torch.models.random_effect_lr import RandomEffectLRModel
+from gdmix_tpu_torch.params import Params
+
+
+def get_model(params: Params, argv):
+    stage, model_type = params.stage, params.model_type
+    if model_type in (constants.LOGISTIC_REGRESSION,
+                      constants.LINEAR_REGRESSION):
+        if stage == constants.FIXED_EFFECT:
+            raise NotImplementedError("ROADMAP A.4: the fixed-effect LR model")
+        if model_type == constants.LINEAR_REGRESSION:
+            # same restriction as the reference (model_factory.py:46-47):
+            # the RE solver stack is logistic-only
+            raise ValueError("Does not support random effect model for "
+                             "plain linear regression")
+        return RandomEffectLRModel.from_argv(argv, params)
+    if model_type == constants.DETEXT:
+        raise NotImplementedError("ROADMAP A.8: the deep (detext) model")
+    raise ValueError(f"unsupported model_type {model_type}")
+
+
+def get_driver(params: Params, argv) -> Driver:
+    return RandomEffectDriver(params, get_model(params, argv))

@@ -1,0 +1,69 @@
+"""CLI entry point: ``python -m gdmix_tpu_torch.gdmix --<flags>``.
+
+The port of gdmix_tpu/gdmix.py (reference gdmix.py:13-40): one argv serves
+both the run's Params and the model's params; unknown flags are ignored by
+each parser. The port trains and scores random-effect logistic regression
+on one device.
+"""
+from __future__ import annotations
+
+import logging
+import os
+import sys
+
+from gdmix_tpu_torch import constants
+from gdmix_tpu_torch.drivers.factory import get_driver
+from gdmix_tpu_torch.params import Params, from_argv
+
+logging.basicConfig(
+    format="%(asctime)s:%(levelname)s:%(module)s:%(message)s",
+    datefmt="%Y/%m/%d %I:%M:%S", level=logging.INFO)
+
+
+def _print_help() -> None:
+    import dataclasses
+
+    from gdmix_tpu_torch.params import REParams, SchemaParams
+    print("usage: python -m gdmix_tpu_torch.gdmix --action=train|inference "
+          "--stage=random_effect --model_type=logistic_regression "
+          "--<flags>\n\n"
+          "One argv serves driver, schema, and model params; flags each parser"
+          " doesn't know are ignored (reference gdmix.py:13-40 behavior).\n")
+    for title, cls in (("driver params", Params),
+                       ("schema params", SchemaParams),
+                       ("random-effect LR params", REParams)):
+        print(f"{title}:")
+        for f in dataclasses.fields(cls):
+            default = "" if f.default is dataclasses.MISSING \
+                else f" (default: {f.default})"
+            print(f"  --{f.name}{default}")
+        print()
+
+
+def _refuse_multi_process_env() -> None:
+    """The JAX package joins a multi-host job from COORDINATOR_ADDRESS /
+    NUM_PROCESSES; the port runs on one device until multi-GPU lands."""
+    if os.environ.get("COORDINATOR_ADDRESS") or os.environ.get(
+            "NUM_PROCESSES"):
+        raise NotImplementedError(
+            "ROADMAP A.6: multi-GPU runs (COORDINATOR_ADDRESS/NUM_PROCESSES "
+            "are set)")
+
+
+def run(argv) -> None:
+    if not argv or "--help" in argv or "-h" in argv:
+        _print_help()
+        return
+    _refuse_multi_process_env()
+    params = from_argv(Params, argv)
+    driver = get_driver(params, argv)
+    if params.action == constants.ACTION_INFERENCE:
+        driver.run_inference(params)
+    elif params.action == constants.ACTION_TRAIN:
+        driver.run_training(params)
+    else:
+        raise ValueError(f"Unsupported action {params.action}")
+
+
+if __name__ == "__main__":
+    run(sys.argv[1:])

@@ -1,0 +1,517 @@
+"""Random-effect LR: thousands of per-entity models as batched device solves.
+
+Port of gdmix_tpu/models/random_effect_lr.py (the host plane). Entities are
+bucketed by sample count (data/bucketing.py), each bucket's per-entity
+problems are densified and solved at once by batched damped Newton
+(ops/newton.py, whose float32 path runs the hand-written kernels of
+ops/newton_lanes.py on a card), and the solutions become a columnar
+ModelTable that is exported as photon-ml model avro.
+
+Behavior kept from the JAX package: warm start with prior-model/feature
+reconciliation, sparsify-to-support and threshold, validation, active and
+passive scoring where entities without a model pass offsets through,
+intercept-only models, string or numeric entity ids.
+
+Not ported yet (each raises NotImplementedError naming its ROADMAP item):
+the dual, dense L-BFGS and sparse L-BFGS rungs of the solver ladder,
+two-phase Newton, coefficient variance, re_mode="sharded", streaming and
+the multi-sweep device cache.
+"""
+from __future__ import annotations
+
+import logging
+import os
+import time
+from functools import partial
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from gdmix_tpu_torch import constants
+from gdmix_tpu_torch.data.bucketing import EntityBucket, bucketize
+from gdmix_tpu_torch.device import resolve_device
+from gdmix_tpu_torch.io import fs, model_avro, scores as scores_io
+from gdmix_tpu_torch.io.input_pipeline import load_per_entity_grouped
+from gdmix_tpu_torch.io.metadata import DatasetMetadata
+from gdmix_tpu_torch.io.model_avro import SparseModel
+from gdmix_tpu_torch.io.model_table import ModelTable
+from gdmix_tpu_torch.models.api import Model
+from gdmix_tpu_torch.ops.newton import densify_bucket, newton_lr_batch
+from gdmix_tpu_torch.params import Params, REParams, from_argv
+from gdmix_tpu_torch.util.convert import newton_inputs_from_numpy
+
+logger = logging.getLogger(__name__)
+
+_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+_BUCKET_COLS = ("indices", "values", "offsets", "labels", "weights",
+                "sample_count", "theta0")
+
+
+def _newton_solver(u_cap, has_intercept, regularize_bias, lam, maxiter, ftol,
+                   pgtol):
+    """The primal Newton rung: bucket arrays → NewtonResult (θ [B, dim],
+    converged [B], iterations [B])."""
+    unreg_bias = has_intercept and not regularize_bias
+
+    def solve(a):
+        X = densify_bucket(a["indices"], a["values"], u_cap, has_intercept)
+        l2_mask = torch.ones(X.shape[2], dtype=X.dtype, device=X.device)
+        if unreg_bias:
+            l2_mask[0] = 0.0
+        return newton_lr_batch(
+            a["theta0"], X, a["labels"], a["weights"], a["offsets"],
+            a["sample_count"], l2_reg_weight=lam, l2_mask=l2_mask,
+            maxiter=maxiter, ftol=ftol, pgtol=pgtol,
+            static_unreg_bias=unreg_bias)
+    return solve
+
+
+def _record_scorer(mkey, mvals, icpt, ent_idx, qkey, values, offsets):
+    """Sparse per-record scoring against the CSR model table: each record
+    entry's (entity, feature-rank) key is located in the table's sorted
+    keys by one binary search; misses (a feature outside the entity's
+    support, or an entity without a model) contribute 0, so unmodeled
+    entities score logits = offsets (reference job_consumers.py:144-152).
+    Returns (per-coordinate logits, total logits)."""
+    pos = torch.clamp_max(torch.searchsorted(mkey, qkey), mkey.shape[0] - 1)
+    coef = torch.where(mkey[pos] == qkey, mvals[pos],
+                       torch.zeros((), dtype=mvals.dtype,
+                                   device=mvals.device))
+    z_pc = torch.sum(coef * values, dim=1) + icpt[ent_idx]
+    return z_pc, z_pc + offsets
+
+
+class RandomEffectLRModel(Model):
+    """Batched per-entity logistic regression."""
+
+    def __init__(self, model_params: REParams, base_params: Params,
+                 device=None):
+        self.model_params = model_params
+        self.base_params = base_params
+        self.checkpoint_path = model_params.output_model_dir
+        self.metadata_file = model_params.metadata_file
+        self.feature_bag_name = model_params.feature_bag
+        self.has_intercept = model_params.has_intercept
+        self.feature_file = (None if self.feature_bag_name is None
+                             else model_params.feature_file)
+        if model_params.training_data_dir is not None:
+            self.training_data_dir = os.path.join(
+                model_params.training_data_dir, constants.ACTIVE)
+            self.passive_training_data_dir = os.path.join(
+                model_params.training_data_dir, constants.PASSIVE)
+        else:
+            self.training_data_dir = None
+            self.passive_training_data_dir = None
+        self.validation_data_dir = model_params.validation_data_dir
+        self.metadata = DatasetMetadata.from_file(self.metadata_file)
+        self.num_features = self.metadata.num_features(self.feature_bag_name)
+        self.dtype = _DTYPES[model_params.dtype]
+        self.device = resolve_device(device)
+        self.variance_mode = model_params.random_effect_variance_mode
+        # (converged, solved) real entities of the last fit
+        self.last_fit_converged = (0, 0)
+
+    # ------------------------------------------------------------------ train --
+
+    def train(self, training_data_dir, validation_data_dir, metadata_file,
+              checkpoint_path, execution_context, schema_params):
+        logger.info("Kicking off random effect LR training on %s",
+                    self.device)
+        partition_index = execution_context[constants.PARTITION_INDEX]
+        avro_filename = f"part-{partition_index:05d}.avro"
+        model_file = os.path.join(self.model_params.output_model_dir,
+                                  avro_filename)
+
+        model_weights = self._load_weights(model_file, catch_exception=True)
+        if self.model_params.stream_chunk_entities > 0:
+            raise NotImplementedError(
+                "ROADMAP A.9: streaming ingestion (stream_chunk_entities)")
+        from gdmix_tpu_torch.io.input_pipeline import \
+            load_per_entity_grouped_flat
+        groups = load_per_entity_grouped_flat(
+            training_data_dir, self.metadata,
+            self.model_params.partition_entity, self.feature_bag_name,
+            data_format=self.model_params.data_format)
+        if groups is None:  # non-tfrecord / native-less / ragged presence
+            groups = load_per_entity_grouped(
+                training_data_dir, self.metadata,
+                self.model_params.partition_entity, self.feature_bag_name,
+                data_format=self.model_params.data_format)
+            model_weights = self.fit_groups(groups, model_weights,
+                                            schema_params)
+        else:
+            model_weights = self.fit_flat(groups, model_weights,
+                                          schema_params)
+        self._save_model(model_file, model_weights)
+
+        # Scoring
+        predict = partial(self._predict_file, schema_params=schema_params,
+                          model_weights=model_weights)
+        if validation_data_dir:
+            o = execution_context.get(constants.VALIDATION_OUTPUT_FILE)
+            o and predict(input_path=validation_data_dir, output_file=o)
+        if not self.model_params.disable_random_effect_scoring_after_training:
+            o = execution_context.get(constants.ACTIVE_TRAINING_OUTPUT_FILE)
+            o and predict(input_path=training_data_dir, output_file=o)
+            i = execution_context.get(constants.PASSIVE_TRAINING_DATA_DIR)
+            o = execution_context.get(constants.PASSIVE_TRAINING_OUTPUT_FILE)
+            i and o and predict(input_path=i, output_file=o)
+
+    # ---------------------------------------------------------- bucket solving --
+
+    def fit_flat(self, fg, model_weights: Mapping[str, SparseModel],
+                 schema_params,
+                 device_cache=None) -> Mapping[str, SparseModel]:
+        """Train a columnar FlatGroups partition through the configured
+        random-effect plane (REParams.re_mode). The port has the host plane
+        (numpy grouping + bucketize, fit_groups); "auto" takes it, as the
+        JAX package's auto does on one device."""
+        if self.model_params.re_mode == "sharded":
+            raise NotImplementedError(
+                "ROADMAP A.6: re_mode='sharded' (multi-GPU entity routing)")
+        return self.fit_groups(fg, model_weights, schema_params,
+                               device_cache=device_cache)
+
+    def fit_groups(self, groups, model_weights: Mapping[str, SparseModel],
+                   schema_params,
+                   device_cache=None) -> Mapping[str, SparseModel]:
+        """In-memory batched training of all entities in `groups` (a
+        List[EntityGroup] or columnar FlatGroups); returns the prior ∪ new
+        model mapping (prior-only entities carry forward, reference
+        :155-163) as a columnar ModelTable (a plain dict only when the prior
+        mixes variance presence)."""
+        if device_cache is not None:
+            raise NotImplementedError(
+                "ROADMAP A.9: multi-sweep device caches")
+        from gdmix_tpu_torch.data.bucketing import (FlatGroups,
+                                                    iter_bucketize_flat)
+        logger.info("Training %d entities", len(groups))
+        tt = [("start", time.time())]  # per-phase wall marks
+        bucketize_fn = (iter_bucketize_flat if isinstance(groups, FlatGroups)
+                        else bucketize)
+        buckets = bucketize_fn(groups, schema_params,
+                               self.model_params.offset_column_name,
+                               has_intercept=self.has_intercept,
+                               prior_models=model_weights)
+        # every bucket's solve is queued before any result is fetched; the
+        # bucketizer is a generator, so tier t+1 marshals on the host while
+        # tier t solves (the float32 kernels run asynchronously; the
+        # per-iteration forms synchronize once per iteration)
+        pending = []
+        for bucket in buckets:
+            arrays = self._bucket_device_arrays(bucket)
+            solve = self._select_solver(bucket.u_cap,
+                                        bucket.indices.shape[0],
+                                        bucket.n_cap)
+            pending.append((bucket, solve(arrays)))
+        tt.append(("marshal_dispatch", time.time()))
+        n_conv = n_real = 0
+        tables = []
+        for bucket, res in pending:
+            b_real = len(bucket.entity_ids)
+            n_conv += int(res.converged[:b_real].sum())
+            n_real += b_real
+            tables.append(self._collect_bucket_table(bucket, res.theta))
+        self.last_fit_converged = (n_conv, n_real)
+        new = ModelTable.concat(tables, has_intercept=self.has_intercept,
+                                with_variance=False)
+        tt.append(("solve_fetch_collect", time.time()))
+        # a capped entity's overflow groups each solve a model; keep the last
+        new = new.deduped_last()
+        prior = ModelTable.from_models(model_weights, self.has_intercept)
+        if prior is None:  # mixed variance presence in the prior dict
+            merged = dict(model_weights)
+            merged.update(new)
+        else:
+            merged = prior.merged_with(new)
+        tt.append(("merge", time.time()))
+        self.last_fit_phases = {nm: tb - ta for (_, ta), (nm, tb)
+                                in zip(tt, tt[1:])}
+        logger.info("%d models in total after training/refreshing. | %s",
+                    len(merged),
+                    " ".join(f"{nm}={dt:.3f}s"
+                             for nm, dt in self.last_fit_phases.items()))
+        return merged
+
+    def _bucket_device_arrays(self, bucket: EntityBucket):
+        """The bucket's solver inputs as tensors on the model's device."""
+        return newton_inputs_from_numpy(
+            {k: getattr(bucket, k) for k in _BUCKET_COLS}, self.device,
+            self.dtype)
+
+    def _select_solver(self, u_cap: int, B: int, n_cap: int):
+        """The solver ladder of the JAX package: Newton (dim ≤
+        newton_max_dim) → sample-space dual Newton (n < dim, kernel fits) →
+        densified L-BFGS → sparse L-BFGS. The port has the first rung."""
+        p = self.model_params
+        dim = u_cap + (1 if self.has_intercept else 0)
+        use_newton = (p.batch_solver == "newton"
+                      or (p.batch_solver == "auto"
+                          and dim <= p.newton_max_dim))
+        if not use_newton:
+            use_dual = ((p.batch_solver == "newton_dual"
+                         or (p.batch_solver == "auto" and n_cap < dim))
+                        and B * n_cap * n_cap <= p.dual_newton_max_elems
+                        and B * n_cap * dim <= p.dense_lbfgs_max_elems)
+            if use_dual:
+                raise NotImplementedError("ROADMAP A.3: dual Newton")
+            if B * n_cap * dim <= p.dense_lbfgs_max_elems:
+                raise NotImplementedError("ROADMAP A.3: dense L-BFGS")
+            raise NotImplementedError("ROADMAP A.3: sparse L-BFGS")
+        if self.variance_mode:
+            raise NotImplementedError(
+                "ROADMAP A.3: random-effect coefficient variance")
+        if (p.newton_phase1_iters > 0
+                and p.num_of_lbfgs_iterations > p.newton_phase1_iters
+                and B > 64):
+            raise NotImplementedError(
+                "two-phase Newton (newton_phase1_iters > 0) is on ROADMAP's "
+                "do-not-port list")
+        return _newton_solver(u_cap, self.has_intercept, p.regularize_bias,
+                              float(p.l2_reg_weight),
+                              p.num_of_lbfgs_iterations,
+                              float(p.lbfgs_tolerance), float(p.lbfgs_pgtol))
+
+    def _collect_bucket_table(self, bucket: EntityBucket,
+                              theta: torch.Tensor) -> ModelTable:
+        """The bucket's [B, dim] solution as ModelTable columns (one masked
+        gather, no per-entity python)."""
+        b_real = len(bucket.entity_ids)
+        thetas = theta[:b_real].to("cpu", torch.float64).numpy()
+        off = 1 if self.has_intercept else 0
+        tau = self.model_params.sparsity_threshold
+        thetas = np.where(np.abs(thetas) <= tau, 0.0, thetas)
+        u_count = bucket.u_count[:b_real].astype(np.int64)
+        u_cap = bucket.u_cap
+        mask = np.arange(u_cap)[None, :] < u_count[:, None]
+        offs = np.zeros(b_real + 1, np.int64)
+        np.cumsum(u_count, out=offs[1:])
+        return ModelTable(
+            ids=np.asarray(bucket.entity_ids, object), offs=offs,
+            coef_ids=bucket.unique_global_indices[:b_real][mask],
+            coef_vals=thetas[:, off:off + u_cap][mask],
+            icpt=thetas[:, 0].copy() if off else None)
+
+    # ---------------------------------------------------------------- scoring --
+
+    def score_groups(self, groups, model_weights: Dict[str, SparseModel],
+                     schema_params) -> Dict[str, np.ndarray]:
+        """In-memory scoring of grouped data (List[EntityGroup]). Returns
+        {uid, total, per_coordinate, labels?, weights?} flat arrays.
+        bucketize with the models as warm start puts θ on the data's own
+        support, so X·θ is exact and entities without a model score
+        logits = offsets (reference job_consumers.py:144-152)."""
+        buckets = bucketize(groups, schema_params,
+                            self.model_params.offset_column_name,
+                            has_intercept=self.has_intercept,
+                            prior_models=model_weights)
+        uids, totals, per_coords, labels, weights = [], [], [], [], []
+        has_label = schema_params.label_column_name is not None and any(
+            schema_params.label_column_name in g.columns for g in groups)
+        has_weight = schema_params.weight_column_name is not None and any(
+            schema_params.weight_column_name in g.columns for g in groups)
+        for bucket in buckets:
+            a = self._bucket_device_arrays(bucket)
+            X = densify_bucket(a["indices"], a["values"], bucket.u_cap,
+                               self.has_intercept)
+            z_pc = torch.einsum("bnd,bd->bn", X, a["theta0"])
+            z = (z_pc + a["offsets"]).to("cpu", torch.float64).numpy()
+            z_pc = z_pc.to("cpu", torch.float64).numpy()
+            b_real = len(bucket.entity_ids)
+            n = bucket.sample_count[:b_real].astype(np.int64)
+            mask = np.arange(bucket.n_cap)[None, :] < n[:, None]
+            uids.append(bucket.uids[:b_real][mask])
+            totals.append(z[:b_real][mask])
+            per_coords.append(z_pc[:b_real][mask])
+            labels.append(bucket.labels[:b_real][mask])
+            weights.append(bucket.weights[:b_real][mask])
+        out = {"uid": np.concatenate(uids), "total": np.concatenate(totals),
+               "per_coordinate": np.concatenate(per_coords)}
+        if has_label:
+            out["labels"] = np.concatenate(labels)
+        if has_weight:
+            out["weights"] = np.concatenate(weights)
+        return out
+
+    def _model_table(self, model_weights: Dict[str, SparseModel]):
+        """Sparse CSR scoring table (ModelTable.scoring_csr) + id→row map;
+        row E is the implicit zero model (entities without a model score as
+        logits = offsets)."""
+        if isinstance(model_weights, ModelTable):
+            mkey, mvals, icpt, uniq = model_weights.scoring_csr()
+            return mkey, mvals, icpt, uniq, model_weights.id2row
+        E = len(model_weights)
+        off = 1 if self.has_intercept else 0
+        icpt = np.zeros(E + 1)
+        id2row: Dict[str, int] = {}
+        rows_l, fids_l, vals_l = [], [], []
+        for row, (mid, sm) in enumerate(model_weights.items()):
+            id2row[mid] = row
+            if off:
+                icpt[row] = sm.theta[0]
+            k = len(sm.unique_global_indices)
+            if k:
+                rows_l.append(np.full(k, row, np.int64))
+                fids_l.append(np.asarray(sm.unique_global_indices, np.int64))
+                vals_l.append(np.asarray(sm.theta[off:], np.float64))
+        if rows_l:
+            rows = np.concatenate(rows_l)
+            fids = np.concatenate(fids_l)
+            vals = np.concatenate(vals_l)
+        else:
+            rows = fids = np.zeros(0, np.int64)
+            vals = np.zeros(0, np.float64)
+        uniq = np.unique(fids)
+        key = rows * np.int64(len(uniq) + 1) + np.searchsorted(uniq, fids)
+        order = np.argsort(key, kind="stable")
+        return key[order], vals[order], icpt, uniq, id2row
+
+    def _score_columns(self, table, ent_idx, n, columns, indices, values,
+                       schema_params):
+        p = self.model_params
+        mkey, mvals, icpt, uniq, _ = table
+        offsets = (columns[p.offset_column_name].astype(np.float64)
+                   if p.offset_column_name in columns else np.zeros(n))
+        if indices is None:
+            indices = np.zeros((n, 1), np.int32)
+            values = np.zeros((n, 1))
+        # rank-compact the record feature ids against the table's support
+        # union; misses take rank U — the hole in each entity's key span, so
+        # they can never match a model key (coefficient 0)
+        U = len(uniq)
+        flat = np.asarray(indices, np.int64).ravel()
+        rank = np.searchsorted(uniq, flat)
+        hit = rank < U
+        if U:  # U == 0 (all-intercept-only table): nothing can match
+            hit &= uniq[np.minimum(rank, U - 1)] == flat
+        qkey = (np.asarray(ent_idx, np.int64)[:, None] * np.int64(U + 1)
+                + np.where(hit, rank, U).reshape(np.shape(indices)))
+        if not len(mkey):  # no coefficients anywhere: sentinel never matches
+            mkey, mvals = np.full(1, -1, np.int64), np.zeros(1)
+        dev, dt = self.device, self.dtype
+        z_pc, z = _record_scorer(
+            torch.as_tensor(np.asarray(mkey, np.int64), device=dev),
+            torch.as_tensor(mvals, dtype=dt, device=dev),
+            torch.as_tensor(icpt, dtype=dt, device=dev),
+            torch.as_tensor(np.asarray(ent_idx, np.int64), device=dev),
+            torch.as_tensor(qkey, device=dev),
+            torch.as_tensor(values, dtype=dt, device=dev),
+            torch.as_tensor(offsets, dtype=dt, device=dev))
+        out = {"uid": columns[schema_params.uid_column_name].astype(np.int64),
+               "total": z.to("cpu", torch.float64).numpy(),
+               "per_coordinate": z_pc.to("cpu", torch.float64).numpy()}
+        if schema_params.label_column_name in columns:
+            out["labels"] = columns[schema_params.label_column_name] \
+                .astype(np.float64)
+        if schema_params.weight_column_name and \
+                schema_params.weight_column_name in columns:
+            out["weights"] = columns[schema_params.weight_column_name] \
+                .astype(np.float64)
+        return out
+
+    def score_flat(self, fg, model_weights: Dict[str, SparseModel],
+                   schema_params) -> Dict[str, np.ndarray]:
+        """Per-record scoring of a columnar FlatGroups against the sparse
+        CSR model table: one id→row lookup per entity, then one
+        binary-search join over every record entry."""
+        table = self._model_table(model_weights)
+        E = len(model_weights)
+        id2row = table[4]
+        rows = np.fromiter((id2row.get(str(e), E) for e in fg.entity_ids),
+                           dtype=np.int64, count=len(fg))
+        ent_idx = np.repeat(rows, fg.counts)
+        n = int(np.asarray(fg.counts).sum())
+        return self._score_columns(table, ent_idx, n, fg.columns, fg.indices,
+                                   fg.values, schema_params)
+
+    def _predict_file(self, input_path: str, output_file: str, schema_params,
+                      model_weights: Dict[str, SparseModel]) -> None:
+        logger.info("Start inference for %s.", input_path)
+        if self.model_params.stream_chunk_entities > 0:
+            raise NotImplementedError(
+                "ROADMAP A.9: streaming ingestion (stream_chunk_entities)")
+        from gdmix_tpu_torch.io.input_pipeline import \
+            load_per_entity_grouped_flat
+        fg = load_per_entity_grouped_flat(
+            input_path, self.metadata, self.model_params.partition_entity,
+            self.feature_bag_name, data_format=self.model_params.data_format)
+        if fg is not None:
+            if not len(fg):
+                logger.info("No entities found in %s, skipping.", input_path)
+                return
+            arrays = self.score_flat(fg, model_weights, schema_params)
+        else:
+            groups = load_per_entity_grouped(
+                input_path, self.metadata, self.model_params.partition_entity,
+                self.feature_bag_name,
+                data_format=self.model_params.data_format)
+            if not groups:
+                logger.info("No entities found in %s, skipping.", input_path)
+                return
+            arrays = self.score_groups(groups, model_weights, schema_params)
+        scores_io.write_scores(
+            output_file, schema_params, arrays["uid"], arrays["total"],
+            scores_per_coordinate=arrays["per_coordinate"],
+            labels=arrays.get("labels"), weights=arrays.get("weights"))
+        logger.info("Inference complete: %s.", input_path)
+
+    # --------------------------------------------------------------- save/load --
+
+    def _save_model(self, output_file: str,
+                    model_coefficients: Dict[str, SparseModel]) -> None:
+        if isinstance(model_coefficients, ModelTable):
+            n = model_avro.export_model_table_to_avro(
+                model_coefficients, self.feature_file, output_file,
+                sparsity_threshold=self.model_params.sparsity_threshold)
+            logger.info("Saved %d random-effect models to %s", n, output_file)
+            return
+        model_ids = list(model_coefficients.keys())
+        biases = [] if self.has_intercept else None
+        if self.feature_file is None:
+            list_of_weight_indices = list_of_weight_values = None
+            assert self.num_features == 1
+        else:
+            list_of_weight_indices = []
+            list_of_weight_values = []
+        for entity_id, sm in model_coefficients.items():
+            idx = 0
+            if self.has_intercept:
+                biases.append(sm.theta[0])
+                idx = 1
+            if list_of_weight_indices is not None:
+                list_of_weight_values.append(sm.theta[idx:])
+                list_of_weight_indices.append(sm.unique_global_indices)
+        fs.makedirs(os.path.dirname(output_file) or ".", exist_ok=True)
+        model_avro.export_linear_model_to_avro(
+            model_ids, list_of_weight_indices, list_of_weight_values, biases,
+            self.feature_file, output_file,
+            sparsity_threshold=self.model_params.sparsity_threshold)
+        logger.info("Saved %d random-effect models to %s", len(model_ids),
+                    output_file)
+
+    def _load_weights(self, model_file: str, catch_exception: bool = False
+                      ) -> Dict[str, SparseModel]:
+        if not fs.exists(model_file):
+            if catch_exception:
+                return {}
+            raise FileNotFoundError(f"Model file {model_file} does not exist")
+        return model_avro.load_sparse_models_from_avro(
+            model_file, self.feature_file, has_intercept=self.has_intercept,
+            as_table=True)
+
+    # ---------------------------------------------------------------- predict --
+
+    def predict(self, output_dir, input_data_path, metadata_file,
+                checkpoint_path, execution_context, schema_params):
+        partition_index = execution_context[constants.PARTITION_INDEX]
+        avro_filename = f"part-{partition_index:05d}.avro"
+        model_weights = self._load_weights(
+            os.path.join(checkpoint_path, avro_filename))
+        self._predict_file(input_data_path,
+                           os.path.join(output_dir, avro_filename),
+                           schema_params, model_weights)
+
+    @staticmethod
+    def from_argv(argv, base_params: Params) -> "RandomEffectLRModel":
+        return RandomEffectLRModel(from_argv(REParams, argv), base_params)

@@ -1,0 +1,111 @@
+"""Build and load the hand-written CUDA kernels of `gdmix_tpu_torch/csrc`.
+
+Each `csrc/<name>.cu` compiles with nvcc for Hopper (sm_90a) into a shared
+library with a plain C interface, loaded through ctypes. Libraries go to
+`build/gdmix_tpu_torch/` in the checkout, named by a hash of their sources,
+and are built on first use inside the process that launches them: never at
+import, so the modules import on machines without nvcc or a card.
+
+Every C entry point returns `cudaGetLastError()` right after its launch, and
+`check` raises on anything but 0: a refused launch never runs, and a later
+synchronize would not report it.
+"""
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from typing import Dict
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "gdmix_tpu_torch")
+GENCODE = "arch=compute_90a,code=sm_90a"
+
+# seconds spent compiling each library in this process (0.0 when it was
+# already built), and the ptxas register / shared-memory report
+build_seconds: Dict[str, float] = {}
+ptxas_report: Dict[str, str] = {}
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (os.path.join(home, "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where "
+                       "the CUDA toolkit is installed")
+
+
+def _source_hash(src: str) -> str:
+    h = hashlib.sha256(GENCODE.encode())
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The library built from csrc/<name>.cu, compiled if needed."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    src = os.path.join(CSRC, f"{name}.cu")
+    so = os.path.join(BUILD_DIR, f"lib{name}-{_source_hash(src)}.so")
+    build_seconds[name] = 0.0
+    if not os.path.exists(so):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [_nvcc(), "-gencode", GENCODE, "-std=c++17", "-O3", "-shared",
+             "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, src],
+            capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{res.stderr}")
+        os.replace(tmp, so)
+        build_seconds[name] = time.perf_counter() - t0
+        ptxas_report[name] = res.stderr
+    lib = ctypes.CDLL(so)
+    lib.gdx_error_string.restype = ctypes.c_char_p
+    lib.gdx_error_string.argtypes = [ctypes.c_int]
+    _libs[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.gdx_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def require_cuda(what: str, *tensors: torch.Tensor,
+                 dtypes=(torch.float32,)) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor of an accepted
+    type on a Hopper card (the kernels are built for sm_90a only)."""
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{what}: expected CUDA tensors, got {t.device}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{what}: dtype {t.dtype} not in {dtypes}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: tensors must be contiguous")
+    major, minor = torch.cuda.get_device_capability(tensors[0].device)
+    if (major, minor) != (9, 0):
+        raise RuntimeError(f"{what}: kernels are built for sm_90a; this card "
+                           f"is sm_{major}{minor}")
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)

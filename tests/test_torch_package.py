@@ -1,0 +1,206 @@
+"""Guards of the PyTorch port (gdmix_tpu_torch):
+
+- it imports no JAX and nothing of the JAX package, by an AST scan of every
+  file and by importing every module in a fresh interpreter (this test
+  process has JAX loaded already, through tests/conftest.py);
+- its copies of the JAX-free host modules equal their originals once the
+  import prefix (and the citation form of reference paths) is rewritten,
+  apart from the deliberate edits listed here;
+- a CUDA kernel wrapper handed a non-CPU tensor launches its kernel or
+  raises: it never falls back to the plain version.
+"""
+import ast
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "gdmix_tpu_torch")
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "gdmix_tpu"}
+
+
+def _port_files():
+    for dirpath, _, files in os.walk(PORT):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+
+
+def _imported_roots(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_no_jax_imports_in_any_port_file():
+    bad = {os.path.relpath(p, ROOT): sorted(set(_imported_roots(p))
+                                            & FORBIDDEN)
+           for p in _port_files()}
+    bad = {k: v for k, v in bad.items() if v}
+    assert not bad, bad
+    assert len(list(_port_files())) > 30
+
+
+def test_port_imports_without_jax_in_fresh_interpreter():
+    code = ("import importlib, pkgutil, sys\n"
+            "import gdmix_tpu_torch\n"
+            "for m in pkgutil.walk_packages(gdmix_tpu_torch.__path__,\n"
+            "                               'gdmix_tpu_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "import gdmix_tpu_torch.gdmix\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
+            "assert not bad, bad\n" % (sorted(FORBIDDEN),))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("JAX_", "XLA_"))}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+
+
+MECHANICAL = [
+    "constants.py", "params.py", "models/api.py",
+    "io/__init__.py", "io/fs.py", "io/tfrecord.py", "io/proto.py",
+    "io/avro.py", "io/avro_dataset.py", "io/metadata.py",
+    "io/feature_list.py", "io/shard.py", "io/snappy.py", "io/scores.py",
+    "io/model_avro.py", "io/model_table.py", "io/input_pipeline.py",
+    "data/__init__.py", "data/partitioner.py", "data/offset.py",
+    "data/movielens.py", "data/metadata_gen.py", "data/bucketing.py",
+    "native/__init__.py",
+]
+
+# The deliberate edits, (original, copy) after the prefix rewrite.
+EDITS = {
+    # the bucket plan's dispatch latency: the JAX package probes the device
+    # with a jax.jit call; the port fixes the non-relay class it reports
+    "data/bucketing.py": [
+        ("    from gdmix_tpu_torch.util.timing import "
+         "nominal_dispatch_latency_s\n",
+         "    # the non-relay dispatch-latency class (util/timing.py), fixed: "
+         "no probe\n"),
+        ("nominal_dispatch_latency_s()", "1e-3"),
+    ],
+    # the C++ sources are read from the JAX package's tree by path; the
+    # libraries build, atomically, into build/gdmix_tpu_torch/native
+    "native/__init__.py": [
+        ('_DIR = os.path.dirname(os.path.abspath(__file__))\n',
+         "# The C++ sources are the JAX package's, read by path (that package"
+         " is\n# never imported); the libraries build into the checkout's "
+         "build/ tree.\n"
+         "_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(\n"
+         "    os.path.abspath(__file__))))\n"
+         '_SRC_DIR = os.path.join(_ROOT, "gdmix_tpu", "native")\n'
+         '_DIR = os.path.join(_ROOT, "build", "gdmix_tpu_torch", "native")\n'),
+        ('os.path.join(_DIR, "tfrecord_io.cc")',
+         'os.path.join(_SRC_DIR, "tfrecord_io.cc")'),
+        ('os.path.join(_DIR, "avro_io.cc")',
+         'os.path.join(_SRC_DIR, "avro_io.cc")'),
+        ('os.path.join(_DIR, "bucketize_ops.cc")',
+         'os.path.join(_SRC_DIR, "bucketize_ops.cc")'),
+        ('def _build() -> bool:\n'
+         '    try:\n'
+         '        subprocess.run(\n'
+         '            ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", '
+         '"-pthread",\n'
+         '             _SRC, "-o", _SO],\n'
+         '            check=True, capture_output=True, timeout=120)\n',
+         'def _gxx(args: List[str], so: str) -> None:\n'
+         '    """g++ into a per-process name, then an atomic rename: processes'
+         ' that\n'
+         '    share the build directory never load a half-written library."'
+         '""\n'
+         '    os.makedirs(os.path.dirname(so), exist_ok=True)\n'
+         '    tmp = f"{so}.{os.getpid()}.tmp"\n'
+         '    subprocess.run(["g++"] + args + ["-o", tmp],\n'
+         '                   check=True, capture_output=True, timeout=120)\n'
+         '    os.replace(tmp, so)\n'
+         '\n\n'
+         'def _build() -> bool:\n'
+         '    try:\n'
+         '        _gxx(["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread", '
+         '_SRC], _SO)\n'),
+        ('            subprocess.run(\n'
+         '                ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", '
+         '_AVRO_SRC,\n'
+         '                 "-o", _AVRO_SO, "-lz"],\n'
+         '                check=True, capture_output=True, timeout=120)\n',
+         '            _gxx(["-O3", "-shared", "-fPIC", "-std=c++17", '
+         '_AVRO_SRC, "-lz"],\n'
+         '                 _AVRO_SO)\n'),
+        ('            subprocess.run(\n'
+         '                ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", '
+         '"-pthread",\n'
+         '                 _BKT_SRC, "-o", _BKT_SO],\n'
+         '                check=True, capture_output=True, timeout=120)\n',
+         '            _gxx(["-O3", "-shared", "-fPIC", "-std=c++17", '
+         '"-pthread",\n'
+         '                  _BKT_SRC], _BKT_SO)\n'),
+    ],
+}
+
+
+@pytest.mark.parametrize("rel", MECHANICAL)
+def test_host_copy_equals_original(rel):
+    with open(os.path.join(ROOT, "gdmix_tpu", rel)) as f:
+        want = re.sub(r"\bgdmix_tpu\.", "gdmix_tpu_torch.", f.read())
+    want = want.replace("from gdmix_tpu import", "from gdmix_tpu_torch import")
+    # the originals cite the reference GDMix sources by an absolute path of
+    # a local checkout; the copies cite them as linkedin/gdmix:<path>
+    want = re.sub(r"/\w+/reference/", "linkedin/gdmix:", want)
+    for old, new in EDITS.get(rel, []):
+        assert old in want, (rel, old)
+        want = want.replace(old, new)
+    with open(os.path.join(PORT, rel)) as f:
+        got = f.read()
+    assert got == want, rel
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the wrappers launch their kernels")
+
+
+def test_cuda_wrappers_raise_without_a_card():
+    """Non-CPU tensors never take the plain versions: each wrapper checks
+    for a CUDA tensor on a Hopper card and raises otherwise, and the kernel
+    build raises where nvcc is missing."""
+    _no_card()
+    from gdmix_tpu_torch.ops import _cuda, linsolve, newton_lanes as nl
+    with pytest.raises((RuntimeError, AssertionError)):
+        torch.zeros(1, device="cuda")
+    m = lambda *shape: torch.zeros(*shape, device="meta")
+    B, n, d = 4, 8, 5
+    calls = [
+        lambda: linsolve.spd_solve_batched(m(B, d, d), m(B, d)),
+        lambda: nl.newton_full(m(B, d), m(B, n, d), m(B, n), m(B, n),
+                               m(B, n), m(B), lam=1.0, unreg_bias=True,
+                               maxiter=5, ftol=1e-12, pgtol=1e-5),
+        lambda: nl.newton_fgd(m(B, n, d), m(B, n), m(B, n), m(B, n), m(B),
+                              m(B, d), lam=1.0, unreg_bias=True),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="expected CUDA tensors"):
+            call()
+    for fn in (linsolve.spd_solve_batched, nl.newton_full, nl.newton_fgd):
+        assert fn.launches == 0
+    try:
+        _cuda._nvcc()
+    except RuntimeError:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            _cuda.load("linsolve")
+
+
+def test_resolve_device_is_cpu_without_a_card():
+    _no_card()
+    from gdmix_tpu_torch.device import pad_to_multiple, resolve_device
+    assert resolve_device() == torch.device("cpu")
+    assert resolve_device("cuda:0") == torch.device("cuda:0")
+    assert [pad_to_multiple(x, 8) for x in (1, 8, 25)] == [8, 8, 32]
