@@ -4,21 +4,34 @@
     python3 chip_smoke.py        # from the root of a checkout
 
 Phases, each printing one result line; any failure exits non-zero:
-  1. device  — the card's name and power limit (nvidia-smi); TF32 off.
-  2. build   — the hand-written CUDA kernels from csrc/, nvcc for sm_90a.
-  3. kernels — each kernel against its plain PyTorch version at the main
-               path's shapes, on inputs made from a numpy seed.
-  4. fit     — RandomEffectLRModel.fit_flat at full width: the primary
-               random-effect workload (100k entities, 24 features, pareto
-               sample counts 2..64), then a moderate-support cut
-               (64 < dim ≤ 128) that runs the batch-major Newton and its
-               linear solve. Kernel launch counts are zeroed before and
-               read after; a small cut is checked against the float64 CPU
-               solve.
-  5. cli     — `python -m gdmix_tpu_torch.gdmix --action=train
-               --stage=random_effect` on a small written dataset.
-Then one JSON line of per-kernel results and, last, the device line.
-Exits non-zero without a result when no card is present. Imports no JAX.
+  1. device   — the card's name and power limit (nvidia-smi); TF32 off.
+  2. build    — the hand-written CUDA kernels from csrc/, one nvcc per
+                source for sm_90a, all started together.
+  3. kernels  — each kernel against its plain PyTorch version at the main
+                path's shapes: the RE kernels on inputs made from a numpy
+                seed; the FE kernels at the JAX bench's full width
+                (N = 4,997,120, D = 10,000, K = 16) with uniform and
+                Zipf(1.2) ids, logistic and linear, plus a float64 cut.
+  4. fit      — RandomEffectLRModel.fit_flat at full width: the primary
+                random-effect workload (100k entities, 24 features, pareto
+                sample counts 2..64), then a moderate-support cut
+                (64 < dim ≤ 128) that runs the batch-major Newton and its
+                linear solve; a small cut against the float64 CPU solve.
+  5. fe_fit   — FixedEffectLRModel.fit_data at full width through the fused
+                kernel (grad_mode auto) and through the flat pair
+                (grad_mode pallas_flat), each against an L-BFGS fit of the
+                same objective through the plain version on the card.
+  6. pipeline — `python -m gdmix_tpu_torch.workflow.main --mode in_memory
+                --num_sweeps 2` (run in this process, so the launch counts
+                can be read) on the synthetic movieLens data: global →
+                per-user → per-movie; validation AUC must climb.
+  7. cli      — `python -m gdmix_tpu_torch.gdmix --action=train` in a fresh
+                process: --stage=random_effect on a small written dataset,
+                --stage=fixed_effect on the movieLens global data.
+Launch counts are zeroed just before each main-path run (4, 5, 6) and read
+just after. Then one JSON line of per-kernel results and, last, the device
+line. Exits non-zero without a result when no card is present. Imports no
+JAX.
 """
 from __future__ import annotations
 
@@ -34,6 +47,15 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 F32_TOL = 5e-3     # the JAX package's own lanes-vs-batch-major bound
 F64_REL_TOL = 1e-9
+# FE kernels against their plain versions: the f32 sums run in another
+# order (atomics), so loss ≤ 1e-5 relative and max|Δg| ≤ 1e-4·max|g|; in
+# float64 both ≤ 1e-12 relative
+FE_LOSS_RTOL, FE_GRAD_RTOL, FE_F64_RTOL = 1e-5, 1e-4, 1e-12
+# the fitted objective against the plain-version fit: both stop at ftol
+# 1e-12 or ‖g‖∞ ≤ 1e-5 from float32 gradients summed in other orders
+FE_FIT_RTOL = 1e-6
+FE_N, FE_D, FE_K = 4_997_120, 10_000, 16    # bench.py:536-537, :521
+DEV = "cuda:0"
 
 
 def _say(phase: str, **fields) -> None:
@@ -151,6 +173,91 @@ def stage_model(d, tmp, dtype="float32", device=None):
                                device=device), base_params
 
 
+def fe_problem(ids, seed=0, n=None, dtype=None):
+    """The JAX bench's FE batch (bench.py:562-582), rebuilt on the card
+    from a seeded torch.Generator: ids uniform on [0, d) or inverse-CDF
+    Zipf(1.2) on [1, d] shifted to 0 (the item-popularity class: id 0 is the
+    hottest), values N(0,1), offsets 0.1·N(0,1), labels Bernoulli(0.5),
+    weight 1."""
+    import torch
+    from gdmix_tpu_torch.ops.logistic import SparseBatch
+    dev = torch.device(DEV)
+    n, d, k = n or FE_N, FE_D, FE_K
+    dtype = dtype or torch.float32
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if ids == "uniform":
+        idx = torch.randint(0, d, (n, k), generator=g, device=dev,
+                            dtype=torch.int32)
+    else:
+        u = torch.empty(n, k, dtype=torch.float64, device=dev).uniform_(
+            1e-7, 1.0, generator=g)
+        a = 1.0 - 1.2
+        idx = (((1.0 + u * (float(d) ** a - 1.0)) ** (1.0 / a)).long() - 1
+               ).clamp_(0, d - 1).to(torch.int32)
+        del u
+    values = torch.randn(n, k, generator=g, device=dev, dtype=dtype)
+    offsets = 0.1 * torch.randn(n, generator=g, device=dev, dtype=dtype)
+    labels = torch.bernoulli(torch.full((n,), 0.5, device=dev, dtype=dtype),
+                             generator=g)
+    return SparseBatch(idx, values, offsets, labels,
+                       torch.ones(n, device=dev, dtype=dtype))
+
+
+def fe_stage_model(tmp, grad_mode):
+    """FixedEffectLRModel with the JAX bench's settings (bench.py:541-559)."""
+    from gdmix_tpu_torch.models.fixed_effect_lr import FixedEffectLRModel
+    from gdmix_tpu_torch.params import FixedLRParams, Params
+    os.makedirs(tmp, exist_ok=True)
+    md_file = os.path.join(tmp, "tensor_metadata.json")
+    with open(md_file, "w") as f:
+        json.dump({"features": [
+            {"name": "global", "dtype": "float", "shape": [FE_D],
+             "isSparse": True},
+            {"name": "uid", "dtype": "long", "shape": [], "isSparse": False},
+            {"name": "offset", "dtype": "float", "shape": [],
+             "isSparse": False}],
+            "labels": [{"name": "response", "dtype": "float", "shape": [],
+                        "isSparse": False}]}, f)
+    model_params = FixedLRParams(
+        metadata_file=md_file, output_model_dir=tmp, feature_bag="global",
+        l2_reg_weight=1.0, regularize_bias=False, dtype="float32",
+        grad_mode=grad_mode)
+    base_params = Params(
+        action="train", stage="fixed_effect",
+        model_type="logistic_regression", label_column_name="response",
+        uid_column_name="uid",
+        prediction_score_column_name="predictionScore")
+    return FixedEffectLRModel(model_params, base_params), base_params
+
+
+def movielens_config(ml, out_dir):
+    """The reference's movieLens workflow (gdmix-workflow/test/resources/
+    lr-movieLens.yaml): global fixed effect, per-user and per-movie random
+    effects, with the repo's e2e settings."""
+    gdmix_config = {"model_type": "logistic_regression",
+                    "label_column_name": "response",
+                    "uid_column_name": "uid",
+                    "prediction_score_column_name": "predictionScore",
+                    "weight_column_name": "weight"}
+
+    def coord(bag, **extra):
+        return dict(
+            training_data_dir=os.path.join(ml, bag, "trainingData"),
+            validation_data_dir=os.path.join(ml, bag, "validationData"),
+            feature_file=os.path.join(ml, bag, "featureList", bag),
+            feature_bag=bag,
+            metadata_file=os.path.join(ml, bag, "metadata",
+                                       "tensor_metadata.json"),
+            l2_reg_weight=1.0, regularize_bias=False,
+            gdmix_config=gdmix_config, **extra)
+    return {"output_dir": out_dir,
+            "fixed_effect_config": {"global": coord("global")},
+            "random_effect_config": {
+                "per-user": coord("per_user", partition_entity="user_id"),
+                "per-movie": coord("per_movie",
+                                   partition_entity="movie_id")}}
+
+
 # ------------------------------------------------------------------ phases --
 
 def phase_device():
@@ -174,8 +281,7 @@ def phase_device():
 def phase_build():
     from gdmix_tpu_torch.ops import _cuda
     t0 = time.perf_counter()
-    for name in ("linsolve", "newton_lanes"):
-        _cuda.load(name)
+    _cuda.load_all(("fe_loss_grad", "linsolve", "newton_lanes"))
     _say("build", seconds=round(time.perf_counter() - t0, 2),
          nvcc={k: round(v, 2) for k, v in _cuda.build_seconds.items()})
     for name, rep in _cuda.ptxas_report.items():
@@ -265,6 +371,89 @@ def phase_kernels():
         if dt == torch.float32:
             res["spd_solve_batched"] = dict(ms=ms, plain_ms=pms,
                                             max_abs_err=err)
+    return res
+
+
+def _rel(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def phase_fe_kernels():
+    """The three FE kernels against their plain versions at full width,
+    uniform and Zipf(1.2) ids, logistic and linear; a float64 cut."""
+    import torch
+    from gdmix_tpu_torch.ops import fe_loss_grad as fe
+    res = {n: dict(max_abs_err=0.0) for n in (
+        "fe_loss_grad_fused", "fe_gather_entries", "fe_scatter_entries")}
+    for ids in ("uniform", "zipf"):
+        b = fe_problem(ids)
+        g = torch.Generator(device=DEV).manual_seed(1)
+        x = 0.05 * torch.randn(FE_D + 1, generator=g, device=DEV)
+        args = (x, b.indices, b.values, b.labels, b.weights, b.offsets, FE_D)
+        for linear in (False, True):
+            k = lambda: fe.fe_loss_grad_fused(*args, linear=linear)
+            fl = lambda: fe.fe_loss_grad_flat(*args, linear=linear)
+            p = lambda: fe.fe_loss_grad_plain(*args, linear=linear)
+            (lp, gp) = p()
+            errs = {}
+            for name, (lv, gv) in (("fused", k()), ("flat", fl())):
+                l_rel = abs(float(lv - lp)) / abs(float(lp))
+                g_rel = _rel(gv, gp)
+                errs[name] = f"{l_rel:.2e}/{g_rel:.2e}"
+                _check(l_rel <= FE_LOSS_RTOL and g_rel <= FE_GRAD_RTOL,
+                       f"FE {name} {ids} linear={linear}: loss rel {l_rel}"
+                       f", grad rel {g_rel}")
+                if name == "fused":
+                    res["fe_loss_grad_fused"]["max_abs_err"] = max(
+                        res["fe_loss_grad_fused"]["max_abs_err"],
+                        float((gv - gp).abs().max()))
+            ms, fms, pms = _time_ms(k, 10), _time_ms(fl, 10), _time_ms(p, 5)
+            _say("kernels", kernel="fe_loss_grad", ids=ids, linear=linear,
+                 N=FE_N, D=FE_D, K=FE_K, fused_ms=f"{ms:.3f}",
+                 flat_ms=f"{fms:.3f}", plain_ms=f"{pms:.3f}",
+                 loss_rel_grad_rel=errs)
+            if ids == "uniform" and not linear:
+                res["fe_loss_grad_fused"].update(ms=ms, plain_ms=pms)
+        # the flat pair's kernels alone, on the logistic entry residuals
+        idx, val = b.indices.reshape(-1), b.values.reshape(-1)
+        z = torch.sum(fe.fe_gather_entries_plain(x[:-1], idx, val).reshape(
+            FE_N, FE_K), 1) + b.offsets + x[-1]
+        ce = (b.values * (b.weights * (torch.sigmoid(z) - b.labels))[:, None]
+              ).reshape(-1)
+        for name, kf, pf in (
+                ("fe_gather_entries",
+                 lambda: fe.fe_gather_entries(x[:-1], idx, val),
+                 lambda: fe.fe_gather_entries_plain(x[:-1], idx, val)),
+                ("fe_scatter_entries",
+                 lambda: fe.fe_scatter_entries(idx, ce, FE_D),
+                 lambda: fe.fe_scatter_entries_plain(idx, ce, FE_D))):
+            out_k, out_p = kf(), pf()
+            err, rel = float((out_k - out_p).abs().max()), _rel(out_k, out_p)
+            _check(rel <= FE_GRAD_RTOL, f"{name} {ids}: rel {rel}")
+            ms, pms = _time_ms(kf, 10), _time_ms(pf, 5)
+            _say("kernels", kernel=name, ids=ids, E=FE_N * FE_K,
+                 max_abs_err=f"{err:.3e}", rel=f"{rel:.2e}", ms=f"{ms:.3f}",
+                 plain_ms=f"{pms:.3f}")
+            res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+            if ids == "uniform":
+                res[name].update(ms=ms, plain_ms=pms)
+        del b, args, z, ce, idx, val
+    # float64: the kernels must not quietly run in float32
+    n64 = FE_N // 10
+    b = fe_problem("uniform", seed=2, n=n64, dtype=torch.float64)
+    x = torch.linspace(-0.05, 0.05, FE_D + 1, dtype=torch.float64,
+                       device=DEV)
+    args = (x, b.indices, b.values, b.labels, b.weights, b.offsets, FE_D)
+    lp, gp = fe.fe_loss_grad_plain(*args)
+    for name, (lv, gv) in (("fused", fe.fe_loss_grad_fused(*args)),
+                           ("flat", fe.fe_loss_grad_flat(*args))):
+        l_rel = abs(float(lv - lp)) / abs(float(lp))
+        g_rel = _rel(gv, gp)
+        _say("kernels", kernel=f"fe_{name}", dtype="float64", N=n64,
+             loss_rel=f"{l_rel:.2e}", grad_rel=f"{g_rel:.2e}")
+        _check(gv.dtype == torch.float64 and l_rel <= FE_F64_RTOL
+               and g_rel <= FE_F64_RTOL,
+               f"FE {name} float64: loss rel {l_rel}, grad rel {g_rel}")
     return res
 
 
@@ -451,6 +640,186 @@ def phase_cli():
         _check(ok, "CLI outputs: model count, score rows or finite scores")
 
 
+def _fe_counters():
+    from gdmix_tpu_torch.ops import fe_loss_grad as fe
+    return (fe.fe_loss_grad_fused, fe.fe_gather_entries,
+            fe.fe_scatter_entries)
+
+
+def phase_fe_fit(card):
+    """The FE fit at full width through each kernel path, against an L-BFGS
+    fit of the same objective through the plain version on the card."""
+    import torch
+    from gdmix_tpu_torch.io.input_pipeline import PerRecordData
+    from gdmix_tpu_torch.ops.fe_loss_grad import fe_loss_grad_plain
+    from gdmix_tpu_torch.ops.lbfgs import lbfgs
+    from gdmix_tpu_torch.ops.logistic import l2_value_and_grad
+    b = fe_problem("uniform")
+    data = PerRecordData(
+        columns={"uid": np.arange(FE_N, dtype=np.int64),
+                 "response": b.labels.cpu().numpy(),
+                 "offset": b.offsets.cpu().numpy()},
+        indices=b.indices.cpu().numpy(), values=b.values.cpu().numpy(),
+        num_samples=FE_N)
+    del b
+    launches, fits = {}, {}
+    with tempfile.TemporaryDirectory(prefix="gdx_smoke_fe_") as tmp:
+        for mode, path in (("auto", ("fe_loss_grad_fused",)),
+                           ("pallas_flat", ("fe_gather_entries",
+                                            "fe_scatter_entries"))):
+            model, schema = fe_stage_model(os.path.join(tmp, mode), mode)
+            for c in _fe_counters():
+                c.launches = 0
+            # ---- the main path: one fit ----
+            t0 = time.perf_counter()
+            coef = model.fit_data(data, schema)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {c.__name__: c.launches for c in _fe_counters()}
+            # ----
+            for name in path:
+                launches[name] = counts[name]
+            _check(all(counts[n] > 0 for n in path),
+                   f"FE fit {mode}: a kernel of the path never launched: "
+                   f"{counts}")
+            lf = model.last_fit
+            batch = model._train_batch_cache[0]
+            fun = model._objective_fun(batch)
+            x = torch.as_tensor(coef, dtype=torch.float32, device=DEV)
+            fun_ms = _time_ms(lambda: fun(x), 20)
+            fits[mode] = lf["f"]
+            _say("fe_fit", grad_mode=mode, N=FE_N, D=FE_D, K=FE_K,
+                 iterations=lf["iterations"], funcalls=lf["funcalls"],
+                 converged=lf["converged"], host_syncs=lf["host_syncs"],
+                 fit_s=f"{lf['seconds']:.3f}", wall_s=f"{wall:.3f}",
+                 funcalls_per_s=f"{lf['funcalls'] / lf['seconds']:.1f}",
+                 objective_ms=f"{fun_ms:.3f}",
+                 fe_funcalls_per_sec=f"{1000.0 / fun_ms:.1f}",
+                 f=f"{lf['f']:.6f}", launches=counts, card=repr(card))
+            _check(lf["converged"] and np.isfinite(coef).all()
+                   and coef.shape == (FE_D + 1,),
+                   f"FE fit {mode}: not converged or bad coefficients")
+
+        def plain(x):
+            v, g = fe_loss_grad_plain(x, batch.indices, batch.values,
+                                      batch.labels, batch.weights,
+                                      batch.offsets, FE_D)
+            lv, lg = l2_value_and_grad(x, 1.0, has_intercept=True,
+                                       regularize_bias=False,
+                                       intercept_at_end=True)
+            return v + lv, g + lg
+        t0 = time.perf_counter()
+        ref = lbfgs(plain, torch.zeros(FE_D + 1, device=DEV))
+        ref_s = time.perf_counter() - t0
+    rel = {m: abs(f - ref.f) / abs(ref.f) for m, f in fits.items()}
+    _say("fe_fit", reference="plain version", iterations=ref.num_iterations,
+         funcalls=ref.num_funcalls, converged=ref.converged,
+         fit_s=f"{ref_s:.3f}",
+         funcalls_per_s=f"{ref.num_funcalls / ref_s:.1f}",
+         f=f"{ref.f:.6f}", f_rel={m: f"{r:.2e}" for m, r in rel.items()})
+    _check(ref.converged and all(r <= FE_FIT_RTOL for r in rel.values()),
+           f"FE fit against the plain-version fit: {rel}")
+    return launches
+
+
+def phase_pipeline(card, tmp):
+    """The in-memory pipeline through the workflow CLI; returns the
+    movieLens data root."""
+    import torch
+    import yaml
+    from gdmix_tpu_torch.data import movielens
+    from gdmix_tpu_torch.ops import newton_lanes as nl
+    from gdmix_tpu_torch.workflow.main import main as workflow_main
+    t0 = time.perf_counter()
+    ml = movielens.prepare_gdmix_data(os.path.join(tmp, "data"),
+                                      movielens.generate_synthetic())
+    prep_s = time.perf_counter() - t0
+    out = os.path.join(tmp, "out")
+    cfg = os.path.join(tmp, "movielens.yaml")
+    with open(cfg, "w") as f:
+        yaml.safe_dump(movielens_config(ml, out), f, sort_keys=False)
+    counters = _fe_counters() + (nl.newton_full, nl.newton_fgd)
+    for c in counters:
+        c.launches = 0
+    # ---- the main path ----
+    t0 = time.perf_counter()
+    metrics = workflow_main(["--config_path", cfg, "--mode", "in_memory",
+                             "--num_sweeps", "2"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {c.__name__: c.launches for c in counters}
+    # ----
+    ladder = [metrics.get(c) for c in ("global", "per-user", "per-movie")]
+    written = {c: os.path.isfile(os.path.join(out, c, "models",
+                                              "part-00000.avro"))
+               and os.path.isfile(os.path.join(out, c, "metric",
+                                               "evalSummary.json"))
+               for c in ("global", "per-user", "per-movie")}
+    _say("pipeline", sweeps=2, auc={k: round(v, 6) for k, v in
+                                    metrics.items()},
+         wall_s=f"{wall:.3f}", data_prep_s=f"{prep_s:.3f}",
+         launches=counts, card=repr(card))
+    _check(None not in ladder and ladder[0] < ladder[1] < ladder[2],
+           f"validation AUC does not climb global → per-user → per-movie: "
+           f"{metrics}")
+    _check(all(written.values()), f"coordinate outputs missing: {written}")
+    _check(counts["fe_loss_grad_fused"] > 0 and counts["newton_full"] > 0,
+           f"the pipeline skipped a kernel: {counts}")
+    return ml
+
+
+def phase_fe_cli(ml, tmp):
+    from gdmix_tpu_torch.io.input_pipeline import read_per_record
+    from gdmix_tpu_torch.io.metadata import DatasetMetadata
+    from gdmix_tpu_torch.io.model_avro import load_linear_models_from_avro
+    from gdmix_tpu_torch.io.scores import read_scores
+    from gdmix_tpu_torch.params import SchemaParams
+    bag = os.path.join(ml, "global")
+    feature_file = os.path.join(bag, "featureList", "global")
+    md_file = os.path.join(bag, "metadata", "tensor_metadata.json")
+    out = os.path.join(tmp, "fe_cli")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "gdmix_tpu_torch.gdmix",
+         "--action=train", "--stage=fixed_effect",
+         "--model_type=logistic_regression",
+         "--label_column_name=response", "--uid_column_name=uid",
+         "--weight_column_name=weight",
+         "--prediction_score_column_name=predictionScore",
+         f"--training_score_dir={out}/train_scores",
+         f"--validation_score_dir={out}/validation_scores",
+         f"--metadata_file={md_file}",
+         f"--training_data_dir={bag}/trainingData",
+         f"--validation_data_dir={bag}/validationData",
+         "--feature_bag=global", f"--feature_file={feature_file}",
+         f"--output_model_dir={out}/models", "--l2_reg_weight=1.0",
+         "--regularize_bias=false"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+    _check(proc.returncode == 0, f"FE CLI exit code {proc.returncode}")
+    (coef,) = load_linear_models_from_avro(
+        os.path.join(out, "models", "part-00000.avro"), feature_file)
+    schema = SchemaParams(uid_column_name="uid", label_column_name="response",
+                          prediction_score_column_name="predictionScore")
+    md = DatasetMetadata.from_file(md_file)
+    rows = {}
+    for split, d in (("train", "trainingData"), ("validation",
+                                                 "validationData")):
+        scores = read_scores(os.path.join(out, f"{split}_scores"), schema)
+        n = read_per_record(os.path.join(bag, d), md, "global").num_samples
+        rows[split] = (len(scores["uid"]), n)
+        _check(len(scores["uid"]) == n
+               and bool(np.isfinite(scores["predictionScore"]).all()),
+               f"FE CLI {split} scores: {len(scores['uid'])} rows of {n}")
+    _say("cli", stage="fixed_effect", rc=proc.returncode,
+         coefficients=len(coef), score_rows=rows, wall_s=f"{wall:.2f}")
+    _check(len(coef) == md.num_features("global") + 1
+           and bool(np.isfinite(coef).all()), "FE CLI model")
+
+
 KERNELS = (
     ("newton_full", "gdmix_tpu_torch/csrc/newton_lanes.cu",
      "gdmix_tpu/ops/pallas/newton_lanes.py:175"),
@@ -458,6 +827,15 @@ KERNELS = (
      "gdmix_tpu/ops/pallas/newton_lanes.py:137"),
     ("spd_solve_batched", "gdmix_tpu_torch/csrc/linsolve.cu",
      "gdmix_tpu/ops/pallas/linsolve.py:27"),
+    ("fe_loss_grad_fused", "gdmix_tpu_torch/csrc/fe_loss_grad.cu",
+     "gdmix_tpu/ops/pallas/fe_grad.py:48; gdmix_tpu/ops/pallas/"
+     "fe_block.py:85; gdmix_tpu/ops/pallas/fe_gather.py:50"),
+    ("fe_gather_entries", "gdmix_tpu_torch/csrc/fe_loss_grad.cu",
+     "gdmix_tpu/ops/pallas/fe_flat.py:81; gdmix_tpu/ops/pallas/"
+     "fe_flat.py:96"),
+    ("fe_scatter_entries", "gdmix_tpu_torch/csrc/fe_loss_grad.cu",
+     "gdmix_tpu/ops/pallas/fe_flat.py:109; gdmix_tpu/ops/pallas/"
+     "fe_flat.py:134"),
 )
 
 
@@ -468,8 +846,13 @@ def main():
     import torch
     phase_build()
     res = phase_kernels()
+    res.update(phase_fe_kernels())
     launches = phase_fit(card)
-    phase_cli()
+    launches.update(phase_fe_fit(card))
+    with tempfile.TemporaryDirectory(prefix="gdx_smoke_ml_") as tmp:
+        ml = phase_pipeline(card, tmp)
+        phase_cli()
+        phase_fe_cli(ml, tmp)
     rows = [dict(name=name, route="cuda", source=src, replaces=rep,
                  launches=launches[name],
                  max_abs_err=res[name]["max_abs_err"], ms=res[name]["ms"],

@@ -1,8 +1,9 @@
 """Drivers: partition loop + training/inference orchestration.
 
 Port of gdmix_tpu/drivers/driver.py (reference drivers/driver.py:12-216,
-random_effect_driver.py). Random-effect partitions are assigned round-robin
-to processes; the process index and count are the torch.distributed rank and
+fixed_effect_driver.py, random_effect_driver.py). A fixed-effect "worker"
+is a process; random-effect partitions are assigned round-robin to
+processes. The process index and count are the torch.distributed rank and
 world size when a process group is initialised, else 0 and 1.
 """
 from __future__ import annotations
@@ -137,6 +138,20 @@ class Driver(abc.ABC):
         if fs.isdir(passive_dir) and fs.listdir(passive_dir):
             ctx[constants.PASSIVE_TRAINING_DATA_DIR] = passive_dir
         return ctx
+
+
+class FixedEffectDriver(Driver):
+    """Fixed effect: one logical partition; workers = processes."""
+
+    def __init__(self, base_params: Params, model):
+        super().__init__(base_params, model, effect_name="fixed effect")
+
+    def _get_partition_list(self) -> List[int]:
+        return [self.execution_context[constants.TASK_INDEX]]
+
+    def _anchor_directory(self, directory_path: str,
+                          partition_index: int) -> str:
+        return directory_path
 
 
 class RandomEffectDriver(Driver):

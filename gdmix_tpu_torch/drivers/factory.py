@@ -2,7 +2,9 @@
 from __future__ import annotations
 
 from gdmix_tpu_torch import constants
-from gdmix_tpu_torch.drivers.driver import Driver, RandomEffectDriver
+from gdmix_tpu_torch.drivers.driver import (Driver, FixedEffectDriver,
+                                            RandomEffectDriver)
+from gdmix_tpu_torch.models.fixed_effect_lr import FixedEffectLRModel
 from gdmix_tpu_torch.models.random_effect_lr import RandomEffectLRModel
 from gdmix_tpu_torch.params import Params
 
@@ -12,7 +14,7 @@ def get_model(params: Params, argv):
     if model_type in (constants.LOGISTIC_REGRESSION,
                       constants.LINEAR_REGRESSION):
         if stage == constants.FIXED_EFFECT:
-            raise NotImplementedError("ROADMAP A.4: the fixed-effect LR model")
+            return FixedEffectLRModel.from_argv(argv, params)
         if model_type == constants.LINEAR_REGRESSION:
             # same restriction as the reference (model_factory.py:46-47):
             # the RE solver stack is logistic-only
@@ -25,4 +27,7 @@ def get_model(params: Params, argv):
 
 
 def get_driver(params: Params, argv) -> Driver:
-    return RandomEffectDriver(params, get_model(params, argv))
+    model = get_model(params, argv)
+    if params.stage == constants.FIXED_EFFECT:
+        return FixedEffectDriver(params, model)
+    return RandomEffectDriver(params, model)

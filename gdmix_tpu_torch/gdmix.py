@@ -2,8 +2,8 @@
 
 The port of gdmix_tpu/gdmix.py (reference gdmix.py:13-40): one argv serves
 both the run's Params and the model's params; unknown flags are ignored by
-each parser. The port trains and scores random-effect logistic regression
-on one device.
+each parser. The port trains and scores the fixed effect (logistic or
+linear regression) and random-effect logistic regression on one device.
 """
 from __future__ import annotations
 
@@ -23,14 +23,15 @@ logging.basicConfig(
 def _print_help() -> None:
     import dataclasses
 
-    from gdmix_tpu_torch.params import REParams, SchemaParams
+    from gdmix_tpu_torch.params import FixedLRParams, REParams, SchemaParams
     print("usage: python -m gdmix_tpu_torch.gdmix --action=train|inference "
-          "--stage=random_effect --model_type=logistic_regression "
-          "--<flags>\n\n"
+          "--stage=fixed_effect|random_effect "
+          "--model_type=logistic_regression|linear_regression --<flags>\n\n"
           "One argv serves driver, schema, and model params; flags each parser"
           " doesn't know are ignored (reference gdmix.py:13-40 behavior).\n")
     for title, cls in (("driver params", Params),
                        ("schema params", SchemaParams),
+                       ("fixed-effect LR params", FixedLRParams),
                        ("random-effect LR params", REParams)):
         print(f"{title}:")
         for f in dataclasses.fields(cls):

@@ -1,0 +1,526 @@
+"""Fixed-effect LR / linear-regression trainer: full-batch L-BFGS on one
+device.
+
+Port of gdmix_tpu/models/fixed_effect_lr.py (the TPU re-design of the
+reference FixedEffectLRModelLBFGS, linkedin/gdmix:gdmix-trainer/src/gdmix/
+models/custom/fixed_effect_lr_lbfgs_model.py). The whole dataset sits on the
+device as padded-COO tensors; every L-BFGS funcall (ops/lbfgs.py, a host loop
+over device tensors) evaluates the data term through the hand-written FE
+kernels of ops/fe_loss_grad.py and adds the λ-term once.
+
+Semantics preserved: loss = Σ weighted BCE (or squared error) + λ·½‖w‖²
+with bias exclusion; coefficient layout [w..., b]; warm start from avro;
+coefficient thresholding; scoring of train + validation with
+predictionScore / predictionScorePerCoordinate; SIMPLE/FULL training
+variance; photon-ml avro export.
+
+grad_mode: the JAX package's modes are strategies for one sum on a TPU.
+After `effective_grad_mode` resolves the mode, `pallas_flat` runs the flat
+entry gather/scatter pair and every other mode the fused kernel.
+Not ported (each raises NotImplementedError naming its ROADMAP item): the
+pallas_hybrid kernel (B.7), streaming ingestion (A.9) and multi-process data
+parallelism (A.6).
+"""
+from __future__ import annotations
+
+import logging
+import os
+import time
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from gdmix_tpu_torch import constants
+from gdmix_tpu_torch.device import resolve_device
+from gdmix_tpu_torch.io import fs, model_avro, scores as scores_io
+from gdmix_tpu_torch.io.input_pipeline import PerRecordData, load_per_record
+from gdmix_tpu_torch.io.metadata import DatasetMetadata
+from gdmix_tpu_torch.models.api import Model
+from gdmix_tpu_torch.ops.fe_loss_grad import (fe_loss_grad_flat,
+                                              fe_loss_grad_fused)
+from gdmix_tpu_torch.ops.lbfgs import lbfgs
+from gdmix_tpu_torch.ops.logistic import (SparseBatch, hessian_diag,
+                                          hessian_full, l2_value_and_grad,
+                                          predict_logits)
+from gdmix_tpu_torch.params import FixedLRParams, Params, from_argv
+from gdmix_tpu_torch.util.convert import fe_coefficients_from_numpy
+from gdmix_tpu_torch.util.model_utils import threshold_coefficients
+
+logger = logging.getLogger(__name__)
+
+_EPSILON = 1.0e-12
+_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def effective_grad_mode(grad_mode: str, has_intercept: bool,
+                        num_features: int, block_min_features: int,
+                        onehot_max_features: int,
+                        block_max_features: int = 700_000) -> str:
+    """Resolve grad_mode to the CONCRETE strategy _objective_fun runs.
+
+    "auto" picks the two-level one-hot `block` path inside its measured win
+    region (block_min_features, block_max_features]: block's cost is O(D)
+    (v5e, N=5M K=16: 0.13 s @ D=10k, 0.27 s @ 100k, 1.83 s @ 1M —
+    scripts/fe_wide_d.py) while the scatter-add path is D-independent
+    (1.31 s @ 100k..1M, 1.72 s @ 10M), so past the measured ~700k crossover
+    auto takes `hybrid`: the hot/cold split that runs the frequent-feature
+    majority through block's compact MXU path and only the cold tail through
+    per-entry gather/scatter (ops/logistic.py HybridAux; the builder itself
+    falls back to plain scatter when the data has no hot set — uniform ids —
+    so auto is never worse than scatter; VERDICT r4 task 1). The reference's
+    sparse graph is D-independent the same way
+    (fixed_effect_lr_lbfgs_model.py:214-392). At/below
+    onehot_max_features the single-level `onehot` densification wins.
+    The sorted-COO `segment` mode (flat 2.15 s at every D measured) is
+    explicit-only: it never beats scatter on TPU. The Pallas kernels are
+    strictly OPT-IN — in particular pallas_flat's [E, 1] entry columns tile
+    to T(8,128) in HBM (512 B per 4 B entry → 40 GB at N=5M, K=16), so it
+    loses to `block` at production batch sizes — and, except pallas_hybrid
+    (which handles b=0 natively), they require the fused intercept-last
+    layout: without an intercept they resolve to the scatter path (the same
+    fallthrough _objective_fun always applied)."""
+    if grad_mode == "auto":
+        if block_min_features < num_features <= block_max_features:
+            return "block"
+        if num_features <= onehot_max_features:
+            return "onehot"
+        return "hybrid"
+    if grad_mode.startswith("pallas") and grad_mode != "pallas_hybrid" \
+            and not has_intercept:
+        # the fused kernels need the intercept-last layout; pallas_hybrid
+        # handles b=0 natively (its rsum output is simply unused)
+        return "scatter"
+    return grad_mode
+
+
+class FixedEffectLRModel(Model):
+    """Full-batch LR/linear-regression with host-driven L-BFGS on one
+    device."""
+
+    def __init__(self, model_params: FixedLRParams, base_params: Params,
+                 device=None):
+        self.model_params = model_params
+        self.base_params = base_params
+        self.model_type = base_params.model_type
+        self.metadata_file = model_params.metadata_file
+        self.checkpoint_path = model_params.output_model_dir
+        self.training_data_dir = model_params.training_data_dir
+        self.validation_data_dir = model_params.validation_data_dir
+        self.feature_bag_name = model_params.feature_bag
+        self.feature_file = (model_params.feature_file
+                             if self.feature_bag_name else None)
+        self.offset_column_name = model_params.offset_column_name
+        self.has_intercept = model_params.has_intercept
+        self.is_regularize_bias = model_params.regularize_bias
+        self.l2_reg_weight = model_params.l2_reg_weight
+        self.sparsity_threshold = model_params.sparsity_threshold
+        self.variance_mode = model_params.fixed_effect_variance_mode
+        if self.model_type == constants.LOGISTIC_REGRESSION:
+            self.disable_scoring_after_training = \
+                model_params.disable_fixed_effect_scoring_after_training
+        else:
+            # plain linear regression: no post-train scoring (reference
+            # :106-110)
+            self.disable_scoring_after_training = True
+        if self.variance_mode is not None:
+            assert self.model_type == constants.LOGISTIC_REGRESSION
+
+        self.metadata = DatasetMetadata.from_file(self.metadata_file)
+        self.num_features = self.metadata.num_features(self.feature_bag_name)
+        self.dtype = _DTYPES[model_params.dtype]
+        self.device = resolve_device(device)
+        self.model_coefficients: Optional[np.ndarray] = None
+        self.variances: Optional[np.ndarray] = None
+        # how many times the static columns crossed to the device (the
+        # multi-sweep cache keeps this at 1)
+        self.static_upload_count = 0
+        # the last fit's L-BFGS counts and wall seconds
+        self.last_fit: Dict[str, float] = {}
+
+    # ------------------------------------------------------------------ data --
+
+    @property
+    def _dim(self) -> int:
+        return self.num_features + 1 if self.has_intercept else \
+            self.num_features
+
+    def _host_arrays(self, data: PerRecordData, schema_params):
+        """(indices, values, offsets, labels, weights, uid) host arrays for a
+        PerRecordData."""
+        n = data.num_samples
+        md = self.metadata
+        uid = data.column(schema_params.uid_column_name).astype(np.int64)
+        if md.has_label(schema_params.label_column_name):
+            labels = data.column(
+                schema_params.label_column_name).astype(np.float64)
+        else:
+            labels = np.zeros(n)
+        if md.has_feature(schema_params.weight_column_name):
+            weights = data.column(
+                schema_params.weight_column_name).astype(np.float64)
+        else:
+            weights = np.ones(n)
+        if self.offset_column_name in data.columns:
+            # present either in the dataset schema or injected by the
+            # in-memory pipeline's score ledger
+            offsets = data.column(self.offset_column_name).astype(np.float64)
+        else:
+            offsets = np.zeros(n)
+        if self.feature_bag_name:
+            indices, values = data.indices, data.values
+        else:
+            # intercept-only: one dummy zero-valued feature (reference
+            # :171-185)
+            indices = np.zeros((n, 8), dtype=np.int32)
+            values = np.zeros((n, 8), dtype=np.float64)
+        return indices, values, offsets, labels, weights, uid
+
+    def _device_batch(self, data: PerRecordData, schema_params,
+                      cache=None) -> Tuple[SparseBatch, np.ndarray, int]:
+        """A SparseBatch on the model's device + uids, from host columns (no
+        row padding: the kernels mask their own edge). A feature id outside
+        [0, num_features) raises (the kernels would read and write out of
+        bounds).
+
+        `cache`: multi-sweep device-tensor reuse. The in-memory pipeline's
+        sweeps retrain / rescore IDENTICAL records — only the offset column
+        (score residuals) changes — so from sweep 2 on the four static
+        columns stay on the device and only offsets cross. A hit requires
+        matching shapes AND equal uids; the caller owns the stronger
+        invariant that indices/values/labels/weights are unchanged
+        (workflow/pipeline.py mutates only the offset column)."""
+        n = data.num_samples
+        indices, values, offsets, labels, weights, uid = \
+            self._host_arrays(data, schema_params)
+        dt = self.dtype
+
+        def put(a, dtype):
+            return torch.as_tensor(np.asarray(a), dtype=dtype,
+                                   device=self.device)
+
+        if cache is not None:
+            ent = cache.get("batch")
+            if (ent is not None and ent["n"] == n
+                    and ent["shape"] == indices.shape
+                    and np.array_equal(ent["uid"], uid)):
+                batch = SparseBatch(
+                    indices=ent["indices"], values=ent["values"],
+                    offsets=put(offsets, dt), labels=ent["labels"],
+                    weights=ent["weights"])
+                return batch, uid, n
+
+        batch = SparseBatch(
+            indices=put(indices, torch.int32), values=put(values, dt),
+            offsets=put(offsets, dt), labels=put(labels, dt),
+            weights=put(weights, dt))
+        bad = (batch.indices < 0) | (batch.indices >= self.num_features)
+        if bool(bad.any()):
+            raise ValueError(
+                f"{int(bad.sum())} feature ids outside [0, "
+                f"{self.num_features}) (feature bag "
+                f"{self.feature_bag_name!r})")
+        if cache is not None:
+            self.static_upload_count += 1
+            cache["batch"] = dict(
+                n=n, shape=indices.shape, uid=np.array(uid, copy=True),
+                indices=batch.indices, values=batch.values,
+                labels=batch.labels, weights=batch.weights)
+        return batch, uid, n
+
+    # ------------------------------------------------------------- objective --
+
+    def _objective_fun(self, batch: SparseBatch):
+        """(value, grad) of the objective: the data term through the FE
+        kernels, then the λ-term once."""
+        p = self.model_params
+        if p.grad_mode == "pallas_hybrid":
+            raise NotImplementedError(
+                "ROADMAP B.7: grad_mode='pallas_hybrid' (the wide-D hybrid "
+                "hot-side kernel, K12)")
+        mode = effective_grad_mode(p.grad_mode, self.has_intercept,
+                                   self.num_features, p.block_min_features,
+                                   p.onehot_max_features,
+                                   p.block_max_features)
+        linear = self.model_type == constants.LINEAR_REGRESSION
+        b = batch
+        if mode == "pallas_flat":
+            def data_term(x):
+                return fe_loss_grad_flat(
+                    x, b.indices, b.values, b.labels, b.weights, b.offsets,
+                    self.num_features, linear=linear)
+        else:
+            def data_term(x):
+                return fe_loss_grad_fused(
+                    x, b.indices, b.values, b.labels, b.weights, b.offsets,
+                    self.num_features, has_intercept=self.has_intercept,
+                    linear=linear)
+
+        def fun(x):
+            v, g = data_term(x)
+            lv, lg = l2_value_and_grad(
+                x, self.l2_reg_weight, has_intercept=self.has_intercept,
+                regularize_bias=self.is_regularize_bias,
+                intercept_at_end=True)
+            return v + lv, g + lg
+        return fun
+
+    # ------------------------------------------------------------------ train --
+
+    def fit_data(self, train_data: PerRecordData, schema_params,
+                 warm_start: Optional[np.ndarray] = None,
+                 device_cache=None) -> np.ndarray:
+        """In-memory fit: solve on the device, threshold, set
+        model_coefficients. device_cache: see _device_batch."""
+        batch, train_uid, n_train = self._device_batch(
+            train_data, schema_params, cache=device_cache)
+        return self._fit_batch(batch, train_uid, n_train, warm_start)
+
+    def _fit_batch(self, batch: SparseBatch, train_uid: np.ndarray,
+                   n_train: int,
+                   warm_start: Optional[np.ndarray] = None) -> np.ndarray:
+        if warm_start is not None and len(warm_start) == self._dim:
+            x0 = fe_coefficients_from_numpy(warm_start, self.device,
+                                            self.dtype)
+        else:
+            x0 = torch.zeros(self._dim, dtype=self.dtype, device=self.device)
+        p = self.model_params
+        t0 = time.perf_counter()
+        res = lbfgs(self._objective_fun(batch), x0,
+                    m=p.num_of_lbfgs_curvature_pairs, ftol=p.lbfgs_tolerance,
+                    pgtol=p.lbfgs_pgtol, maxiter=p.num_of_lbfgs_iterations)
+        coeffs = res.x.to("cpu", torch.float64).numpy()
+        seconds = time.perf_counter() - t0
+        self.last_fit = dict(
+            f=res.f, iterations=res.num_iterations,
+            funcalls=res.num_funcalls, converged=res.converged,
+            line_search_failed=res.line_search_failed,
+            host_syncs=res.host_syncs, seconds=seconds)
+        logger.info("f_min: %s, iters: %s, funcalls: %s, converged: %s, "
+                    "host syncs: %s, %.3f s", res.f, res.num_iterations,
+                    res.num_funcalls, res.converged, res.host_syncs, seconds)
+        self.model_coefficients = threshold_coefficients(
+            coeffs, self.sparsity_threshold)
+        self._train_batch_cache = (batch, train_uid, n_train)
+        return self.model_coefficients
+
+    def score_data(self, data: PerRecordData, schema_params,
+                   device_cache=None) -> Dict[str, np.ndarray]:
+        """In-memory scoring: {uid, total, per_coordinate, labels?,
+        weights?}. device_cache: see _device_batch."""
+        batch, uid, n = self._device_batch(data, schema_params,
+                                           cache=device_cache)
+        return self._score_arrays(batch, uid, n, schema_params)
+
+    def _refuse_unported(self, num_workers: int) -> None:
+        if num_workers > 1:
+            raise NotImplementedError(
+                "ROADMAP A.6: multi-process fixed-effect training "
+                f"({num_workers} workers)")
+        if self.model_params.stream_chunk_rows > 0:
+            raise NotImplementedError(
+                "ROADMAP A.9: streaming ingestion (stream_chunk_rows)")
+
+    def train(self, training_data_dir, validation_data_dir, metadata_file,
+              checkpoint_path, execution_context, schema_params):
+        logger.info("Kicking off fixed effect LR L-BFGS training on %s",
+                    self.device)
+        task_index = execution_context.get(constants.TASK_INDEX, 0)
+        num_workers = execution_context.get(constants.NUM_WORKERS, 1)
+        is_chief = execution_context.get(constants.IS_CHIEF, True)
+        self._refuse_unported(num_workers)
+
+        if self.model_params.copy_to_local:
+            training_data_dir = self._copy_shard_to_local(
+                training_data_dir, num_workers, task_index)
+        # Warm start from a prior avro model if shapes match (reference
+        # :606-623).
+        prev = self._load_model(catch_exception=True)
+        if prev is not None and len(prev) == self._dim:
+            logger.info("Found a previous model, loaded as the initial point")
+        train_data = load_per_record(
+            training_data_dir, self.metadata, self.feature_bag_name,
+            num_shards=1, shard_index=0,
+            data_format=self.model_params.data_format,
+            feature_file=self.feature_file,
+            custom_input_fn=self.model_params.custom_input_fn)
+        self.fit_data(train_data, schema_params, warm_start=prev)
+        batch, train_uid, n_train = self._train_batch_cache
+
+        want_variance = self.variance_mode is not None
+        if not self.disable_scoring_after_training or want_variance:
+            self._score_and_write(batch, train_uid, n_train, schema_params,
+                                  self.base_params.training_score_dir,
+                                  task_index, compute_variance=want_variance)
+        if validation_data_dir:
+            val_data = load_per_record(
+                validation_data_dir, self.metadata, self.feature_bag_name,
+                num_shards=num_workers, shard_index=task_index,
+                data_format=self.model_params.data_format,
+                feature_file=self.feature_file,
+                custom_input_fn=self.model_params.custom_input_fn)
+            vbatch, val_uid, n_val = self._device_batch(val_data,
+                                                        schema_params)
+            self._score_and_write(vbatch, val_uid, n_val, schema_params,
+                                  self.base_params.validation_score_dir,
+                                  task_index)
+
+        if is_chief:
+            self._save_model()
+
+    def _copy_shard_to_local(self, data_dir: str, num_workers: int,
+                             task_index: int) -> str:
+        """Copy this worker's file shard to a local cache dir (reference
+        copy_to_local, fixed_effect_lr_lbfgs_model.py:519-531)."""
+        from gdmix_tpu_torch.io.shard import shard_input_files
+        files, sample_level = shard_input_files(data_dir, num_workers,
+                                                task_index)
+        assert not sample_level, ("copy_to_local needs at least one file "
+                                  "per worker")
+        local_dir = f"local_training_input_dir_{task_index}"
+        os.makedirs(local_dir, exist_ok=True)
+        for f in files:   # fs.copy = the remote download half of the contract
+            fs.copy(f, os.path.join(local_dir, os.path.basename(f)))
+        logger.info("Copied %d files to %s", len(files), local_dir)
+        return local_dir
+
+    # ------------------------------------------------------------------ score --
+
+    def _coefficients_tensor(self) -> torch.Tensor:
+        return fe_coefficients_from_numpy(self.model_coefficients,
+                                          self.device, self.dtype)
+
+    @staticmethod
+    def _to_host(t: torch.Tensor) -> np.ndarray:
+        return t.to("cpu", torch.float64).numpy()
+
+    def _score_arrays(self, batch: SparseBatch, uid: np.ndarray, n: int,
+                      schema_params) -> Dict[str, np.ndarray]:
+        z_pc = predict_logits(
+            self._coefficients_tensor(),
+            batch._replace(offsets=torch.zeros_like(batch.offsets)),
+            has_intercept=self.has_intercept, intercept_at_end=True)
+        out = {"uid": uid, "total": self._to_host(z_pc + batch.offsets),
+               "per_coordinate": self._to_host(z_pc)}
+        if self.metadata.has_label(schema_params.label_column_name):
+            out["labels"] = self._to_host(batch.labels)
+        if self.metadata.has_feature(schema_params.weight_column_name):
+            out["weights"] = self._to_host(batch.weights)
+        return out
+
+    def _score_and_write(self, batch: SparseBatch, uid: np.ndarray, n: int,
+                         schema_params, output_dir: Optional[str],
+                         task_index: int,
+                         compute_variance: bool = False) -> None:
+        arrays = self._score_arrays(batch, uid, n, schema_params)
+        if compute_variance:
+            self._compute_variance(batch, self._coefficients_tensor())
+        if output_dir:
+            out = os.path.join(output_dir, f"part-{task_index:05d}.avro")
+            scores_io.write_scores(
+                out, schema_params, arrays["uid"], arrays["total"],
+                scores_per_coordinate=arrays["per_coordinate"],
+                labels=arrays.get("labels"), weights=arrays.get("weights"))
+            logger.info("Wrote %d scores to %s", n, out)
+
+    def _compute_variance(self, batch: SparseBatch, x: torch.Tensor) -> None:
+        """SIMPLE: 1/(diag H + ε); FULL: diag((H + (λ+ε)I)⁻¹) with the
+        intercept's λ removed when unregularized (reference :442-463)."""
+        lam = self.l2_reg_weight
+        kw = dict(has_intercept=self.has_intercept, intercept_at_end=True)
+        if self.variance_mode == constants.SIMPLE:
+            H = hessian_diag(x, batch, self.num_features, **kw).to(
+                "cpu", torch.float64).numpy().copy()
+            H += lam
+            if self.has_intercept and not self.is_regularize_bias:
+                H[-1] -= lam
+            self.variances = 1.0 / (H + _EPSILON)
+        elif self.variance_mode == constants.FULL:
+            H = hessian_full(x, batch, self.num_features, **kw).to(
+                "cpu", torch.float64).numpy().copy()
+            H += np.diag([lam + _EPSILON] * H.shape[0])
+            if self.has_intercept and not self.is_regularize_bias:
+                H[-1][-1] -= lam
+            self.variances = np.diagonal(np.linalg.inv(H))
+
+    # --------------------------------------------------------------- save/load --
+
+    def _save_model(self) -> None:
+        compute_variance = self.variances is not None
+        if self.has_intercept:
+            bias = ((self.model_coefficients[-1], self.variances[-1])
+                    if compute_variance else self.model_coefficients[-1])
+        else:
+            bias = None
+        expanded_bias = None if bias is None else [bias]
+        if self.feature_bag_name is None:
+            list_of_weight_indices = list_of_weight_values = None
+        else:
+            if self.has_intercept:
+                weights = self.model_coefficients[:-1]
+                variances = self.variances[:-1] if compute_variance else None
+            else:
+                weights = self.model_coefficients
+                variances = self.variances if compute_variance else None
+            indices = np.arange(weights.shape[0])
+            list_of_weight_values = [weights] if variances is None \
+                else [(weights, variances)]
+            list_of_weight_indices = [indices]
+        output_file = os.path.join(self.checkpoint_path, "part-00000.avro")
+        model_class = (constants.LOGISTIC_MODEL_CLASS
+                       if self.model_type == constants.LOGISTIC_REGRESSION
+                       else constants.LINEAR_MODEL_CLASS)
+        model_avro.export_linear_model_to_avro(
+            model_ids=["global model"],
+            list_of_weight_indices=list_of_weight_indices,
+            list_of_weight_values=list_of_weight_values,
+            biases=expanded_bias, feature_file=self.feature_file,
+            output_file=output_file, model_class=model_class,
+            sparsity_threshold=self.sparsity_threshold)
+        logger.info("Saved fixed-effect model to %s", output_file)
+
+    def _load_model(self, catch_exception: bool = False
+                    ) -> Optional[np.ndarray]:
+        path = self.checkpoint_path
+        if not path or not fs.isdir(path):
+            if catch_exception:
+                return None
+            raise FileNotFoundError(f"checkpoint path {path} doesn't exist")
+        files = [os.path.join(path, f) for f in fs.listdir(path)
+                 if f.endswith(".avro")]
+        if len(files) != 1:
+            if catch_exception:
+                return None
+            raise ValueError(f"expected exactly one model file in {path}, "
+                             f"found {len(files)}")
+        model = model_avro.load_linear_models_from_avro(
+            files[0], self.feature_file)[0]
+        if self.feature_bag_name is None and model is not None:
+            (model,) = model_avro.add_dummy_weight((model,))
+        return model
+
+    # ---------------------------------------------------------------- predict --
+
+    def predict(self, output_dir, input_data_path, metadata_file,
+                checkpoint_path, execution_context, schema_params):
+        logger.info("Kicking off fixed effect LR predict")
+        task_index = execution_context.get(constants.TASK_INDEX, 0)
+        num_workers = execution_context.get(constants.NUM_WORKERS, 1)
+        self._refuse_unported(num_workers)
+        self.model_coefficients = np.asarray(self._load_model(),
+                                             dtype=np.float64)
+        data = load_per_record(
+            input_data_path, self.metadata, self.feature_bag_name,
+            num_shards=1, shard_index=0,
+            data_format=self.model_params.data_format,
+            feature_file=self.feature_file,
+            custom_input_fn=self.model_params.custom_input_fn)
+        batch, uid, n = self._device_batch(data, schema_params)
+        self._score_and_write(batch, uid, n, schema_params, output_dir,
+                              task_index)
+
+    @staticmethod
+    def from_argv(argv, base_params: Params,
+                  device=None) -> "FixedEffectLRModel":
+        return FixedEffectLRModel(from_argv(FixedLRParams, argv),
+                                  base_params, device)

@@ -410,6 +410,25 @@ class RandomEffectLRModel(Model):
                 .astype(np.float64)
         return out
 
+    def score_records(self, data, model_weights: Dict[str, SparseModel],
+                      schema_params) -> Dict[str, np.ndarray]:
+        """Per-record scoring of a PerRecordData against the sparse CSR
+        model table — one binary-search join over all records, no grouping
+        (the in-memory pipeline's path). Entities without a model hit the
+        implicit zero row → logits = offsets (reference
+        job_consumers.py:144-152)."""
+        from gdmix_tpu_torch.data.partitioner import factorize_entities
+        uniq_str, inv = factorize_entities(
+            data.columns[self.model_params.partition_entity])
+        table = self._model_table(model_weights)
+        E = len(model_weights)
+        id2row = table[4]
+        rows = np.fromiter((id2row.get(e, E) for e in uniq_str),
+                           dtype=np.int64, count=len(uniq_str))
+        return self._score_columns(table, rows[inv], data.num_samples,
+                                   data.columns, data.indices, data.values,
+                                   schema_params)
+
     def score_flat(self, fg, model_weights: Dict[str, SparseModel],
                    schema_params) -> Dict[str, np.ndarray]:
         """Per-record scoring of a columnar FlatGroups against the sparse

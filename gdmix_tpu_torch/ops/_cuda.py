@@ -52,32 +52,57 @@ def _source_hash(src: str) -> str:
     return h.hexdigest()[:16]
 
 
+def _paths(name: str):
+    src = os.path.join(CSRC, f"{name}.cu")
+    return src, os.path.join(BUILD_DIR, f"lib{name}-{_source_hash(src)}.so")
+
+
+def _build(names) -> None:
+    """Compile the missing libraries of `names`, one nvcc process for each
+    source, all started together."""
+    procs = {}
+    for name in names:
+        src, so = _paths(name)
+        build_seconds.setdefault(name, 0.0)
+        if name in procs or os.path.exists(so):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        procs[name] = (src, so, tmp, time.perf_counter(), subprocess.Popen(
+            [_nvcc(), "-gencode", GENCODE, "-std=c++17", "-O3", "-shared",
+             "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, src],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (src, so, tmp, t0, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {src}:\n{err}")
+            continue
+        os.replace(tmp, so)
+        build_seconds[name] = time.perf_counter() - t0
+        ptxas_report[name] = err
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def load(name: str) -> ctypes.CDLL:
     """The library built from csrc/<name>.cu, compiled if needed."""
     lib = _libs.get(name)
     if lib is not None:
         return lib
-    src = os.path.join(CSRC, f"{name}.cu")
-    so = os.path.join(BUILD_DIR, f"lib{name}-{_source_hash(src)}.so")
-    build_seconds[name] = 0.0
-    if not os.path.exists(so):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        t0 = time.perf_counter()
-        res = subprocess.run(
-            [_nvcc(), "-gencode", GENCODE, "-std=c++17", "-O3", "-shared",
-             "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, src],
-            capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{res.stderr}")
-        os.replace(tmp, so)
-        build_seconds[name] = time.perf_counter() - t0
-        ptxas_report[name] = res.stderr
-    lib = ctypes.CDLL(so)
+    _build([name])
+    lib = ctypes.CDLL(_paths(name)[1])
     lib.gdx_error_string.restype = ctypes.c_char_p
     lib.gdx_error_string.argtypes = [ctypes.c_int]
     _libs[name] = lib
     return lib
+
+
+def load_all(names) -> None:
+    """Build the libraries of `names` in parallel, then load each."""
+    _build([n for n in names if n not in _libs])
+    for name in names:
+        load(name)
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

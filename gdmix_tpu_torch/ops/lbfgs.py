@@ -1,0 +1,210 @@
+"""L-BFGS with a strong-Wolfe line search and scipy-compatible stopping.
+
+Port of gdmix_tpu/ops/lbfgs.py:lbfgs, the solver of the fixed-effect fit
+(it replaces the reference's scipy.optimize.fmin_l_bfgs_b,
+linkedin/gdmix:gdmix-trainer/src/gdmix/models/custom/
+fixed_effect_lr_lbfgs_model.py:635-643). The JAX package runs the loop inside
+`lax.while_loop` on the device; here the loop runs on the host over device
+tensors. Every decision the JAX loop takes on a device scalar is one host
+sync here, and the result counts them (`host_syncs`): one per objective
+call (its value and directional derivative come back together), one for the
+descent test of each iteration and one for its curvature pair and stopping
+test. A CUDA graph of the whole loop is later work (ROADMAP A.4).
+
+The steps are the JAX package's, one for one:
+
+  * two-loop recursion over the m newest curvature pairs, gamma-scaled
+    initial Hessian; a direction that is not a descent direction restarts
+    as −g;
+  * strong-Wolfe line search (bracket + zoom with quadratic interpolation
+    and a bisection safeguard, Nocedal & Wright alg. 3.5/3.6) in one loop of
+    at most `maxls` trials, with the same transitions;
+  * a pair enters the history only if sᵀy > 1e-10·yᵀy;
+  * stopping as fmin_l_bfgs_b: ‖g‖∞ ≤ pgtol, or
+    (f_k − f_{k+1}) ≤ ftol·max(|f_k|, |f_{k+1}|, 1).
+
+Scalars (step sizes, f, the Wolfe tests) are Python floats: the decisions
+of a float64 solve equal the JAX package's; a float32 solve takes them in
+float64.
+"""
+from __future__ import annotations
+
+from typing import Callable, List, NamedTuple, Tuple
+
+import torch
+
+_C1 = 1e-4   # sufficient-decrease (Armijo)
+_C2 = 0.9    # curvature
+
+
+class LBFGSResult(NamedTuple):
+    x: torch.Tensor
+    f: float
+    g: torch.Tensor
+    num_iterations: int
+    num_funcalls: int
+    converged: bool            # stopped by ftol/pgtol (not maxiter)
+    line_search_failed: bool
+    host_syncs: int            # device→host scalar fetches the loop took
+
+
+class _Counter:
+    def __init__(self):
+        self.syncs = 0
+
+    def fetch(self, *scalars: torch.Tensor) -> List[float]:
+        """One device→host copy of several scalars."""
+        self.syncs += 1
+        return torch.stack([s.reshape(()).to(torch.float64)
+                            for s in scalars]).tolist()
+
+
+def _strong_wolfe(fun, x, f0: float, g0, d, gd0: float, max_steps: int,
+                  sync: _Counter):
+    """Strong-Wolfe line search along d from x. Returns
+    (alpha, f, g, nfev, failed); `fun` returns (value, grad)."""
+    def phi(alpha):
+        f, g = fun(x + alpha * d)
+        f_a, g_a = sync.fetch(f, torch.dot(g, d))
+        return f_a, g, g_a
+
+    step = 1.0
+    lo, f_lo, g_lo = 0.0, f0, gd0
+    hi, f_hi = 0.0, f0
+    bracketed = False
+    best, f_best, grad_best = 0.0, f0, g0
+    i = nfev = 0
+    done = False
+    while not done and i < max_steps:
+        a = step
+        f_a, grad_a, g_a = phi(a)
+        nfev += 1
+
+        armijo_fail = f_a > f0 + _C1 * a * gd0
+        not_lower = i > 0 and f_a >= f_lo
+        wolfe_ok = abs(g_a) <= -_C2 * gd0
+        pos_slope = g_a >= 0
+        accept = not armijo_fail and wolfe_ok
+
+        in_zoom = bracketed
+        # bracketing phase: enter zoom with (lo, hi = a) or (lo = a, hi = lo),
+        # or extend the step
+        enter_hi_a = not in_zoom and (armijo_fail or not_lower)
+        enter_lo_a = (not in_zoom and not enter_hi_a and not accept
+                      and pos_slope)
+        extend = (not in_zoom and not enter_hi_a and not enter_lo_a
+                  and not accept)
+        # zoom phase: hi := a; or lo := a (flip: hi := lo first)
+        shrink_hi = in_zoom and (armijo_fail or f_a >= f_lo)
+        flip = (in_zoom and not shrink_hi and not accept
+                and g_a * (hi - lo) >= 0)
+        advance = in_zoom and not shrink_hi and not accept
+
+        new_bracketed = in_zoom or enter_hi_a or enter_lo_a
+
+        # `lo` also tracks the PREVIOUS trial point while bracketing
+        lo_moves = enter_lo_a or advance or extend
+        if enter_hi_a or shrink_hi:
+            hi, f_hi = a, f_a
+        elif enter_lo_a or flip:
+            hi, f_hi = lo, f_lo
+        if lo_moves:
+            lo, f_lo, g_lo = a, f_a, g_a
+
+        # next trial: quadratic interpolation from (lo, f_lo, g_lo) and
+        # (hi, f_hi), kept to the middle 80% of the bracket, else bisection
+        denom = 2.0 * (f_hi - f_lo - g_lo * (hi - lo))
+        quad = lo - g_lo * (hi - lo) ** 2 / (1.0 if denom == 0 else denom)
+        mid = 0.5 * (lo + hi)
+        lo_hi_min, lo_hi_max = min(lo, hi), max(lo, hi)
+        margin = 0.1 * (lo_hi_max - lo_hi_min)
+        quad_ok = (denom != 0 and lo_hi_min + margin < quad
+                   < lo_hi_max - margin)
+        zoom_step = quad if quad_ok else mid
+        step = zoom_step if new_bracketed else min(2.0 * a, 1e10)
+
+        # bracket too small → give up (accept lo)
+        tiny = (lo_hi_max - lo_hi_min) <= 1e-14 * max(lo_hi_max, 1.0)
+        done = accept or (new_bracketed and tiny)
+        if accept or f_a < f_best:
+            best, f_best, grad_best = a, f_a, grad_a
+        bracketed = new_bracketed
+        i += 1
+
+    # failure: nothing decreased f
+    if best == 0.0 or f_best > f0:
+        return 0.0, f0, g0, nfev, True
+    return best, f_best, grad_best, nfev, False
+
+
+def _two_loop(g, S: List[torch.Tensor], Y: List[torch.Tensor],
+              rho: List[float], gamma: float):
+    """Two-loop recursion r ≈ H·g over the history (oldest first). The JAX
+    package keeps a fixed ring of m slots whose empty ones (rho = 0)
+    contribute nothing; the list holds only the filled ones."""
+    q = g
+    alphas = [0.0] * len(rho)
+    for i in reversed(range(len(rho))):       # newest → oldest
+        alphas[i] = rho[i] * torch.dot(S[i], q)
+        q = q - alphas[i] * Y[i]
+    r = gamma * q
+    for i in range(len(rho)):                 # oldest → newest
+        beta = rho[i] * torch.dot(Y[i], r)
+        r = r + S[i] * (alphas[i] - beta)
+    return r
+
+
+def lbfgs(fun: Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]],
+          x0: torch.Tensor,
+          *,
+          m: int = 10,
+          ftol: float = 1e-12,
+          pgtol: float = 1e-5,
+          maxiter: int = 100,
+          maxls: int = 25) -> LBFGSResult:
+    """Minimize fun (returning (value, grad) tensors) from x0.
+
+    ftol is the relative-f stopping tolerance — the reference's
+    `lbfgs_tolerance` (factr·eps in scipy terms). pgtol matches
+    fmin_l_bfgs_b's default 1e-5."""
+    sync = _Counter()
+    x = x0
+    f_t, g = fun(x0)
+    f, gmax = sync.fetch(f_t, torch.max(torch.abs(g)))
+    S: List[torch.Tensor] = []
+    Y: List[torch.Tensor] = []
+    rho: List[float] = []
+    gamma = 1.0
+    k, nfev = 0, 1
+    converged, ls_failed = gmax <= pgtol, False
+    while k < maxiter and not converged and not ls_failed:
+        direction = -_two_loop(g, S, Y, rho, gamma)
+        gd, gg = sync.fetch(torch.dot(g, direction), torch.dot(g, g))
+        if gd >= 0:   # not a descent direction (numerical breakdown)
+            direction, gd = -g, -gg
+
+        alpha, f_new, g_new, ls_nfev, ls_failed = _strong_wolfe(
+            fun, x, f, g, direction, gd, maxls, sync)
+
+        x_new = x + alpha * direction
+        s_vec = x_new - x
+        y_vec = g_new - g
+        sy, yy, gmax = sync.fetch(torch.dot(s_vec, y_vec),
+                                  torch.dot(y_vec, y_vec),
+                                  torch.max(torch.abs(g_new)))
+        if sy > 1e-10 * yy:   # ring buffer: drop the oldest, append
+            S.append(s_vec)
+            Y.append(y_vec)
+            rho.append(1.0 / (1.0 if sy == 0 else sy))
+            if len(rho) > m:
+                del S[0], Y[0], rho[0]
+            gamma = sy / max(yy, 1e-30)
+
+        rel = max(abs(f), abs(f_new), 1.0)
+        converged = (f - f_new) <= ftol * rel or gmax <= pgtol
+        x, f, g = x_new, f_new, g_new
+        k += 1
+        nfev += ls_nfev
+    return LBFGSResult(x=x, f=f, g=g, num_iterations=k, num_funcalls=nfev,
+                       converged=converged, line_search_failed=ls_failed,
+                       host_syncs=sync.syncs)

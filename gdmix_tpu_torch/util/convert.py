@@ -1,6 +1,6 @@
 """Carry weights and solver inputs across from the JAX package, as numpy.
 
-Neither function imports `gdmix_tpu`: each takes numpy arrays (or objects
+No function here imports `gdmix_tpu`: each takes numpy arrays (or objects
 that expose them), so the tests can hand one prior to both trainers and one
 bucket to both solvers.
 """
@@ -42,3 +42,11 @@ def newton_inputs_from_numpy(bucket_arrays: Mapping[str, np.ndarray],
     out["indices"] = torch.as_tensor(np.asarray(bucket_arrays["indices"]),
                                      dtype=torch.int64, device=device)
     return out
+
+
+def fe_coefficients_from_numpy(coefficients, device, dtype) -> torch.Tensor:
+    """A fixed-effect coefficient vector of the JAX package ([D+1] numpy,
+    intercept LAST; [D] without an intercept) as the port's tensor. Both
+    packages keep this layout, so nothing is reordered."""
+    return torch.as_tensor(np.asarray(coefficients), dtype=dtype,
+                           device=device)

@@ -1,0 +1,294 @@
+"""In-memory coordinate-descent pipeline: NO file I/O between coordinates.
+
+Port of gdmix_tpu/workflow/pipeline.py on one device. Where GDMix writes
+scores/partitions/offsets to HDFS between every stage, here the uid-keyed
+score ledger lives in memory, the offset update (OffsetUpdater semantics) is
+a vectorized join, entity grouping is an in-process sort, and each
+coordinate's solver consumes the previous coordinate's scores directly.
+Supports multiple coordinate-descent sweeps: from sweep 2 on, offset =
+accumulated − own-previous-score (linkedin/gdmix:gdmix-data/src/main/scala/
+com/linkedin/gdmix/data/OffsetUpdater.scala:105-129).
+
+Final artifacts (photon-ml avro models, evalSummary.json) are still written,
+so the output stays drop-in compatible with the file-based workflow.
+
+Not ported (each raises NotImplementedError naming its ROADMAP item): the
+sharded random-effect plane and every multi-process run (A.6).
+"""
+from __future__ import annotations
+
+import json
+import logging
+import os
+from dataclasses import dataclass, field
+from typing import Dict, Optional
+
+import numpy as np
+
+from gdmix_tpu_torch import constants
+from gdmix_tpu_torch.data.evaluator import EVAL_SUMMARY_JSON
+from gdmix_tpu_torch.data.partitioner import PartitionerConfig, \
+    assign_group_ids, group_flat
+from gdmix_tpu_torch.drivers.driver import process_index_and_count
+from gdmix_tpu_torch.io import fs
+from gdmix_tpu_torch.io.input_pipeline import PerRecordData, read_per_record
+from gdmix_tpu_torch.models.fixed_effect_lr import FixedEffectLRModel
+from gdmix_tpu_torch.models.random_effect_lr import RandomEffectLRModel
+from gdmix_tpu_torch.ops.metrics import auc as auc_metric
+from gdmix_tpu_torch.params import FixedLRParams, Params, REParams, from_dict
+from gdmix_tpu_torch.workflow.config import METRIC, MODELS, WorkflowConfig
+
+logger = logging.getLogger(__name__)
+
+
+@dataclass
+class _Ledger:
+    """uid-keyed accumulated scores + per-coordinate contributions."""
+    uids: np.ndarray                      # sorted
+    total: np.ndarray                     # accumulated score per uid
+    per_coordinate: Dict[str, np.ndarray] = field(default_factory=dict)
+
+    @classmethod
+    def empty(cls, uids: np.ndarray) -> "_Ledger":
+        order = np.argsort(uids)
+        return cls(uids=uids[order], total=np.zeros(len(uids)))
+
+    def apply_coordinate(self, name: str, uids: np.ndarray,
+                         per_coordinate: np.ndarray) -> None:
+        """total += new_contribution − previous contribution of this
+        coordinate."""
+        pos = np.searchsorted(self.uids, uids)
+        assert np.array_equal(self.uids[pos], uids)
+        full = np.zeros_like(self.total)
+        full[pos] = per_coordinate
+        prev = self.per_coordinate.get(name)
+        self.total = self.total + full - (prev if prev is not None
+                                          else np.zeros_like(self.total))
+        self.per_coordinate[name] = full
+
+
+class InMemoryPipeline:
+    """Runs the fixed effect + random effects with the score ledger in
+    memory, on one device.
+
+    re_mode selects the random-effect training plane: "host" groups
+    entities on the host and solves bucketed batches (fit_groups); "auto"
+    takes "host" on one device, as the JAX package's auto does; "sharded"
+    (entity routing across devices) is ROADMAP A.6."""
+
+    def __init__(self, config: WorkflowConfig, num_sweeps: int = 1,
+                 re_mode: str = "auto", device=None):
+        if re_mode not in ("host", "sharded", "auto"):
+            raise ValueError(f"re_mode {re_mode!r}: host, sharded or auto")
+        if re_mode == "sharded":
+            raise NotImplementedError(
+                "ROADMAP A.6: re_mode='sharded' (multi-GPU entity routing)")
+        self.config = config
+        self.num_sweeps = num_sweeps
+        self.device = device
+        self.metrics: Dict[str, float] = {}
+
+    def run(self) -> Dict[str, float]:
+        _, nproc = process_index_and_count()
+        if nproc > 1:
+            raise NotImplementedError(
+                f"ROADMAP A.6: multi-process in-memory pipeline ({nproc} "
+                "processes)")
+        cfg = self.config
+        (fe_name, fe_raw), = cfg.fixed_effect_config.items()
+        fe_config = dict(fe_raw)
+        fe_gdmix = dict(fe_config.pop("gdmix_config"))
+        fe_params = from_dict(Params, {**fe_gdmix,
+                                       "stage": constants.FIXED_EFFECT})
+
+        fe_model_params = from_dict(FixedLRParams, {
+            **fe_config,
+            "output_model_dir": os.path.join(cfg.output_dir, fe_name,
+                                             MODELS)})
+        fe_model = FixedEffectLRModel(fe_model_params, fe_params,
+                                      device=self.device)
+
+        # Load every coordinate's data once.
+        fe_train = read_per_record(fe_config["training_data_dir"],
+                                   fe_model.metadata,
+                                   fe_model.feature_bag_name)
+        fe_valid = read_per_record(fe_config["validation_data_dir"],
+                                   fe_model.metadata,
+                                   fe_model.feature_bag_name) \
+            if fe_config.get("validation_data_dir") else None
+
+        uid_col = fe_params.uid_column_name
+        train_ledger = _Ledger.empty(
+            fe_train.columns[uid_col].astype(np.int64))
+        valid_ledger = (_Ledger.empty(
+            fe_valid.columns[uid_col].astype(np.int64))
+            if fe_valid is not None else None)
+
+        re_items = []
+        for name, re_raw in cfg.random_effect_config.items():
+            re_config = dict(re_raw)
+            re_gdmix = dict(re_config.pop("gdmix_config"))
+            re_config.pop("num_partitions", None)
+            min_samples = re_config.pop("min_samples", None)
+            max_samples = re_config.pop("max_samples", None)
+            if re_gdmix.get("model_type", constants.LOGISTIC_REGRESSION) \
+                    != constants.LOGISTIC_REGRESSION:
+                # reference restriction (model_factory.py:46-47): random
+                # effects are logistic-only
+                raise ValueError(f"random effect {name}: only "
+                                 f"{constants.LOGISTIC_REGRESSION} is "
+                                 f"supported")
+            re_params = from_dict(Params, {**re_gdmix,
+                                           "stage": constants.RANDOM_EFFECT})
+            re_model_params = from_dict(REParams, {
+                **re_config,
+                "output_model_dir": os.path.join(cfg.output_dir, name,
+                                                 MODELS)})
+            model = RandomEffectLRModel(re_model_params, re_params,
+                                        device=self.device)
+            train = read_per_record(re_config["training_data_dir"],
+                                    model.metadata, model.feature_bag_name)
+            valid = read_per_record(re_config["validation_data_dir"],
+                                    model.metadata, model.feature_bag_name) \
+                if re_config.get("validation_data_dir") else None
+            re_items.append(dict(name=name, model=model, params=re_params,
+                                 train=train, valid=valid,
+                                 min_samples=min_samples,
+                                 max_samples=max_samples, weights={}))
+
+        # multi-sweep device reuse: only the offset column changes between
+        # sweeps (see FixedEffectLRModel._device_batch), so the fit and the
+        # training-set scoring share ONE cache and one device copy of the
+        # static columns
+        fe_caches = {"fit": {}, "valid": {}}
+        for sweep in range(self.num_sweeps):
+            logger.info("=== coordinate-descent sweep %d ===", sweep + 1)
+            # ---- fixed effect ----
+            self._set_offsets(fe_train, train_ledger, fe_name,
+                              fe_model_params.offset_column_name, uid_col)
+            warm = fe_model.model_coefficients if sweep else None
+            fe_model.fit_data(fe_train, fe_params, warm_start=warm,
+                              device_cache=fe_caches["fit"])
+            tr_scores = fe_model.score_data(fe_train, fe_params,
+                                            device_cache=fe_caches["fit"])
+            train_ledger.apply_coordinate(fe_name, tr_scores["uid"],
+                                          tr_scores["per_coordinate"])
+            if fe_valid is not None:
+                self._set_offsets(fe_valid, valid_ledger, fe_name,
+                                  fe_model_params.offset_column_name,
+                                  uid_col)
+                va = fe_model.score_data(fe_valid, fe_params,
+                                         device_cache=fe_caches["valid"])
+                valid_ledger.apply_coordinate(fe_name, va["uid"],
+                                              va["per_coordinate"])
+                self.metrics[fe_name] = float(auc_metric(
+                    valid_ledger.total, self._labels(fe_valid, fe_params)))
+
+            # ---- random effects ----
+            for item in re_items:
+                model: RandomEffectLRModel = item["model"]
+                params: Params = item["params"]
+                mp: REParams = model.model_params
+                name = item["name"]
+
+                self._set_offsets(item["train"], train_ledger, name,
+                                  mp.offset_column_name,
+                                  params.uid_column_name)
+                pcfg = PartitionerConfig(
+                    partition_entity=mp.partition_entity, num_partitions=1,
+                    min_samples=item["min_samples"],
+                    max_samples=item["max_samples"],
+                    uid_column_name=params.uid_column_name,
+                    offset_column_name=mp.offset_column_name)
+                groups = self._group_active(item["train"], pcfg)
+                item["weights"] = model.fit_groups(groups, item["weights"],
+                                                   params)
+
+                # score ALL training rows (active + passive) for the ledger:
+                # one sparse record join, no re-grouping
+                sc = model.score_records(item["train"], item["weights"],
+                                         params)
+                train_ledger.apply_coordinate(name, sc["uid"],
+                                              sc["per_coordinate"])
+
+                if item["valid"] is not None:
+                    self._set_offsets(item["valid"], valid_ledger, name,
+                                      mp.offset_column_name,
+                                      params.uid_column_name)
+                    vs = model.score_records(item["valid"], item["weights"],
+                                             params)
+                    valid_ledger.apply_coordinate(name, vs["uid"],
+                                                  vs["per_coordinate"])
+                    self.metrics[name] = float(auc_metric(
+                        valid_ledger.total,
+                        self._labels(item["valid"], params)))
+
+        # ---- persist final artifacts ----
+        fs.makedirs(os.path.join(cfg.output_dir, fe_name, MODELS),
+                    exist_ok=True)
+        fe_model._save_model()
+        self._write_metric(fe_name)
+        for item in re_items:
+            model_dir = os.path.join(cfg.output_dir, item["name"], MODELS)
+            fs.makedirs(model_dir, exist_ok=True)
+            item["model"]._save_model(
+                os.path.join(model_dir, "part-00000.avro"), item["weights"])
+            self._write_metric(item["name"])
+        return dict(self.metrics)
+
+    # ------------------------------------------------------------------ utils --
+
+    @staticmethod
+    def _labels(data: PerRecordData, params: Params) -> np.ndarray:
+        return data.columns[params.label_column_name].astype(np.float64)
+
+    @staticmethod
+    def _set_offsets(data: PerRecordData, ledger: Optional[_Ledger],
+                     coordinate_name: str, offset_column: str,
+                     uid_column: str = "uid") -> None:
+        """offset = accumulated − own contribution (OffsetUpdater
+        semantics; the own-term is zero on the first sweep)."""
+        if ledger is None:
+            return
+        uids = data.columns[uid_column].astype(np.int64)
+        pos = np.searchsorted(ledger.uids, uids)
+        total = ledger.total[pos]
+        own = ledger.per_coordinate.get(coordinate_name)
+        if own is not None:
+            total = total - own[pos]
+        data.columns[offset_column] = total.astype(np.float32)
+
+    @staticmethod
+    def _group_active(data: PerRecordData, pcfg: PartitionerConfig):
+        """The active records grouped by entity, columnar (DataPartitioner's
+        min/max bounding, getGroupId :332-379)."""
+        uids = data.columns[pcfg.uid_column_name].astype(np.int64)
+        if pcfg.min_samples or pcfg.max_samples:
+            gids = assign_group_ids(
+                np.asarray(data.columns[pcfg.partition_entity]), uids,
+                pcfg.min_samples, pcfg.max_samples)
+        else:
+            gids = np.zeros(len(uids), dtype=np.int64)
+        return group_flat(data, pcfg, gids, active_only=True)
+
+    def _write_metric(self, name: str) -> None:
+        if name not in self.metrics:
+            return
+        d = os.path.join(self.config.output_dir, name, METRIC)
+        fs.makedirs(d, exist_ok=True)
+        with fs.open(os.path.join(d, EVAL_SUMMARY_JSON), "w") as f:
+            json.dump({"auc": self.metrics[name]}, f)
+
+
+def run_gdmix_in_memory(config_path_or_obj, num_sweeps: int = 1,
+                        re_mode: Optional[str] = None,
+                        device=None) -> Dict[str, float]:
+    """re_mode precedence: explicit argument > the config's top-level
+    `re_mode` key > "auto" (the host plane on one device)."""
+    config = (config_path_or_obj
+              if isinstance(config_path_or_obj, WorkflowConfig)
+              else WorkflowConfig.from_file(config_path_or_obj))
+    if re_mode is None:
+        re_mode = config.extras.get("re_mode", "auto")
+    return InMemoryPipeline(config, num_sweeps=num_sweeps, re_mode=re_mode,
+                            device=device).run()

@@ -6,6 +6,7 @@
 - its copies of the JAX-free host modules equal their originals once the
   import prefix (and the citation form of reference paths) is rewritten,
   apart from the deliberate edits listed here;
+- functions copied verbatim into a ported module equal their originals;
 - a CUDA kernel wrapper handed a non-CPU tensor launches its kernel or
   raises: it never falls back to the plain version.
 """
@@ -75,6 +76,8 @@ MECHANICAL = [
     "data/__init__.py", "data/partitioner.py", "data/offset.py",
     "data/movielens.py", "data/metadata_gen.py", "data/bucketing.py",
     "native/__init__.py",
+    "util/model_utils.py", "data/evaluator.py",
+    "workflow/__init__.py", "workflow/config.py",
 ]
 
 # The deliberate edits, (original, copy) after the prefix rewrite.
@@ -163,6 +166,25 @@ def test_host_copy_equals_original(rel):
     assert got == want, rel
 
 
+# functions copied verbatim into a ported module: (module, function)
+VERBATIM_FUNCTIONS = [("models/fixed_effect_lr.py", "effective_grad_mode")]
+
+
+def _function_source(path, name):
+    with open(path) as f:
+        src = f.read()
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, ast.FunctionDef) and node.name == name:
+            return ast.get_source_segment(src, node)
+    raise AssertionError(f"{name} not in {path}")
+
+
+@pytest.mark.parametrize("rel,name", VERBATIM_FUNCTIONS)
+def test_verbatim_function_equals_original(rel, name):
+    assert (_function_source(os.path.join(PORT, rel), name)
+            == _function_source(os.path.join(ROOT, "gdmix_tpu", rel), name))
+
+
 def _no_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the wrappers launch their kernels")
@@ -174,9 +196,11 @@ def test_cuda_wrappers_raise_without_a_card():
     build raises where nvcc is missing."""
     _no_card()
     from gdmix_tpu_torch.ops import _cuda, linsolve, newton_lanes as nl
+    from gdmix_tpu_torch.ops import fe_loss_grad as fe
     with pytest.raises((RuntimeError, AssertionError)):
         torch.zeros(1, device="cuda")
     m = lambda *shape: torch.zeros(*shape, device="meta")
+    mi = lambda *shape: torch.zeros(*shape, dtype=torch.int32, device="meta")
     B, n, d = 4, 8, 5
     calls = [
         lambda: linsolve.spd_solve_batched(m(B, d, d), m(B, d)),
@@ -185,17 +209,28 @@ def test_cuda_wrappers_raise_without_a_card():
                                maxiter=5, ftol=1e-12, pgtol=1e-5),
         lambda: nl.newton_fgd(m(B, n, d), m(B, n), m(B, n), m(B, n), m(B),
                               m(B, d), lam=1.0, unreg_bias=True),
+        lambda: fe.fe_loss_grad_fused(m(d + 1), mi(n, 3), m(n, 3), m(n),
+                                      m(n), m(n), d),
+        lambda: fe.fe_loss_grad_fused(m(d), mi(n, 3), m(n, 3), m(n), m(n),
+                                      m(n), d, has_intercept=False),
+        lambda: fe.fe_gather_entries(m(d), mi(n), m(n)),
+        lambda: fe.fe_scatter_entries(mi(n), m(n), d),
+        lambda: fe.fe_loss_grad_flat(m(d + 1), mi(n, 3), m(n, 3), m(n),
+                                     m(n), m(n), d),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="expected CUDA tensors"):
             call()
-    for fn in (linsolve.spd_solve_batched, nl.newton_full, nl.newton_fgd):
+    for fn in (linsolve.spd_solve_batched, nl.newton_full, nl.newton_fgd,
+               fe.fe_loss_grad_fused, fe.fe_gather_entries,
+               fe.fe_scatter_entries):
         assert fn.launches == 0
     try:
         _cuda._nvcc()
     except RuntimeError:
-        with pytest.raises(RuntimeError, match="nvcc not found"):
-            _cuda.load("linsolve")
+        for name in ("linsolve", "fe_loss_grad"):
+            with pytest.raises(RuntimeError, match="nvcc not found"):
+                _cuda.load(name)
 
 
 def test_resolve_device_is_cpu_without_a_card():
