@@ -8,8 +8,13 @@ Phases, each printing one result line; any failure exits non-zero:
   2. build    — the hand-written CUDA kernels from csrc/, one nvcc per
                 source for sm_90a, all started together.
   3. kernels  — each kernel against its plain PyTorch version at the main
-                path's shapes: the RE kernels on inputs made from a numpy
-                seed; the FE kernels at the JAX bench's full width
+                path's shapes, with its least time on the card (bytes or
+                flops at the published peak) and, where one PyTorch call
+                computes the same function, that call's time: the RE
+                kernels on inputs made from a numpy seed (the SPD solves at
+                d = 100, 160, 200, 256 and the dual's n = 32, 64, 128, at
+                B = 4,096 and at the wide fit's buckets of 128); the FE
+                kernels at the JAX bench's full width
                 (N = 4,997,120, D = 10,000, K = 16) with uniform and
                 Zipf(1.2) ids, logistic and linear, plus a float64 cut.
   4. fit      — RandomEffectLRModel.fit_flat at full width: the primary
@@ -17,6 +22,13 @@ Phases, each printing one result line; any failure exits non-zero:
                 sample counts 2..64), then a moderate-support cut
                 (64 < dim ≤ 128) that runs the batch-major Newton and its
                 linear solve; a small cut against the float64 CPU solve.
+     wide     — the bench's wide-support workload (4,096 entities, d = 512,
+                ≤ 16 nnz, 32–64 samples) cold and warm through the dual
+                Newton and its multi-RHS solve; SIMPLE and FULL variance;
+                cuts that take the densified and the sparse L-BFGS rungs
+                and the primal Newton past dim 128; slices of the dual
+                (with and without variance), dense and sparse cuts
+                against a float64 CPU fit.
   5. fe_fit   — FixedEffectLRModel.fit_data at full width through the fused
                 kernel (grad_mode auto) and through the flat pair
                 (grad_mode pallas_flat), each against an L-BFGS fit of the
@@ -28,10 +40,10 @@ Phases, each printing one result line; any failure exits non-zero:
   7. cli      — `python -m gdmix_tpu_torch.gdmix --action=train` in a fresh
                 process: --stage=random_effect on a small written dataset,
                 --stage=fixed_effect on the movieLens global data.
-Launch counts are zeroed just before each main-path run (4, 5, 6) and read
-just after. Then one JSON line of per-kernel results and, last, the device
-line. Exits non-zero without a result when no card is present. Imports no
-JAX.
+Launch counts are zeroed just before each main-path run (4, wide, 5, 6)
+and read just after. Then one JSON line of per-kernel results and, last,
+the device line. Exits non-zero without a result when no card is present.
+Imports no JAX.
 """
 from __future__ import annotations
 
@@ -47,6 +59,11 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 F32_TOL = 5e-3     # the JAX package's own lanes-vs-batch-major bound
 F64_REL_TOL = 1e-9
+# a float32 variance against the float64 fit's: the variance follows the
+# weights p(1−p) at the fitted margins, |d ln p(1−p)/dz| ≤ 1, so its
+# relative gap is at most the margins' gap, a few 1e-3 at the θ gaps the
+# dual cut shows (~3e-4 over ≤ 16 values a record)
+VAR_RTOL = 1e-2
 # FE kernels against their plain versions: the f32 sums run in another
 # order (atomics), so loss ≤ 1e-5 relative and max|Δg| ≤ 1e-4·max|g|; in
 # float64 both ≤ 1e-12 relative
@@ -152,18 +169,21 @@ def _write_metadata(tmp, d):
     return md_file, feature_file
 
 
-def stage_model(d, tmp, dtype="float32", device=None):
-    """RandomEffectLRModel with the primary workload's settings."""
+def stage_model(d, tmp, dtype="float32", device=None, **over):
+    """RandomEffectLRModel with the primary workload's settings (the JAX
+    bench's, bench.py:287-310), REParams fields overridden by `over`."""
     from gdmix_tpu_torch.models.random_effect_lr import RandomEffectLRModel
     from gdmix_tpu_torch.params import Params, REParams
     md_file, feature_file = _write_metadata(tmp, d)
-    model_params = REParams(
+    fields = dict(
         metadata_file=md_file, output_model_dir=tmp,
         feature_bag="per_entity", feature_file=feature_file,
         partition_entity="user_id", l2_reg_weight=1.0,
         regularize_bias=False, dtype=dtype, lbfgs_tolerance=1e-12,
         lbfgs_pgtol=1e-5, num_of_lbfgs_iterations=100,
         sparsity_threshold=0.0)
+    fields.update(over)
+    model_params = REParams(**fields)
     base_params = Params(
         action="train", stage="random_effect",
         model_type="logistic_regression", label_column_name="response",
@@ -292,7 +312,7 @@ def phase_build():
 
 def phase_kernels():
     import torch
-    from gdmix_tpu_torch.ops import linsolve, newton_lanes as nl
+    from gdmix_tpu_torch.ops import newton_lanes as nl
     dev = torch.device("cuda:0")
     res = {}
     kw = dict(lam=1.0, unreg_bias=True, maxiter=100, ftol=1e-12, pgtol=1e-5)
@@ -320,7 +340,17 @@ def phase_kernels():
                                f"on {agree}")
         worst = max(worst, err)
         if n == 8:
-            res["newton_full"] = dict(ms=ms, plain_ms=pms)
+            # bytes: X, y, w, offsets, counts, θ0 in; θ, flags, counts out.
+            # flops per iteration and entity: the symmetric Hessian
+            # (n·d·(d+1)), its SPD solve, gradient, margins and line search
+            # (~6·n·d), over the iterations this run's entities took
+            B, d = 65536, 25
+            bound, by = _bound(
+                4 * (B * n * d + 3 * B * n + B + 2 * B * d) + 5 * B,
+                float(ik.sum()) * (n * d * (d + 1) + _spd_solve_flops(d, 1)
+                                   + 6 * n * d))
+            res["newton_full"] = dict(ms=ms, plain_ms=pms, bound_ms=bound,
+                                      bound_by=by, library_ms=None)
     res["newton_full"]["max_abs_err"] = worst
 
     # K2: one Newton iteration, the n = 64 tier and a heavy-tail n = 512
@@ -346,32 +376,111 @@ def phase_kernels():
                f"newton_fgd n={n}: f {f_rel} g {g_err} delta {d_err}")
         worst = max(worst, d_err)
         if n == 64:
-            res["newton_fgd"] = dict(ms=ms, plain_ms=pms)
+            # one iteration per entity: X, y, w, offsets, counts, θ in;
+            # f, g, δ out; the symmetric Hessian n·d·(d+1), its SPD solve,
+            # f and g ~4·n·d flops
+            bound, by = _bound(4 * (B * n * 25 + 3 * B * n + 4 * B * 25
+                                    + 2 * B),
+                               B * (n * 25 * 26 + _spd_solve_flops(25, 1)
+                                    + 4 * n * 25))
+            res["newton_fgd"] = dict(ms=ms, plain_ms=pms, bound_ms=bound,
+                                     bound_by=by, library_ms=None)
     res["newton_fgd"]["max_abs_err"] = worst
 
-    # K3: damped SPD solves at the batch-major Newton's width, f32 and f64
-    B, d = 4096, 100
-    rng = np.random.RandomState(3)
+    # K3: damped SPD solves at the batch-major Newton's width (d = 100), at
+    # the widths the primal rung now admits past 128 (shared memory up to
+    # d = 240 in f32 and 169 in f64; d = 256 in the global workspace), and
+    # K4: the dual Newton's n×n systems, r = 2, n = 32, 64 and 128; then
+    # K4 at the wide fit's own launches, one bucket of B = 128 at its
+    # n_cap 32 and 64
+    f32, f64 = torch.float32, torch.float64
+    for name, B, d, r, dts in (
+            ("spd_solve_batched", 4096, 100, 1, (f32, f64)),
+            ("spd_solve_batched", 4096, 200, 1, (f32,)),
+            ("spd_solve_batched", 4096, 160, 1, (f64,)),
+            ("spd_solve_batched", 4096, 256, 1, (f32,)),
+            ("spd_solve_batched_mrhs", 4096, 32, 2, (f32,)),
+            ("spd_solve_batched_mrhs", 4096, 64, 2, (f32, f64)),
+            ("spd_solve_batched_mrhs", 4096, 128, 2, (f32, f64)),
+            ("spd_solve_batched_mrhs", 128, 32, 2, (f32,)),
+            ("spd_solve_batched_mrhs", 128, 64, 2, (f32,))):
+        row = _solve_row(name, B, d, r, dts, seed=B + d + r)
+        if (name, B, d) in (("spd_solve_batched", 4096, 100),
+                            ("spd_solve_batched_mrhs", 4096, 64)):
+            res[name] = row
+    return res
+
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet): HBM 3.35 TB/s;
+# 67 TFLOP/s float32 outside the tensor cores, 67 TFLOP/s float64 through
+# the FP64 tensor cores
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {4: 67e12, 8: 67e12}   # by element size in bytes
+
+
+def _bound(nbytes: float, flops: float, item: int = 4):
+    """(least ms, "bytes" or "operations"): the larger of moving `nbytes`
+    at the memory rate and doing `flops` at the peak rate of the type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[item] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _spd_solve_flops(d: int, r: int) -> float:
+    """Flops that one d×d SPD system with r right-hand sides needs,
+    whatever algorithm runs it: a Cholesky factorisation (d³/3) and a
+    forward and a back substitution per column (d² each)."""
+    return d ** 3 / 3 + 2 * d * d * r
+
+
+def _solve_row(name, B, d, r, dtypes, seed):
+    """K3 (r = 1) or K4 against its plain version and torch.linalg.solve
+    (the yardstick, which the port never calls) on damped SPD systems
+    H = QQᵀ/d + I. Tolerances: max|Δx| ≤ 1e-4·max|x| in float32, 1e-9
+    relative in float64. Returns the first dtype's result row."""
+    import torch
+    from gdmix_tpu_torch.ops import linsolve
+    dev = torch.device("cuda:0")
+    rng = np.random.RandomState(seed)
     Q = torch.from_numpy(rng.randn(B, d, d)).to(dev)
     H64 = Q @ Q.transpose(1, 2) / d + torch.eye(d, dtype=Q.dtype,
                                                 device=dev)
-    g64 = torch.from_numpy(rng.randn(B, d)).to(dev)
-    for dt, tol in ((torch.float64, F64_REL_TOL), (torch.float32, 1e-4)):
-        H, g = H64.to(dt).contiguous(), g64.to(dt).contiguous()
-        k = lambda: linsolve.spd_solve_batched(H, g)
-        p = lambda: linsolve.gj_solve_plain(H, g)
+    del Q
+    R64 = torch.from_numpy(rng.randn(B, d, r)).to(dev)
+    first = None
+    for dt in dtypes:
+        H = H64.to(dt).contiguous()
+        R = R64.to(dt).contiguous()
+        if r == 1:
+            R = R[..., 0].contiguous()
+            k = lambda: linsolve.spd_solve_batched(H, R)
+            p = lambda: linsolve.gj_solve_plain(H, R)
+            lib = lambda: torch.linalg.solve(H, R)
+        else:
+            k = lambda: linsolve.spd_solve_batched_mrhs(H, R)
+            p = lambda: linsolve.gj_solve_mrhs_plain(H, R)
+            lib = lambda: torch.linalg.solve(H, R)
         xk, xp = k(), p()
+        torch.cuda.synchronize()
         err = float((xk - xp).abs().max())
         rel = err / float(xp.abs().max())
-        ms, pms = _time_ms(k, 10), _time_ms(p, 3)
-        _say("kernels", kernel="spd_solve_batched", B=B, d=d,
-             dtype=str(dt).split(".")[1], max_abs_dx=f"{err:.3e}",
-             rel=f"{rel:.3e}", ms=f"{ms:.3f}", plain_ms=f"{pms:.3f}")
-        _check(rel <= tol, f"spd_solve_batched {dt}: rel err {rel}")
-        if dt == torch.float32:
-            res["spd_solve_batched"] = dict(ms=ms, plain_ms=pms,
-                                            max_abs_err=err)
-    return res
+        tol = F64_REL_TOL if dt == torch.float64 else 1e-4
+        ms, pms, lms = _time_ms(k, 10), _time_ms(p, 2), _time_ms(lib, 5)
+        item = H.element_size()
+        bound, by = _bound(item * (B * d * d + 2 * B * d * r),
+                           B * _spd_solve_flops(d, r), item)
+        ws = linsolve._workspace(1, d, r, H) is not None
+        _say("kernels", kernel=name, B=B, d=d, r=r,
+             dtype=str(dt).split(".")[1], memory="global" if ws else "shared",
+             max_abs_dx=f"{err:.3e}", rel=f"{rel:.3e}", ms=f"{ms:.3f}",
+             plain_ms=f"{pms:.3f}", library_ms=f"{lms:.3f}",
+             bound_ms=f"{bound:.4f}", bound_by=by)
+        _check(rel <= tol, f"{name} d={d} {dt}: rel err {rel}")
+        if first is None:
+            first = dict(ms=ms, plain_ms=pms, max_abs_err=err,
+                         library_ms=lms, bound_ms=bound, bound_by=by)
+        del H, R, xk, xp
+    return first
 
 
 def _rel(a, b) -> float:
@@ -413,30 +522,50 @@ def phase_fe_kernels():
                  flat_ms=f"{fms:.3f}", plain_ms=f"{pms:.3f}",
                  loss_rel_grad_rel=errs)
             if ids == "uniform" and not linear:
-                res["fe_loss_grad_fused"].update(ms=ms, plain_ms=pms)
+                # ids and values [N, K], labels/weights/offsets [N] and θ
+                # in, the gradient and loss out; per entry a gather and a
+                # scatter multiply-add, per record ~10 flops
+                bound, by = _bound(
+                    4 * (2 * FE_N * FE_K + 3 * FE_N + 2 * (FE_D + 1)) + 4,
+                    4 * FE_N * FE_K + 10 * FE_N)
+                res["fe_loss_grad_fused"].update(
+                    ms=ms, plain_ms=pms, bound_ms=bound, bound_by=by,
+                    library_ms=None)
         # the flat pair's kernels alone, on the logistic entry residuals
         idx, val = b.indices.reshape(-1), b.values.reshape(-1)
         z = torch.sum(fe.fe_gather_entries_plain(x[:-1], idx, val).reshape(
             FE_N, FE_K), 1) + b.offsets + x[-1]
         ce = (b.values * (b.weights * (torch.sigmoid(z) - b.labels))[:, None]
               ).reshape(-1)
-        for name, kf, pf in (
+        E = FE_N * FE_K
+        # the gather reads ids, values and θ and writes [E]; the scatter
+        # reads ids and contributions and writes [D]; one flop an entry.
+        # The scatter's yardstick is index_add_ on the same inputs
+        for name, kf, pf, lib, nbytes in (
                 ("fe_gather_entries",
                  lambda: fe.fe_gather_entries(x[:-1], idx, val),
-                 lambda: fe.fe_gather_entries_plain(x[:-1], idx, val)),
+                 lambda: fe.fe_gather_entries_plain(x[:-1], idx, val),
+                 None, 4 * (3 * E + FE_D)),
                 ("fe_scatter_entries",
                  lambda: fe.fe_scatter_entries(idx, ce, FE_D),
-                 lambda: fe.fe_scatter_entries_plain(idx, ce, FE_D))):
+                 lambda: fe.fe_scatter_entries_plain(idx, ce, FE_D),
+                 lambda: torch.zeros(FE_D, device=DEV).index_add_(0, idx,
+                                                                  ce),
+                 4 * (2 * E + FE_D))):
             out_k, out_p = kf(), pf()
             err, rel = float((out_k - out_p).abs().max()), _rel(out_k, out_p)
             _check(rel <= FE_GRAD_RTOL, f"{name} {ids}: rel {rel}")
             ms, pms = _time_ms(kf, 10), _time_ms(pf, 5)
-            _say("kernels", kernel=name, ids=ids, E=FE_N * FE_K,
+            lms = None if lib is None else _time_ms(lib, 5)
+            bound, by = _bound(nbytes, E)
+            _say("kernels", kernel=name, ids=ids, E=E,
                  max_abs_err=f"{err:.3e}", rel=f"{rel:.2e}", ms=f"{ms:.3f}",
-                 plain_ms=f"{pms:.3f}")
+                 plain_ms=f"{pms:.3f}", library_ms=lms,
+                 bound_ms=f"{bound:.4f}", bound_by=by)
             res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
             if ids == "uniform":
-                res[name].update(ms=ms, plain_ms=pms)
+                res[name].update(ms=ms, plain_ms=pms, library_ms=lms,
+                                 bound_ms=bound, bound_by=by)
         del b, args, z, ce, idx, val
     # float64: the kernels must not quietly run in float32
     n64 = FE_N // 10
@@ -543,6 +672,172 @@ def phase_fit(card):
         _say("fit", reference="float64 cpu", entities=len(small),
              compared=len(rows), max_abs_dtheta=f"{dmax:.3e}")
         _check(dmax <= F32_TOL, f"fit vs float64 reference: {dmax}")
+    return launches
+
+
+def _re_counters():
+    from gdmix_tpu_torch.ops import linsolve, newton_lanes as nl
+    return (nl.newton_full, nl.newton_fgd, linsolve.spd_solve_batched,
+            linsolve.spd_solve_batched_mrhs)
+
+
+def _well_posed_rows(fg):
+    """Entities with 16+ records of both classes: one class sends the
+    unregularized intercept off to infinity, where float32 and float64
+    stop at different points of a flat objective."""
+    counts = np.asarray(fg.counts)
+    pos = np.add.reduceat(fg.columns["response"], np.cumsum(counts) - counts)
+    return np.flatnonzero((counts >= 16) & (pos > 0) & (pos < counts))
+
+
+def _against_f64_cpu(fg, d, tmp, tag, **over):
+    """Fit the first 256 entities of `fg` on the card (float32) and on the
+    CPU in float64 through the same rung; max |Δθ| over well-posed
+    entities and, where `over` asks for a variance mode, the largest
+    relative gap of their variances."""
+    from gdmix_tpu_torch.data.bucketing import select_entities
+    small = select_entities(fg, np.arange(256))
+    gm, schema = stage_model(d, os.path.join(tmp, f"{tag}_gpu"), **over)
+    cm, _ = stage_model(d, os.path.join(tmp, f"{tag}_cpu"), dtype="float64",
+                        device="cpu", **over)
+    tg, tc = gm.fit_flat(small, {}, schema), cm.fit_flat(small, {}, schema)
+    eids = np.asarray(small.entity_ids)[_well_posed_rows(small)]
+    dmax = max(float(np.abs(tg[e].theta - tc[e].theta).max()) for e in eids)
+    var = {}
+    if over.get("random_effect_variance_mode") is not None:
+        _check(tg.with_variance and tc.with_variance,
+               f"{tag}: a fit dropped its variances")
+        var["max_rel_dvar"] = "{:.3e}".format(max(float(
+            (np.abs(tg[e].variance - tc[e].variance) / tc[e].variance).max())
+            for e in eids))
+    _say("wide", cut=tag, reference="float64 cpu", entities=len(small),
+         compared=len(eids), rungs=gm.last_fit_rungs,
+         cpu_rungs=cm.last_fit_rungs, max_abs_dtheta=f"{dmax:.3e}", **var)
+    _check(gm.last_fit_rungs == cm.last_fit_rungs,
+           f"{tag}: card and CPU took other rungs")
+    _check(dmax <= F32_TOL, f"{tag} vs float64 reference: {dmax}")
+    if var:
+        _check(float(var["max_rel_dvar"]) <= VAR_RTOL,
+               f"{tag} variance vs float64 reference: {var}")
+
+
+def _cut(tag, fg, d, tmp, want_rung, **over):
+    """One fit of a ladder cut; returns (model, table, launches)."""
+    import torch
+    model, schema = stage_model(d, os.path.join(tmp, tag), **over)
+    for c in _re_counters():
+        c.launches = 0
+    t0 = time.perf_counter()
+    table = model.fit_flat(fg, {}, schema)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in _re_counters()}
+    share = _converged_share(model)
+    _say("wide", cut=tag, entities=len(fg), rungs=model.last_fit_rungs,
+         converged=f"{share:.6f}", fit_s=f"{wall:.3f}",
+         models_per_s=f"{len(fg) / wall:.1f}", launches=launches)
+    _check(set(model.last_fit_rungs) == {want_rung},
+           f"{tag}: rungs {model.last_fit_rungs}, want {want_rung}")
+    _check(bool(np.isfinite(table.coef_vals).all()
+                and np.isfinite(table.icpt).all()), f"{tag}: non-finite")
+    return model, table, launches
+
+
+def _profiled(fn):
+    """(wall seconds, device-busy ms) of fn() under torch.profiler: the sum
+    of the device's own event times (kernels and copies; one stream)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return wall, busy_us / 1e3
+
+
+def phase_wide(card):
+    """The JAX bench's wide-support RE workload (bench.py:697-701: 4,096
+    entities, d = 512, ≤ 16 nnz, 32–64 samples) at full size through
+    fit_flat, cold then warm: its buckets take the dual Newton and K4.
+    Then cuts that reach every other rung: SIMPLE and FULL variance on the
+    same workload, densified L-BFGS (d = 160, 192–384 samples), sparse
+    L-BFGS, the primal Newton past dim 128 (K3 at d > 128); and slices of
+    the dual (θ, and the SIMPLE and FULL variances), dense and sparse cuts
+    against a float64 CPU fit."""
+    import torch
+    from gdmix_tpu_torch import constants
+    with tempfile.TemporaryDirectory(prefix="gdx_smoke_wide_") as tmp:
+        fg = make_workload_flat(4096, seed=2, d=512, max_nnz=16,
+                                count_lo=32, count_hi=64)
+        model, schema = stage_model(512, os.path.join(tmp, "wide"))
+        for c in _re_counters():
+            c.launches = 0
+        # ---- the main path: one cold fit ----
+        t0 = time.perf_counter()
+        table = model.fit_flat(fg, {}, schema)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in _re_counters()}
+        # ----
+        share, rungs = _converged_share(model), dict(model.last_fit_rungs)
+        t0 = time.perf_counter()
+        model.fit_flat(fg, {}, schema)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        E = len(fg)
+        prof_s, busy_ms = _profiled(lambda: model.fit_flat(fg, {}, schema))
+        idle = (f"{1 - busy_ms / (1e3 * prof_s):.3f}" if busy_ms > 0
+                else "not measured")
+        _say("wide", workload="re_wide_support", entities=E,
+             converged=f"{share:.6f}", cold_s=f"{cold_s:.3f}",
+             warm_s=f"{warm_s:.3f}", models_per_s=f"{E / warm_s:.1f}",
+             phases={k: round(v, 3) for k, v in model.last_fit_phases.items()},
+             rungs=rungs, launches=launches,
+             profiled_fit_s=f"{prof_s:.3f}", device_busy_ms=f"{busy_ms:.1f}",
+             idle_share=idle, card=repr(card))
+        _check(share >= 0.999, f"wide converged share {share}")
+        _check(launches["spd_solve_batched_mrhs"] >= 1,
+               f"the wide fit never launched K4: {launches}")
+        _check(len(table) == E and bool(np.isfinite(table.coef_vals).all()
+                                        and np.isfinite(table.icpt).all()),
+               "wide: model count or non-finite model")
+
+        for mode in (constants.SIMPLE, constants.FULL):
+            vm, vt, _ = _cut(f"variance_{mode}", fg, 512, tmp, "newton_dual",
+                             random_effect_variance_mode=mode)
+            ok = (vt.with_variance and np.isfinite(vt.coef_vars).all()
+                  and (vt.coef_vars > 0).all()
+                  and np.isfinite(vt.icpt_vars).all()
+                  and (vt.icpt_vars > 0).all())
+            _say("wide", cut=f"variance_{mode}",
+                 coef_var_range=f"{vt.coef_vars.min():.3e}.."
+                                f"{vt.coef_vars.max():.3e}")
+            _check(bool(ok), f"{mode} variance: not all finite and > 0")
+
+        dense_fg = make_workload_flat(2048, seed=5, d=160, max_nnz=16,
+                                      count_lo=192, count_hi=384)
+        _cut("lbfgs_dense", dense_fg, 160, tmp, "lbfgs_dense")
+        sparse_fg = make_workload_flat(512, seed=6, d=512, max_nnz=16,
+                                       count_lo=32, count_hi=64)
+        sparse_over = dict(batch_solver="lbfgs", dense_lbfgs_max_elems=0)
+        _cut("lbfgs_sparse", sparse_fg, 512, tmp, "lbfgs", **sparse_over)
+        primal_fg = make_workload_flat(2048, seed=7, d=200, max_nnz=8,
+                                       count_lo=16, count_hi=64)
+        _, _, pl = _cut("newton_dim200", primal_fg, 200, tmp, "newton",
+                        newton_max_dim=256)
+        _check(pl["spd_solve_batched"] > 0,
+               f"the primal cut past dim 128 never launched K3: {pl}")
+
+        _against_f64_cpu(fg, 512, tmp, "newton_dual")
+        for mode in (constants.SIMPLE, constants.FULL):
+            _against_f64_cpu(fg, 512, tmp, f"newton_dual_{mode}",
+                             random_effect_variance_mode=mode)
+        _against_f64_cpu(dense_fg, 160, tmp, "lbfgs_dense")
+        _against_f64_cpu(sparse_fg, 512, tmp, "lbfgs", **sparse_over)
     return launches
 
 
@@ -827,6 +1122,8 @@ KERNELS = (
      "gdmix_tpu/ops/pallas/newton_lanes.py:137"),
     ("spd_solve_batched", "gdmix_tpu_torch/csrc/linsolve.cu",
      "gdmix_tpu/ops/pallas/linsolve.py:27"),
+    ("spd_solve_batched_mrhs", "gdmix_tpu_torch/csrc/linsolve.cu",
+     "gdmix_tpu/ops/pallas/linsolve.py:103"),
     ("fe_loss_grad_fused", "gdmix_tpu_torch/csrc/fe_loss_grad.cu",
      "gdmix_tpu/ops/pallas/fe_grad.py:48; gdmix_tpu/ops/pallas/"
      "fe_block.py:85; gdmix_tpu/ops/pallas/fe_gather.py:50"),
@@ -848,15 +1145,17 @@ def main():
     res = phase_kernels()
     res.update(phase_fe_kernels())
     launches = phase_fit(card)
+    launches["spd_solve_batched_mrhs"] = phase_wide(card)[
+        "spd_solve_batched_mrhs"]
     launches.update(phase_fe_fit(card))
     with tempfile.TemporaryDirectory(prefix="gdx_smoke_ml_") as tmp:
         ml = phase_pipeline(card, tmp)
         phase_cli()
         phase_fe_cli(ml, tmp)
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     rows = [dict(name=name, route="cuda", source=src, replaces=rep,
-                 launches=launches[name],
-                 max_abs_err=res[name]["max_abs_err"], ms=res[name]["ms"],
-                 plain_ms=res[name]["plain_ms"])
+                 launches=launches[name], **{k: res[name][k] for k in keys})
             for name, src, rep in KERNELS]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,16 @@
 // Shared device code for the Newton and linear-solve kernels: an in-place,
-// unpivoted Gauss–Jordan solve on an augmented matrix held in shared memory.
+// unpivoted Gauss–Jordan solve on an augmented matrix [A | R].
 //
-// A is [d][d + 1] with row stride `lda` (the right-hand side in column d);
-// on return column d holds x = A⁻¹·b. The row updates are those of the TPU
-// kernel (gdmix_tpu/ops/pallas/linsolve.py:33-44): scale the pivot row by
-// 1/A[j][j], subtract A[i][j] times it from every other row. Only columns
-// j+1..d are touched: columns left of the pivot already hold the identity
-// (up to rounding) and never feed back into column d, so skipping them
-// leaves x unchanged and saves a third of the work.
+// The matrix is [d][d + r] with row stride `lda` (the r right-hand sides in
+// columns d .. d+r-1); on return those columns hold X = A⁻¹·R. It may live
+// in shared memory or, for systems too large for it, in a global-memory
+// workspace of the same layout. The row updates are those of the TPU
+// kernels (gdmix_tpu/ops/pallas/linsolve.py:33-44 and :110-120): scale the
+// pivot row by 1/A[j][j], subtract A[i][j] times it from every other row.
+// Only columns j+1 .. d+r-1 are touched: columns left of the pivot already
+// hold the identity (up to rounding) and never feed back into the
+// right-hand sides, so skipping them leaves X unchanged and saves a third
+// of the work.
 //
 // The caller damps A (Levenberg) so that it is SPD: no pivoting is needed.
 #pragma once
@@ -33,15 +36,17 @@ __device__ __forceinline__ void coop_sync() {
 }
 
 // tid/nthr: this thread's rank among the cooperating threads (one warp when
-// kWarp, else the whole block).
+// kWarp, else the whole block). Offsets within one system are 32-bit.
 template <typename T, bool kWarp>
-__device__ void gj_solve_inplace(T* A, int lda, int d, int tid, int nthr) {
+__device__ void gj_solve_inplace(T* A, int lda, int d, int r, int tid,
+                                 int nthr) {
+  const int cols = d + r;
   for (int j = 0; j < d; ++j) {
     T* row_j = A + j * lda;
     const T inv_p = T(1) / row_j[j];
-    for (int k = j + 1 + tid; k <= d; k += nthr) row_j[k] *= inv_p;
+    for (int k = j + 1 + tid; k < cols; k += nthr) row_j[k] *= inv_p;
     coop_sync<kWarp>();
-    const int w = d - j;  // columns j+1 .. d
+    const int w = cols - 1 - j;  // columns j+1 .. d+r-1
     for (int e = tid; e < d * w; e += nthr) {
       const int i = e / w;
       if (i == j) continue;

@@ -139,7 +139,7 @@ __device__ float warp_fgd(const WarpTile& t, int n, int d, float lam,
     t.A[k * t.lda + l] = s;
   }
   __syncwarp();
-  gdx::gj_solve_inplace<float, true>(t.A, t.lda, d, lane, 32);
+  gdx::gj_solve_inplace<float, true>(t.A, t.lda, d, 1, lane, 32);
   for (int k = lane; k < d; k += 32) t.dl[k] = t.A[k * t.lda + d];
   __syncwarp();
   return (f_data + reg) * inv_n;
@@ -337,7 +337,7 @@ __global__ void newton_fgd_kernel(
     A[k * lda + l] = s;
   }
   __syncthreads();
-  gdx::gj_solve_inplace<float, false>(A, lda, d, tid, nthr);
+  gdx::gj_solve_inplace<float, false>(A, lda, d, 1, tid, nthr);
   for (int k = tid; k < d; k += nthr) DELTA[b * d + k] = A[k * lda + d];
 }
 

@@ -2,10 +2,22 @@
 
 Port of gdmix_tpu/models/random_effect_lr.py (the host plane). Entities are
 bucketed by sample count (data/bucketing.py), each bucket's per-entity
-problems are densified and solved at once by batched damped Newton
-(ops/newton.py, whose float32 path runs the hand-written kernels of
-ops/newton_lanes.py on a card), and the solutions become a columnar
-ModelTable that is exported as photon-ml model avro.
+problems are solved at once by the rung of the solver ladder its shape
+selects (`_select_solver`, as in the JAX package):
+
+  * primal damped Newton (dim ≤ newton_max_dim; ops/newton.py, whose
+    float32 path runs the kernels of ops/newton_lanes.py for dim ≤ 64 and
+    the batched solve kernel K3 above it);
+  * sample-space (Woodbury) dual Newton (samples-per-entity < dim; its n×n
+    solve is the multi-RHS kernel K4 for n ≤ 128);
+  * L-BFGS on densified per-entity matrices, lockstep over the bucket
+    (ops/lbfgs.py:lbfgs_batched);
+  * L-BFGS on the sparse per-entity objective (ops/logistic.py).
+
+Every rung returns (θ, variance, converged), with the SIMPLE or FULL
+coefficient variance when random_effect_variance_mode asks for it; the
+solutions become a columnar ModelTable that is exported as photon-ml model
+avro, variances included.
 
 Behavior kept from the JAX package: warm start with prior-model/feature
 reconciliation, sparsify-to-support and threshold, validation, active and
@@ -13,9 +25,8 @@ passive scoring where entities without a model pass offsets through,
 intercept-only models, string or numeric entity ids.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-the dual, dense L-BFGS and sparse L-BFGS rungs of the solver ladder,
-two-phase Newton, coefficient variance, re_mode="sharded", streaming and
-the multi-sweep device cache.
+two-phase Newton, re_mode="sharded", streaming and the multi-sweep device
+cache.
 """
 from __future__ import annotations
 
@@ -37,7 +48,13 @@ from gdmix_tpu_torch.io.metadata import DatasetMetadata
 from gdmix_tpu_torch.io.model_avro import SparseModel
 from gdmix_tpu_torch.io.model_table import ModelTable
 from gdmix_tpu_torch.models.api import Model
-from gdmix_tpu_torch.ops.newton import densify_bucket, newton_lr_batch
+from gdmix_tpu_torch.ops.lbfgs import lbfgs_batched
+from gdmix_tpu_torch.ops.logistic import (SparseBatch, _l2_mask,
+                                          entity_logits,
+                                          per_entity_value_and_grad,
+                                          stable_bce)
+from gdmix_tpu_torch.ops.newton import (densify_bucket, dual_variance,
+                                        newton_lr_batch)
 from gdmix_tpu_torch.params import Params, REParams, from_argv
 from gdmix_tpu_torch.util.convert import newton_inputs_from_numpy
 
@@ -48,22 +65,162 @@ _BUCKET_COLS = ("indices", "values", "offsets", "labels", "weights",
                 "sample_count", "theta0")
 
 
+_EPSILON = 1.0e-12
+
+
+def _variance_dense(theta, X, offsets, weights, *, lam, unreg_bias,
+                    variance_mode):
+    """Per-entity variance from densified X [B, n, dim] (the dense L-BFGS
+    rung's, gdmix_tpu/models/random_effect_lr.py:356-371; the FULL form of
+    every rung). The reference's Hessian is UN-normalized (no 1/n)."""
+    p = torch.sigmoid(torch.einsum("bnd,bd->bn", X, theta) + offsets)
+    d = weights * p * (1 - p)                                   # [B, n]
+    if variance_mode == constants.SIMPLE:
+        hd = torch.einsum("bnd,bn->bd", X * X, d) + lam
+        if unreg_bias:
+            hd[:, 0] -= lam
+        return 1.0 / (hd + _EPSILON)
+    dim = X.shape[2]
+    H = torch.einsum("bnd,bne->bde", X, X * d[:, :, None]) \
+        + (lam + _EPSILON) * torch.eye(dim, dtype=X.dtype, device=X.device)
+    if unreg_bias:
+        H[:, 0, 0] -= lam
+    return torch.diagonal(torch.linalg.inv(H), dim1=1, dim2=2)
+
+
+def _variance_batch(theta, a, u_cap, *, has_intercept, regularize_bias, lam,
+                    variance_mode, X=None):
+    """Per-entity variance of the primal and sparse L-BFGS rungs
+    (gdmix_tpu/models/random_effect_lr.py:58-86, reference
+    binary_logistic_regression.py:144-189). SIMPLE works on the sparse
+    records (a feature repeated within a record adds its squares, as the
+    JAX package's sparse Hessian diagonal does); FULL inverts the densified
+    Hessian (X, densified here when the caller has none)."""
+    unreg_bias = has_intercept and not regularize_bias
+    if variance_mode != constants.SIMPLE:
+        if X is None:
+            X = densify_bucket(a["indices"], a["values"], u_cap,
+                               has_intercept)
+        return _variance_dense(theta, X, a["offsets"], a["weights"], lam=lam,
+                               unreg_bias=unreg_bias,
+                               variance_mode=variance_mode)
+    batch = SparseBatch(a["indices"], a["values"], a["offsets"], a["labels"],
+                        a["weights"])
+    p = torch.sigmoid(entity_logits(theta, batch,
+                                    has_intercept=has_intercept))
+    d = a["weights"] * p * (1 - p)                              # [B, n]
+    B = theta.shape[0]
+    hd = torch.zeros(B, u_cap, dtype=theta.dtype, device=theta.device)
+    hd.scatter_add_(1, a["indices"].reshape(B, -1),
+                    (a["values"] ** 2 * d[..., None]).reshape(B, -1))
+    if has_intercept:
+        hd = torch.cat([torch.sum(d, dim=1)[:, None], hd], dim=1)
+    hd = hd + lam
+    if unreg_bias:
+        hd[:, 0] -= lam
+    return 1.0 / (hd + _EPSILON)
+
+
 def _newton_solver(u_cap, has_intercept, regularize_bias, lam, maxiter, ftol,
-                   pgtol):
-    """The primal Newton rung: bucket arrays → NewtonResult (θ [B, dim],
-    converged [B], iterations [B])."""
+                   pgtol, m, variance_mode):
+    """The primal Newton rung: bucket arrays → (θ [B, dim], variance
+    [B, dim] or None, converged [B])."""
     unreg_bias = has_intercept and not regularize_bias
 
     def solve(a):
         X = densify_bucket(a["indices"], a["values"], u_cap, has_intercept)
-        l2_mask = torch.ones(X.shape[2], dtype=X.dtype, device=X.device)
-        if unreg_bias:
-            l2_mask[0] = 0.0
-        return newton_lr_batch(
+        mask = _l2_mask(X.shape[2], has_intercept, regularize_bias, False,
+                        X.dtype, X.device)
+        res = newton_lr_batch(
             a["theta0"], X, a["labels"], a["weights"], a["offsets"],
-            a["sample_count"], l2_reg_weight=lam, l2_mask=l2_mask,
+            a["sample_count"], l2_reg_weight=lam, l2_mask=mask,
             maxiter=maxiter, ftol=ftol, pgtol=pgtol,
             static_unreg_bias=unreg_bias)
+        var = _variance_batch(
+            res.theta, a, u_cap, has_intercept=has_intercept,
+            regularize_bias=regularize_bias, lam=lam,
+            variance_mode=variance_mode, X=X) if variance_mode else None
+        return res.theta, var, res.converged
+    return solve
+
+
+def _newton_dual_solver(u_cap, has_intercept, regularize_bias, lam, maxiter,
+                        ftol, pgtol, m, variance_mode):
+    """Sample-space (Woodbury) Newton, the wide-support rung: Newton-rate
+    convergence at O(n²·dim) per iteration through the n×n kernel system,
+    no [B, dim, dim] Hessian. Selected when samples-per-entity < dim."""
+    unreg_bias = has_intercept and not regularize_bias
+
+    def solve(a):
+        X = densify_bucket(a["indices"], a["values"], u_cap, has_intercept)
+        mask = _l2_mask(X.shape[2], has_intercept, regularize_bias, False,
+                        X.dtype, X.device)
+        res = newton_lr_batch(
+            a["theta0"], X, a["labels"], a["weights"], a["offsets"],
+            a["sample_count"], l2_reg_weight=lam, l2_mask=mask,
+            maxiter=maxiter, ftol=ftol, pgtol=pgtol, dual=True)
+        var = dual_variance(
+            res.theta, X, a["labels"], a["weights"], a["offsets"],
+            l2_reg_weight=lam, l2_mask=mask,
+            full=(variance_mode == constants.FULL),
+            epsilon=_EPSILON) if variance_mode else None
+        return res.theta, var, res.converged
+    return solve
+
+
+def _lbfgs_dense_solver(u_cap, has_intercept, regularize_bias, lam, maxiter,
+                        ftol, pgtol, m, variance_mode):
+    """L-BFGS over DENSIFIED per-entity matrices: every funcall is two
+    batched [B, n, dim] products, the rung for wide buckets whose samples
+    outnumber their features."""
+    unreg_bias = has_intercept and not regularize_bias
+
+    def solve(a):
+        X = densify_bucket(a["indices"], a["values"], u_cap, has_intercept)
+        mask = _l2_mask(X.shape[2], has_intercept, regularize_bias, False,
+                        X.dtype, X.device)
+        off, lab, wt = a["offsets"], a["labels"], a["weights"]
+        inv_n = 1.0 / torch.clamp_min(a["sample_count"], 1.0)
+
+        def fun(th):
+            z = torch.einsum("bnd,bd->bn", X, th) + off
+            v = (torch.sum(wt * stable_bce(z, lab), dim=1)
+                 + 0.5 * lam * torch.sum(mask * th * th, dim=1)) * inv_n
+            r = wt * (torch.sigmoid(z) - lab)
+            g = (torch.einsum("bnd,bn->bd", X, r) + lam * mask * th) \
+                * inv_n[:, None]
+            return v, g
+
+        res = lbfgs_batched(fun, a["theta0"], m=m, ftol=ftol, pgtol=pgtol,
+                            maxiter=maxiter)
+        var = _variance_dense(
+            res.x, X, off, wt, lam=lam, unreg_bias=unreg_bias,
+            variance_mode=variance_mode) if variance_mode else None
+        return res.x, var, res.converged
+    return solve
+
+
+def _lbfgs_solver(u_cap, has_intercept, regularize_bias, lam, maxiter, ftol,
+                  pgtol, m, variance_mode):
+    """L-BFGS on the sparse per-entity objective, the last rung: no
+    densified matrix (FULL variance excepted)."""
+    def solve(a):
+        batch = SparseBatch(a["indices"], a["values"], a["offsets"],
+                            a["labels"], a["weights"])
+
+        def fun(th):
+            return per_entity_value_and_grad(
+                th, batch, u_cap, has_intercept=has_intercept,
+                regularize_bias=regularize_bias, l2_reg_weight=lam,
+                sample_count=a["sample_count"])
+
+        res = lbfgs_batched(fun, a["theta0"], m=m, ftol=ftol, pgtol=pgtol,
+                            maxiter=maxiter)
+        var = _variance_batch(
+            res.x, a, u_cap, has_intercept=has_intercept,
+            regularize_bias=regularize_bias, lam=lam,
+            variance_mode=variance_mode) if variance_mode else None
+        return res.x, var, res.converged
     return solve
 
 
@@ -109,8 +266,10 @@ class RandomEffectLRModel(Model):
         self.dtype = _DTYPES[model_params.dtype]
         self.device = resolve_device(device)
         self.variance_mode = model_params.random_effect_variance_mode
-        # (converged, solved) real entities of the last fit
+        # (converged, solved) real entities of the last fit, and its
+        # buckets per solver rung
         self.last_fit_converged = (0, 0)
+        self.last_fit_rungs: Dict[str, int] = {}
 
     # ------------------------------------------------------------------ train --
 
@@ -199,23 +358,27 @@ class RandomEffectLRModel(Model):
         # tier t solves (the float32 kernels run asynchronously; the
         # per-iteration forms synchronize once per iteration)
         pending = []
+        rungs: Dict[str, int] = {}
         for bucket in buckets:
             arrays = self._bucket_device_arrays(bucket)
-            solve = self._select_solver(bucket.u_cap,
-                                        bucket.indices.shape[0],
-                                        bucket.n_cap)
+            rung, solve = self._select_solver(bucket.u_cap,
+                                              bucket.indices.shape[0],
+                                              bucket.n_cap)
+            rungs[rung] = rungs.get(rung, 0) + 1
             pending.append((bucket, solve(arrays)))
         tt.append(("marshal_dispatch", time.time()))
         n_conv = n_real = 0
         tables = []
-        for bucket, res in pending:
+        for bucket, (theta, variance, converged) in pending:
             b_real = len(bucket.entity_ids)
-            n_conv += int(res.converged[:b_real].sum())
+            n_conv += int(converged[:b_real].sum())
             n_real += b_real
-            tables.append(self._collect_bucket_table(bucket, res.theta))
+            tables.append(self._collect_bucket_table(bucket, theta,
+                                                     variance))
         self.last_fit_converged = (n_conv, n_real)
+        self.last_fit_rungs = rungs
         new = ModelTable.concat(tables, has_intercept=self.has_intercept,
-                                with_variance=False)
+                                with_variance=self.variance_mode is not None)
         tt.append(("solve_fetch_collect", time.time()))
         # a capped entity's overflow groups each solve a model; keep the last
         new = new.deduped_last()
@@ -241,42 +404,51 @@ class RandomEffectLRModel(Model):
             self.dtype)
 
     def _select_solver(self, u_cap: int, B: int, n_cap: int):
-        """The solver ladder of the JAX package: Newton (dim ≤
+        """The solver ladder of the JAX package
+        (gdmix_tpu/models/random_effect_lr.py:862-899): Newton (dim ≤
         newton_max_dim) → sample-space dual Newton (n < dim, kernel fits) →
-        densified L-BFGS → sparse L-BFGS. The port has the first rung."""
+        densified L-BFGS → sparse L-BFGS. Returns (rung name, solve)."""
         p = self.model_params
         dim = u_cap + (1 if self.has_intercept else 0)
         use_newton = (p.batch_solver == "newton"
                       or (p.batch_solver == "auto"
                           and dim <= p.newton_max_dim))
-        if not use_newton:
-            use_dual = ((p.batch_solver == "newton_dual"
+        # explicit newton_dual is honored whenever the kernel fits; auto
+        # additionally requires n_cap < dim (where sample space is cheaper)
+        use_dual = (not use_newton
+                    and (p.batch_solver == "newton_dual"
                          or (p.batch_solver == "auto" and n_cap < dim))
-                        and B * n_cap * n_cap <= p.dual_newton_max_elems
-                        and B * n_cap * dim <= p.dense_lbfgs_max_elems)
-            if use_dual:
-                raise NotImplementedError("ROADMAP A.3: dual Newton")
-            if B * n_cap * dim <= p.dense_lbfgs_max_elems:
-                raise NotImplementedError("ROADMAP A.3: dense L-BFGS")
-            raise NotImplementedError("ROADMAP A.3: sparse L-BFGS")
-        if self.variance_mode:
-            raise NotImplementedError(
-                "ROADMAP A.3: random-effect coefficient variance")
-        if (p.newton_phase1_iters > 0
+                    and B * n_cap * n_cap <= p.dual_newton_max_elems
+                    and B * n_cap * dim <= p.dense_lbfgs_max_elems)
+        if p.batch_solver == "newton_dual" and not use_dual \
+                and not use_newton:
+            logger.warning(
+                "batch_solver=newton_dual: bucket B=%d n=%d dim=%d exceeds "
+                "dual_newton_max_elems/dense_lbfgs_max_elems — falling back "
+                "to L-BFGS", B, n_cap, dim)
+        use_dense = (not use_newton and not use_dual
+                     and B * n_cap * dim <= p.dense_lbfgs_max_elems)
+        if (use_newton and p.newton_phase1_iters > 0
+                and self.variance_mode is None
                 and p.num_of_lbfgs_iterations > p.newton_phase1_iters
                 and B > 64):
             raise NotImplementedError(
                 "two-phase Newton (newton_phase1_iters > 0) is on ROADMAP's "
                 "do-not-port list")
-        return _newton_solver(u_cap, self.has_intercept, p.regularize_bias,
-                              float(p.l2_reg_weight),
-                              p.num_of_lbfgs_iterations,
-                              float(p.lbfgs_tolerance), float(p.lbfgs_pgtol))
+        rung, factory = (("newton", _newton_solver) if use_newton
+                         else ("newton_dual", _newton_dual_solver) if use_dual
+                         else ("lbfgs_dense", _lbfgs_dense_solver)
+                         if use_dense else ("lbfgs", _lbfgs_solver))
+        return rung, factory(
+            u_cap, self.has_intercept, p.regularize_bias,
+            float(p.l2_reg_weight), p.num_of_lbfgs_iterations,
+            float(p.lbfgs_tolerance), float(p.lbfgs_pgtol),
+            p.num_of_lbfgs_curvature_pairs, self.variance_mode)
 
-    def _collect_bucket_table(self, bucket: EntityBucket,
-                              theta: torch.Tensor) -> ModelTable:
-        """The bucket's [B, dim] solution as ModelTable columns (one masked
-        gather, no per-entity python)."""
+    def _collect_bucket_table(self, bucket: EntityBucket, theta: torch.Tensor,
+                              variance) -> ModelTable:
+        """The bucket's [B, dim] solution (and variances) as ModelTable
+        columns (one masked gather, no per-entity python)."""
         b_real = len(bucket.entity_ids)
         thetas = theta[:b_real].to("cpu", torch.float64).numpy()
         off = 1 if self.has_intercept else 0
@@ -287,11 +459,15 @@ class RandomEffectLRModel(Model):
         mask = np.arange(u_cap)[None, :] < u_count[:, None]
         offs = np.zeros(b_real + 1, np.int64)
         np.cumsum(u_count, out=offs[1:])
+        var = (None if variance is None
+               else variance[:b_real].to("cpu", torch.float64).numpy())
         return ModelTable(
             ids=np.asarray(bucket.entity_ids, object), offs=offs,
             coef_ids=bucket.unique_global_indices[:b_real][mask],
             coef_vals=thetas[:, off:off + u_cap][mask],
-            icpt=thetas[:, 0].copy() if off else None)
+            icpt=thetas[:, 0].copy() if off else None,
+            coef_vars=None if var is None else var[:, off:off + u_cap][mask],
+            icpt_vars=var[:, 0].copy() if var is not None and off else None)
 
     # ---------------------------------------------------------------- scoring --
 

@@ -1,5 +1,6 @@
 """Logistic/linear regression objectives on padded-sparse batches: the
-fixed-effect subset of gdmix_tpu/ops/logistic.py.
+fixed-effect subset of gdmix_tpu/ops/logistic.py and the random-effect
+per-entity objective (the sparse L-BFGS rung's), batched over entities.
 
 The math of the reference, unchanged:
 
@@ -116,6 +117,66 @@ def fixed_effect_value_and_grad(x: torch.Tensor,
                                regularize_bias=regularize_bias,
                                intercept_at_end=True)
     return value + lv, grad + lg
+
+
+def entity_logits(theta: torch.Tensor, batch: SparseBatch, *,
+                  has_intercept: bool = True) -> torch.Tensor:
+    """Logits incl. offsets [B, n] of B entities at once (intercept FIRST;
+    batch fields [B, n, K] / [B, n]): `vmap` of predict_logits with
+    intercept_at_end=False."""
+    B = theta.shape[0]
+    w = theta[:, 1:] if has_intercept else theta
+    flat = batch.indices.reshape(B, -1).long()
+    z = torch.sum(torch.gather(w, 1, flat).reshape(batch.values.shape)
+                  * batch.values, dim=-1) + batch.offsets
+    return z + theta[:, :1] if has_intercept else z
+
+
+def per_entity_value_and_grad(theta: torch.Tensor,
+                              batch: SparseBatch,
+                              num_features: int,
+                              *,
+                              has_intercept: bool = True,
+                              regularize_bias: bool = False,
+                              l2_reg_weight: float = 0.0,
+                              sample_count=None):
+    """Per-entity objective (MEAN form, reference
+    binary_logistic_regression.py:84-131), for B entities at once: what
+    `vmap` of gdmix_tpu/ops/logistic.py:per_entity_value_and_grad computes.
+
+    theta [B, dim]: [b, w(num_features)] if has_intercept else [w] —
+    intercept FIRST. batch fields carry a leading entity axis: indices and
+    values [B, n, K] (entity-LOCAL feature ids), offsets/labels/weights
+    [B, n]; rows beyond an entity's true sample count have weight 0.
+    sample_count [B] is the true n of the 1/n normalization (default the
+    padded row count). Returns (value [B], grad [B, dim])."""
+    dtype = theta.dtype
+    B = theta.shape[0]
+    if sample_count is None:
+        n = torch.full((B,), float(batch.labels.shape[1]), dtype=dtype,
+                       device=theta.device)
+    else:
+        n = sample_count.to(dtype)
+    n = torch.clamp_min(n, 1.0)
+    flat = batch.indices.reshape(B, -1).long()                  # [B, n·K]
+    z = entity_logits(theta, batch, has_intercept=has_intercept)
+    per = stable_bce(z, batch.labels)
+    dz = torch.sigmoid(z) - batch.labels
+
+    value = torch.sum(batch.weights * per, dim=1)
+    r = batch.weights * dz                                      # [B, n]
+    grad_w = torch.zeros(B, num_features, dtype=dtype,
+                         device=theta.device).scatter_add_(
+        1, flat, (batch.values * r[..., None]).reshape(B, -1))
+    grad = (torch.cat([torch.sum(r, dim=1)[:, None], grad_w], dim=1)
+            if has_intercept else grad_w)
+
+    mask = _l2_mask(theta.shape[1], has_intercept, regularize_bias, False,
+                    dtype, theta.device)
+    lam = float(l2_reg_weight)
+    value = (value + 0.5 * lam * torch.sum(mask * theta * theta, dim=1)) / n
+    grad = (grad + lam * mask * theta) / n[:, None]
+    return value, grad
 
 
 def predict_logits(theta: torch.Tensor, batch: SparseBatch, *,

@@ -1,14 +1,21 @@
-"""Batched damped Newton for per-entity logistic regression (primal).
+"""Batched damped Newton for per-entity logistic regression.
 
-Port of gdmix_tpu/ops/newton.py:newton_lr_batch and densify_bucket.
-Objective (the reference's MEAN form): f(θ) = (Σ wᵢ·bce(zᵢ) + λ/2·θᵀMθ)/n
-with z = Xθ + offset and M the bias-exclusion mask.
+Port of gdmix_tpu/ops/newton.py: newton_lr_batch (primal and sample-space
+dual), dual_variance and densify_bucket. Objective (the reference's MEAN
+form): f(θ) = (Σ wᵢ·bce(zᵢ) + λ/2·θᵀMθ)/n with z = Xθ + offset and M the
+bias-exclusion mask.
 
-Dispatch, as in the JAX package: float32 on a card with dim ≤ 64 and a
-static mask layout goes to the fused kernels of ops/newton_lanes.py; every
-other case runs the batch-major loop here, whose linear solve is the
-hand-written kernel of ops/linsolve.py on a card and a Cholesky solve on
-the CPU (the JAX package's non-TPU solve).
+Dispatch, as in the JAX package:
+  * primal, float32 on a card with dim ≤ 64 and a static mask layout: the
+    fused kernels of ops/newton_lanes.py;
+  * every other primal case: the batch-major loop here, whose dim×dim solve
+    is the hand-written kernel of ops/linsolve.py (K3) on a card and a
+    Cholesky solve on the CPU (the JAX package's non-TPU solve);
+  * dual (Woodbury, samples-per-entity < dim): the same loop with the step
+    taken in sample space through the n×n kernel system, solved by the
+    multi-RHS kernel (K4) on a card when n ≤ 128 and by a Cholesky solve
+    otherwise — the rule of gdmix_tpu/ops/newton.py:168-172, chosen by shape
+    before any launch.
 """
 from __future__ import annotations
 
@@ -16,12 +23,14 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from gdmix_tpu_torch.ops.linsolve import spd_solve_batched
+from gdmix_tpu_torch.ops.linsolve import (spd_solve_batched,
+                                          spd_solve_batched_mrhs)
 from gdmix_tpu_torch.ops.newton_lanes import MAX_DIM, newton_lr_batch_lanes
 
 _ARMIJO_C1 = 1e-4
 _MAX_BACKTRACKS = 20
 _Z_REFRESH = 16   # iterations between exact recomputations of z = Xθ + off
+DUAL_KERNEL_MAX_N = 128   # the dual's n×n solve runs K4 up to this n
 
 
 class NewtonResult(NamedTuple):
@@ -33,6 +42,12 @@ class NewtonResult(NamedTuple):
 def _cholesky_solve(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     L = torch.linalg.cholesky(H)
     return torch.cholesky_solve(g[..., None], L)[..., 0]
+
+
+def _cho_solve_batched(L: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """K⁻¹·rhs from L = chol(K); L [B, n, n], rhs [B, n, r]."""
+    y = torch.linalg.solve_triangular(L, rhs, upper=False)
+    return torch.linalg.solve_triangular(L.mT, y, upper=True)
 
 
 def newton_lr_batch(theta0: torch.Tensor,
@@ -55,13 +70,19 @@ def newton_lr_batch(theta0: torch.Tensor,
     caller); labels/weights/offsets [B, n] (padding rows have weight 0);
     counts [B] true sample counts; l2_mask [dim] (0 on an unregularized
     intercept). `static_unreg_bias` states the mask layout for the fused
-    kernels (True: a 0 at coordinate 0 only; False: all ones)."""
-    if dual:
-        raise NotImplementedError("ROADMAP A.3: dual Newton")
+    kernels (True: a 0 at coordinate 0 only; False: all ones).
+
+    dual=True takes the Newton step in SAMPLE space (Woodbury): with
+    Ũ = √D·X and D = diag(w·p·(1−p)), the primal Hessian λM + XᵀDX is
+    inverted through the n×n system K = αI_n + ŨŨᵀ instead of a dim×dim
+    one, and no [B, dim, dim] Hessian is formed. It requires l2_mask to be
+    all ones except an optional 0 at coordinate 0; that rank-1 hole is
+    folded back in by Sherman–Morrison."""
     dtype = theta0.dtype
     B, n, dim = X.shape
-    if (static_unreg_bias is not None and dtype == torch.float32
-            and X.device.type == "cuda" and dim <= MAX_DIM):
+    if (not dual and static_unreg_bias is not None
+            and dtype == torch.float32 and X.device.type == "cuda"
+            and dim <= MAX_DIM):
         return newton_lr_batch_lanes(
             theta0, X, labels, weights, offsets, counts,
             l2_reg_weight=float(l2_reg_weight), unreg_bias=static_unreg_bias,
@@ -86,7 +107,7 @@ def newton_lr_batch(theta0: torch.Tensor,
         return (torch.einsum("bnd,bn->bd", X, r) + lam * mask * theta) \
             * inv_n[:, None]
 
-    def delta_of(g, p):
+    def delta_primal(g, p):
         d = weights * p * (1 - p)
         H = (torch.einsum("bnd,bne->bde", X, X * d[:, :, None])
              + lam * torch.diag(mask)) * inv_n[:, None, None]
@@ -94,6 +115,46 @@ def newton_lr_batch(theta0: torch.Tensor,
         damp = eps * (1.0 + torch.diagonal(H, dim1=1, dim2=2).abs())
         return solve((H + torch.diag_embed(damp)).contiguous(),
                      g.contiguous())
+
+    if dual:
+        # the Gram matrix is iteration-invariant: ŨŨᵀ = √d√dᵀ ⊙ (XXᵀ), so
+        # each iteration's n×n system is built elementwise
+        G = torch.einsum("bnd,bmd->bnm", X, X)
+        XX = X * X
+        eye_n = torch.eye(n, dtype=dtype, device=X.device)
+        e0 = torch.zeros(dim, dtype=dtype, device=X.device)
+        e0[0] = 1.0
+        X0 = X[:, :, 0]          # intercept column
+        n_f = torch.clamp_min(counts.to(dtype), 1.0)
+        c = lam * (1.0 - mask[0])                           # intercept hole
+        use_kernel = X.device.type == "cuda" and n <= DUAL_KERNEL_MAX_N
+
+    def delta_dual(g, p):
+        # solve (λI + XᵀDX − c·e₀e₀ᵀ + μI)·δ = g_un in sample space
+        d = weights * p * (1 - p)                               # [B, n]
+        g_un = g * n_f[:, None]                                 # drop the 1/n
+        diag_un = lam * mask[None, :] + torch.einsum("bnd,bn->bd", XX, d)
+        mu = eps * (1.0 + diag_un.amax(dim=1))                  # damping
+        alpha = lam + mu                                        # [B]
+        sd = torch.sqrt(d)
+        K = sd[:, :, None] * sd[:, None, :] * G \
+            + alpha[:, None, None] * eye_n
+        t = sd * torch.einsum("bnd,bd->bn", X, g_un)            # Ũ·g_un
+        rhs = torch.stack([t, sd * X0], dim=-1)                 # [B, n, 2]
+        if use_kernel:
+            sol = spd_solve_batched_mrhs(K.contiguous(), rhs.contiguous())
+        else:
+            sol = _cho_solve_batched(torch.linalg.cholesky(K), rhs)
+        # A⁻¹v = (v − Ũᵀ K⁻¹ Ũ v)/α for A = αI + ŨᵀŨ, Ũᵀw = Xᵀ(√d ⊙ w):
+        # both back-substitutions in one batched product
+        back = torch.einsum("bnd,bnk->bkd", X, sd[:, :, None] * sol)
+        Ag = (g_un - back[:, 0]) / alpha[:, None]
+        Ae0 = (e0[None, :] - back[:, 1]) / alpha[:, None]
+        # Sherman–Morrison for −c·e₀e₀ᵀ; denom ≥ μ/α > 0 by construction
+        denom = 1.0 - c * Ae0[:, 0]
+        return Ag + c * Ae0 * (Ag[:, 0] / denom)[:, None]
+
+    delta_of = delta_dual if dual else delta_primal
 
     theta = theta0
     z = torch.einsum("bnd,bd->bn", X, theta0) + offsets
@@ -137,6 +198,46 @@ def newton_lr_batch(theta0: torch.Tensor,
         f = f_next
         k += 1
     return NewtonResult(theta=theta, converged=done, num_iterations=iters)
+
+
+def dual_variance(theta: torch.Tensor, X: torch.Tensor, labels: torch.Tensor,
+                  weights: torch.Tensor, offsets: torch.Tensor, *,
+                  l2_reg_weight: float, l2_mask: torch.Tensor,
+                  full: bool, epsilon: float = 1e-12) -> torch.Tensor:
+    """Per-entity coefficient variance without forming [B, dim, dim].
+
+    The estimator of the primal path (reference
+    binary_logistic_regression.py:144-189, un-normalized Hessian
+    H = λM + XᵀDX with an ε ridge): SIMPLE = 1/diag(H), FULL = diag(H⁻¹),
+    the FULL diagonal taken in sample space, diag(A⁻¹) =
+    (1 − colnorms²(L⁻¹Ũ))/α for A = αI + ŨᵀŨ, plus the Sherman–Morrison
+    correction for the unregularized-intercept hole. l2_mask: all ones
+    except an optional 0 at coordinate 0 (the contract of the dual
+    newton_lr_batch)."""
+    dtype = theta.dtype
+    B, n, dim = X.shape
+    lam = float(l2_reg_weight)
+    mask = l2_mask.to(dtype)
+    z = torch.einsum("bnd,bd->bn", X, theta) + offsets
+    p = torch.sigmoid(z)
+    d = weights * p * (1 - p)                                   # [B, n]
+    diag_un = lam * mask[None, :] + torch.einsum("bnd,bn->bd", X * X, d)
+    if not full:
+        return 1.0 / (diag_un + epsilon)
+    alpha = lam + epsilon
+    Xs = X * torch.sqrt(d)[..., None]                           # Ũ
+    K = torch.einsum("bnd,bmd->bnm", Xs, Xs) \
+        + alpha * torch.eye(n, dtype=dtype, device=X.device)
+    L = torch.linalg.cholesky(K)
+    W = torch.linalg.solve_triangular(L, Xs, upper=False)
+    diag_A = (1.0 - torch.sum(W * W, dim=1)) / alpha            # [B, dim]
+    c = lam * (1.0 - mask[0])
+    yu = _cho_solve_batched(L, Xs[:, :, 0:1])[..., 0]           # K⁻¹·Ũe₀
+    e0 = torch.zeros(dim, dtype=dtype, device=X.device)
+    e0[0] = 1.0
+    Ae0 = (e0[None, :] - torch.einsum("bnd,bn->bd", Xs, yu)) / alpha
+    denom = 1.0 - c * Ae0[:, 0]                                 # = ε/(λ+ε) > 0
+    return diag_A + c * (Ae0 * Ae0) / denom[:, None]
 
 
 def densify_bucket(indices: torch.Tensor, values: torch.Tensor, u_cap: int,

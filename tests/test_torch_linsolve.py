@@ -1,13 +1,17 @@
-"""Port parity: the batched SPD solve of gdmix_tpu_torch.ops.linsolve (its
-plain PyTorch version, which the wrapper takes on a CPU tensor) against the
-JAX package's Pallas solve in interpret mode, on the same numpy inputs."""
+"""Port parity: the batched SPD solves of gdmix_tpu_torch.ops.linsolve (their
+plain PyTorch versions, which the wrappers take on a CPU tensor) against the
+JAX package's Pallas solves in interpret mode, on the same numpy inputs."""
 import numpy as np
 import pytest
 import jax.numpy as jnp
 import torch
 
 from gdmix_tpu.ops.pallas.linsolve import spd_solve_batched as jax_solve
-from gdmix_tpu_torch.ops.linsolve import gj_solve_plain, spd_solve_batched
+from gdmix_tpu.ops.pallas.linsolve import \
+    spd_solve_batched_mrhs as jax_solve_mrhs
+from gdmix_tpu_torch.ops import linsolve
+from gdmix_tpu_torch.ops.linsolve import (gj_solve_plain, spd_solve_batched,
+                                          spd_solve_batched_mrhs)
 
 
 @pytest.fixture(autouse=True)
@@ -49,3 +53,34 @@ def test_plain_leaves_inputs_untouched():
     spd_solve_batched(Ht, gt)
     np.testing.assert_array_equal(Ht.numpy(), H)
     np.testing.assert_array_equal(gt.numpy(), g)
+
+
+# K4's plain version: the (B, d, r) grid of tests/test_pallas_linsolve.py.
+# f64: the same unpivoted elimination, rounding-level apart; f32: the
+# conditioning of H/d + I bounds the float32 error well inside 1e-4
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-10),
+                                       (np.float32, 1e-4)])
+@pytest.mark.parametrize("B,d,r", [(4, 8, 2), (130, 13, 3), (200, 29, 2)])
+def test_mrhs_plain_matches_pallas_interpret(B, d, r, dtype, tol):
+    H, _ = _spd(B, d, seed=B + r, dtype=dtype)
+    R = np.random.RandomState(d).randn(B, d, r).astype(dtype)
+    want = np.asarray(jax_solve_mrhs(jnp.asarray(H), jnp.asarray(R),
+                                     interpret=True))
+    got = spd_solve_batched_mrhs(torch.from_numpy(H), torch.from_numpy(R))
+    assert got.dtype == torch.from_numpy(H).dtype and got.shape == (B, d, r)
+    np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("d,r,item,fits", [
+    (240, 1, 4, True), (241, 1, 4, False), (169, 1, 8, True),
+    (170, 1, 8, False), (128, 2, 8, True), (256, 1, 4, False)])
+def test_workspace_only_past_shared_memory(d, r, item, fits):
+    """[H | R] goes to a global-memory workspace exactly when its
+    odd-strided rows outgrow the 227 KB a block may opt into."""
+    like = torch.empty(0, dtype=torch.float32 if item == 4
+                       else torch.float64)
+    ws = linsolve._workspace(3, d, r, like)
+    assert (ws is None) == fits
+    assert (item * d * ((d + r) | 1) <= linsolve.SMEM_OPTIN) == fits
+    if ws is not None:
+        assert ws.shape == (3, d, (d + r) | 1) and ws.dtype == like.dtype

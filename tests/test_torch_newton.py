@@ -1,5 +1,6 @@
 """Port parity for the random-effect Newton solvers: gdmix_tpu_torch.ops
-(newton, newton_lanes) against the JAX package on the same numpy inputs.
+(newton — primal and sample-space dual —, dual_variance, newton_lanes)
+against the JAX package on the same numpy inputs.
 The port runs its plain PyTorch versions here (CPU tensors); the JAX Pallas
 kernels run in interpret mode, as the JAX package's own tests run them."""
 import numpy as np
@@ -8,12 +9,14 @@ import jax.numpy as jnp
 import torch
 
 from gdmix_tpu.ops.newton import densify_bucket as jax_densify
+from gdmix_tpu.ops.newton import dual_variance as jax_dual_variance
 from gdmix_tpu.ops.newton import newton_lr_batch as jax_newton
 from gdmix_tpu.ops.pallas.newton_lanes import _fgd_call
 from gdmix_tpu.ops.pallas.newton_lanes import \
     newton_lr_batch_lanes as jax_lanes
 from gdmix_tpu_torch.ops import newton_lanes
-from gdmix_tpu_torch.ops.newton import densify_bucket, newton_lr_batch
+from gdmix_tpu_torch.ops.newton import (densify_bucket, dual_variance,
+                                        newton_lr_batch)
 
 
 @pytest.fixture(autouse=True)
@@ -174,3 +177,102 @@ def test_densify_bucket_accumulates_duplicates():
         j = idx[0, 0, 0]
         dup = sum(val[0, 0, k] for k in range(K) if idx[0, 0, k] == j)
         np.testing.assert_allclose(got[0, 0, off + j], dup, rtol=1e-14)
+
+
+def _wide(B, n, dim, seed, pad_lanes=0):
+    """Samples-per-entity < dim (the dual's regime), float64, with
+    `pad_lanes` all-zero padding lanes at the end (weight 0, count 0)."""
+    X, y, w, off, cnt = _problem(B, n, dim, seed)
+    if pad_lanes:
+        X[-pad_lanes:] = 0.0
+        w[-pad_lanes:] = 0.0
+        cnt[-pad_lanes:] = 0
+    return X, y, w, off, cnt.astype(np.float64)
+
+
+def _objective(theta, X, y, w, off, cnt, lam, mask):
+    z = np.einsum("bnd,bd->bn", X, theta) + off
+    bce = np.maximum(z, 0) - z * y + np.log1p(np.exp(-np.abs(z)))
+    return (np.sum(w * bce, 1) + 0.5 * lam * np.sum(mask * theta ** 2, 1)) \
+        / np.maximum(cnt, 1.0)
+
+
+# both sides solve the n×n system by Cholesky in float64: θ to 1e-8. At
+# λ = 0 with n < dim the minimizer is not unique (the loss sees only Xθ)
+# and the two land on different points of the flat valley: there the
+# objective values must agree, to 1e-12
+@pytest.mark.parametrize("lam,reg_bias", [(0.5, False), (0.0, False),
+                                          (1.0, True)])
+def test_dual_newton_f64_matches_jax(lam, reg_bias):
+    B, n, dim = 12, 8, 21
+    X, y, w, off, cnt = _wide(B, n, dim, seed=int(10 * lam) + 3,
+                              pad_lanes=2)
+    mask = np.ones(dim)
+    if not reg_bias:
+        mask[0] = 0.0
+    kw = dict(l2_reg_weight=lam, maxiter=60, ftol=1e-14, pgtol=1e-10,
+              dual=True)
+    th0 = np.zeros((B, dim))
+    want = jax_newton(*(jnp.asarray(a) for a in (th0, X, y, w, off, cnt)),
+                      l2_mask=jnp.asarray(mask), **kw)
+    got = newton_lr_batch(*_torch(th0, X, y, w, off, cnt),
+                          l2_mask=torch.from_numpy(mask), **kw)
+    np.testing.assert_array_equal(got.converged.numpy(),
+                                  np.asarray(want.converged))
+    np.testing.assert_array_equal(got.num_iterations.numpy(),
+                                  np.asarray(want.num_iterations))
+    if lam > 0:
+        np.testing.assert_allclose(got.theta.numpy(), np.asarray(want.theta),
+                                   rtol=0, atol=1e-8)
+    else:
+        np.testing.assert_allclose(
+            _objective(got.theta.numpy(), X, y, w, off, cnt, lam, mask),
+            _objective(np.asarray(want.theta), X, y, w, off, cnt, lam, mask),
+            rtol=0, atol=1e-12)
+    assert got.converged.all()
+    assert (got.num_iterations.numpy()[-2:] == 0).all()   # padded lanes
+
+
+def test_dual_newton_plain_kernel_solve_matches_cholesky(monkeypatch):
+    """The dual step through K4's plain version (the solve a card runs for
+    n ≤ 128) lands where the Cholesky route does."""
+    from gdmix_tpu_torch.ops import newton as tn
+    B, n, dim = 10, 6, 15
+    X, y, w, off, cnt = _wide(B, n, dim, seed=8)
+    mask = np.ones(dim)
+    mask[0] = 0.0
+    args = _torch(np.zeros((B, dim)), X, y, w, off, cnt)
+    kw = dict(l2_reg_weight=0.8, l2_mask=torch.from_numpy(mask), maxiter=60,
+              ftol=1e-14, pgtol=1e-10, dual=True)
+    chol = newton_lr_batch(*args, **kw)
+    calls = []
+
+    def kernel_route(L, rhs):
+        K = L @ L.mT
+        calls.append(K.shape)
+        return tn.spd_solve_batched_mrhs(K, rhs)
+    monkeypatch.setattr(tn, "_cho_solve_batched", kernel_route)
+    gj = newton_lr_batch(*args, **kw)
+    assert calls and calls[0] == (B, n, n)
+    np.testing.assert_allclose(gj.theta.numpy(), chol.theta.numpy(),
+                               rtol=0, atol=1e-8)
+
+
+# same sample-space formulas, Cholesky on both sides: 1e-10 relative
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("reg_bias", [False, True])
+def test_dual_variance_matches_jax(full, reg_bias):
+    B, n, dim = 6, 7, 16
+    X, y, w, off, _ = _wide(B, n, dim, seed=7)
+    theta = 0.3 * np.random.RandomState(11).randn(B, dim)
+    mask = np.ones(dim)
+    if not reg_bias:
+        mask[0] = 0.0
+    kw = dict(l2_reg_weight=0.7, full=full, epsilon=1e-9)
+    want = np.asarray(jax_dual_variance(
+        *(jnp.asarray(a) for a in (theta, X, y, w, off)),
+        l2_mask=jnp.asarray(mask), **kw))
+    got = dual_variance(*_torch(theta, X, y, w, off),
+                        l2_mask=torch.from_numpy(mask), **kw).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-10, atol=0)
+    assert (got > 0).all()

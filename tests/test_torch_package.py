@@ -204,6 +204,7 @@ def test_cuda_wrappers_raise_without_a_card():
     B, n, d = 4, 8, 5
     calls = [
         lambda: linsolve.spd_solve_batched(m(B, d, d), m(B, d)),
+        lambda: linsolve.spd_solve_batched_mrhs(m(B, n, n), m(B, n, 2)),
         lambda: nl.newton_full(m(B, d), m(B, n, d), m(B, n), m(B, n),
                                m(B, n), m(B), lam=1.0, unreg_bias=True,
                                maxiter=5, ftol=1e-12, pgtol=1e-5),
@@ -221,9 +222,9 @@ def test_cuda_wrappers_raise_without_a_card():
     for call in calls:
         with pytest.raises(ValueError, match="expected CUDA tensors"):
             call()
-    for fn in (linsolve.spd_solve_batched, nl.newton_full, nl.newton_fgd,
-               fe.fe_loss_grad_fused, fe.fe_gather_entries,
-               fe.fe_scatter_entries):
+    for fn in (linsolve.spd_solve_batched, linsolve.spd_solve_batched_mrhs,
+               nl.newton_full, nl.newton_fgd, fe.fe_loss_grad_fused,
+               fe.fe_gather_entries, fe.fe_scatter_entries):
         assert fn.launches == 0
     try:
         _cuda._nvcc()

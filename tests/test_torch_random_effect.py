@@ -49,7 +49,7 @@ def _torch_model(md_file, train_dir, feature_file, model_dir, **over):
         base_params
 
 
-def _prior(entity_ids, width, seed):
+def _prior(entity_ids, width, seed, with_variance=False):
     """A prior over some of the data's entities plus one unseen entity,
     with coefficients on features in and out of each entity's support."""
     rng = np.random.RandomState(seed)
@@ -58,10 +58,20 @@ def _prior(entity_ids, width, seed):
     coef_ids = np.concatenate([np.sort(rng.choice(width, k, replace=False))
                                for k in lens])
     offs = np.concatenate([[0], np.cumsum(lens)])
+    var = (lambda k: rng.uniform(0.1, 2.0, k)) if with_variance else None
     return JaxModelTable(ids=np.asarray(ids, object), offs=offs,
                          coef_ids=coef_ids,
                          coef_vals=rng.randn(len(coef_ids)) * 0.3,
-                         icpt=rng.randn(len(ids)) * 0.2)
+                         icpt=rng.randn(len(ids)) * 0.2,
+                         coef_vars=var and var(len(coef_ids)),
+                         icpt_vars=var and var(len(ids)))
+
+
+def _port_prior(prior):
+    return model_table_from_numpy(prior.ids, prior.offs, prior.coef_ids,
+                                  prior.coef_vals, prior.icpt,
+                                  coef_vars=prior.coef_vars,
+                                  icpt_vars=prior.icpt_vars)
 
 
 def _assert_models_equal(path_a, path_b, feature_file):
@@ -73,6 +83,11 @@ def _assert_models_equal(path_a, path_b, feature_file):
                                       b[eid].unique_global_indices)
         np.testing.assert_allclose(a[eid].theta, b[eid].theta, rtol=0,
                                    atol=_TOL, err_msg=f"entity {eid}")
+        assert (a[eid].variance is None) == (b[eid].variance is None)
+        if a[eid].variance is not None:
+            np.testing.assert_allclose(a[eid].variance, b[eid].variance,
+                                       rtol=0, atol=_TOL,
+                                       err_msg=f"entity {eid} variance")
 
 
 def _assert_scores_equal(file_a, file_b, schema):
@@ -97,11 +112,8 @@ def test_train_matches_jax(tmp_path, warm):
         prior = _prior([g.entity_id for g in groups], 5, seed=3)
         jax_model._save_model(os.path.join(jax_model.checkpoint_path,
                                            "part-00000.avro"), prior)
-        port_prior = model_table_from_numpy(
-            prior.ids, prior.offs, prior.coef_ids, prior.coef_vals,
-            prior.icpt)
         port_model._save_model(os.path.join(port_dir, "part-00000.avro"),
-                               port_prior)
+                               _port_prior(prior))
     active = os.path.join(train_dir, "active")
     jax_ctx = _ctx(tmp_path / "jax")
     port_ctx = _ctx(tmp_path / "torch")
@@ -193,19 +205,92 @@ def test_cli_train_matches_jax(tmp_path):
         schema)
 
 
+_STOP_ON_GRADIENT = dict(re_mode="host", lbfgs_tolerance=0.0,
+                         lbfgs_pgtol=1e-7)
+_RUNGS = {
+    "newton": dict(),
+    "newton_dual": dict(batch_solver="newton_dual"),
+    "lbfgs_dense": dict(batch_solver="lbfgs"),
+    "lbfgs": dict(batch_solver="lbfgs", dense_lbfgs_max_elems=0),
+}
+
+
+@pytest.mark.parametrize("variance", [None, constants.SIMPLE,
+                                      constants.FULL])
+@pytest.mark.parametrize("rung", list(_RUNGS))
+def test_rung_and_variance_match_jax(tmp_path, rung, variance):
+    """Every rung of the solver ladder × every variance mode, through
+    train(): the model avro (coefficients and variances) and the score
+    file agree with the JAX package's. The SIMPLE cases warm-start from a
+    prior that carries variances.
+
+    Both sides train on the host plane (with several devices the JAX
+    package's re_mode auto takes its sharded plane, whose shapes differ),
+    and every entity stops on ‖g‖∞ ≤ 1e-7 (lbfgs_tolerance 0). Below that,
+    an L-BFGS step moves f by less than float64 resolves, and the stopping
+    and Wolfe tests of two runs that sum in other orders may part."""
+    groups, _ = _make_groups(num_entities=12, seed=7)
+    md_file, train_dir, feature_file = _write_dataset(tmp_path, groups)
+    over = dict(_RUNGS[rung], random_effect_variance_mode=variance,
+                **_STOP_ON_GRADIENT)
+    jax_model, schema = _build_model(md_file, train_dir, feature_file,
+                                     tmp_path / "jax", **over)
+    port_dir = str(tmp_path / "torch" / "models")
+    port_model, port_schema = _torch_model(md_file, train_dir, feature_file,
+                                           port_dir, **over)
+    if variance == constants.SIMPLE:
+        prior = _prior([g.entity_id for g in groups], 5, seed=4,
+                       with_variance=True)
+        jax_model._save_model(os.path.join(jax_model.checkpoint_path,
+                                           "part-00000.avro"), prior)
+        port_model._save_model(os.path.join(port_dir, "part-00000.avro"),
+                               _port_prior(prior))
+    active = os.path.join(train_dir, "active")
+    jax_ctx, port_ctx = _ctx(tmp_path / "jax"), _ctx(tmp_path / "torch")
+    jax_model.train(active, None, md_file, jax_model.checkpoint_path,
+                    jax_ctx, schema)
+    port_model.train(active, None, md_file, port_dir, port_ctx, port_schema)
+    _assert_models_equal(
+        os.path.join(jax_model.checkpoint_path, "part-00000.avro"),
+        os.path.join(port_dir, "part-00000.avro"), feature_file)
+    _assert_scores_equal(jax_ctx[constants.ACTIVE_TRAINING_OUTPUT_FILE],
+                         port_ctx[constants.ACTIVE_TRAINING_OUTPUT_FILE],
+                         schema)
+    conv, total = port_model.last_fit_converged
+    assert total == len(groups) and conv == total
+    assert set(port_model.last_fit_rungs) == {rung}
+
+
+def test_auto_ladder_takes_dual_and_dense(tmp_path):
+    """With newton_max_dim lowered on both sides, "auto" sends each bucket
+    to the dual (n_cap < dim) or the dense L-BFGS rung, as JAX does."""
+    groups, _ = _make_groups(num_entities=300, seed=21, width=24,
+                             max_support=12)
+    md_file, train_dir, feature_file = _write_dataset(tmp_path, groups,
+                                                      width=24)
+    # buckets (B 256, n_cap 16, dim 17) → dual; (64, 24, 17) → dense
+    over = dict(newton_max_dim=8, **_STOP_ON_GRADIENT)
+    jax_model, schema = _build_model(md_file, train_dir, feature_file,
+                                     tmp_path / "jax", **over)
+    port_model, port_schema = _torch_model(md_file, train_dir, feature_file,
+                                           str(tmp_path / "torch"), **over)
+    want = jax_model.fit_groups(groups, {}, schema)
+    got = port_model.fit_groups(groups, {}, port_schema)
+    assert set(port_model.last_fit_rungs) == {"newton_dual", "lbfgs_dense"}
+    assert list(got.ids) == list(want.ids)
+    np.testing.assert_allclose(got.coef_vals, want.coef_vals, rtol=0,
+                               atol=_TOL)
+    np.testing.assert_allclose(got.icpt, want.icpt, rtol=0, atol=_TOL)
+
+
 @pytest.mark.parametrize("over,item", [
-    (dict(batch_solver="lbfgs"), "A.3: dense L-BFGS"),
-    (dict(batch_solver="lbfgs", dense_lbfgs_max_elems=0),
-     "A.3: sparse L-BFGS"),
-    (dict(batch_solver="newton_dual"), "A.3: dual Newton"),
-    (dict(random_effect_variance_mode=constants.SIMPLE), "variance"),
     (dict(re_mode="sharded"), "A.6"),
     (dict(newton_phase1_iters=2), "two-phase"),
     (dict(stream_chunk_entities=4), "A.9"),
 ])
 def test_unported_rungs_raise(tmp_path, over, item):
-    """Every ladder rung the port lacks raises, naming its ROADMAP item; no
-    option falls through to another path."""
+    """Every path the port lacks raises, naming its ROADMAP item; no option
+    falls through to another path."""
     groups, _ = _make_groups(num_entities=70, seed=1)
     md_file, train_dir, feature_file = _write_dataset(tmp_path, groups)
     model, schema = _torch_model(md_file, train_dir, feature_file,
