@@ -33,6 +33,17 @@ Phases, each printing one result line; any failure exits non-zero:
                 kernel (grad_mode auto) and through the flat pair
                 (grad_mode pallas_flat), each against an L-BFGS fit of the
                 same objective through the plain version on the card.
+     wide_d   — the bench's wide-D FE workload (D = 1,000,000, Zipf(1.2)
+                ids, N and K as above): the hot/cold split's build, the
+                objective through auto (K12 + 2×K13), pallas_hybrid and
+                scatter (the fused kernel) against the plain version, a
+                fit_data through auto (held to its objective at its final
+                point: it does not converge in 100 iterations at λ = 1),
+                the same fit at λ = 10⁴, which converges, against a
+                plain-version fit, K12
+                (shared-memory, device-memory and float64 forms) and K13
+                (gradient and row layouts) against their plain versions;
+                uniform ids at D = 1M, where the split declines.
   6. pipeline — `python -m gdmix_tpu_torch.workflow.main --mode in_memory
                 --num_sweeps 2` (run in this process, so the launch counts
                 can be read) on the synthetic movieLens data: global →
@@ -40,9 +51,9 @@ Phases, each printing one result line; any failure exits non-zero:
   7. cli      — `python -m gdmix_tpu_torch.gdmix --action=train` in a fresh
                 process: --stage=random_effect on a small written dataset,
                 --stage=fixed_effect on the movieLens global data.
-Launch counts are zeroed just before each main-path run (4, wide, 5, 6)
-and read just after. Then one JSON line of per-kernel results and, last,
-the device line. Exits non-zero without a result when no card is present.
+Launch counts are zeroed just before each main-path run (4, wide, 5,
+wide_d, 6) and read just after. Then one JSON line of per-kernel results
+and, last, the device line. Exits non-zero without a result when no card is present.
 Imports no JAX.
 """
 from __future__ import annotations
@@ -193,7 +204,7 @@ def stage_model(d, tmp, dtype="float32", device=None, **over):
                                device=device), base_params
 
 
-def fe_problem(ids, seed=0, n=None, dtype=None):
+def fe_problem(ids, seed=0, n=None, dtype=None, d=FE_D):
     """The JAX bench's FE batch (bench.py:562-582), rebuilt on the card
     from a seeded torch.Generator: ids uniform on [0, d) or inverse-CDF
     Zipf(1.2) on [1, d] shifted to 0 (the item-popularity class: id 0 is the
@@ -202,7 +213,7 @@ def fe_problem(ids, seed=0, n=None, dtype=None):
     import torch
     from gdmix_tpu_torch.ops.logistic import SparseBatch
     dev = torch.device(DEV)
-    n, d, k = n or FE_N, FE_D, FE_K
+    n, k = n or FE_N, FE_K
     dtype = dtype or torch.float32
     g = torch.Generator(device=dev).manual_seed(seed)
     if ids == "uniform":
@@ -223,31 +234,34 @@ def fe_problem(ids, seed=0, n=None, dtype=None):
                        torch.ones(n, device=dev, dtype=dtype))
 
 
-def fe_stage_model(tmp, grad_mode):
-    """FixedEffectLRModel with the JAX bench's settings (bench.py:541-559)."""
+def fe_stage_model(tmp, grad_mode, d=FE_D, **over):
+    """FixedEffectLRModel with the JAX bench's settings (bench.py:541-559),
+    FixedLRParams fields overridden by `over`."""
     from gdmix_tpu_torch.models.fixed_effect_lr import FixedEffectLRModel
     from gdmix_tpu_torch.params import FixedLRParams, Params
     os.makedirs(tmp, exist_ok=True)
     md_file = os.path.join(tmp, "tensor_metadata.json")
     with open(md_file, "w") as f:
         json.dump({"features": [
-            {"name": "global", "dtype": "float", "shape": [FE_D],
+            {"name": "global", "dtype": "float", "shape": [d],
              "isSparse": True},
             {"name": "uid", "dtype": "long", "shape": [], "isSparse": False},
             {"name": "offset", "dtype": "float", "shape": [],
              "isSparse": False}],
             "labels": [{"name": "response", "dtype": "float", "shape": [],
                         "isSparse": False}]}, f)
-    model_params = FixedLRParams(
-        metadata_file=md_file, output_model_dir=tmp, feature_bag="global",
-        l2_reg_weight=1.0, regularize_bias=False, dtype="float32",
-        grad_mode=grad_mode)
+    model_params = FixedLRParams(**{
+        **dict(metadata_file=md_file, output_model_dir=tmp,
+               feature_bag="global", l2_reg_weight=1.0,
+               regularize_bias=False, dtype="float32", grad_mode=grad_mode),
+        **over})
     base_params = Params(
         action="train", stage="fixed_effect",
         model_type="logistic_regression", label_column_name="response",
         uid_column_name="uid",
         prediction_score_column_name="predictionScore")
-    return FixedEffectLRModel(model_params, base_params), base_params
+    return FixedEffectLRModel(model_params, base_params,
+                              device=DEV), base_params
 
 
 def movielens_config(ml, out_dir):
@@ -301,7 +315,8 @@ def phase_device():
 def phase_build():
     from gdmix_tpu_torch.ops import _cuda
     t0 = time.perf_counter()
-    _cuda.load_all(("fe_loss_grad", "linsolve", "newton_lanes"))
+    _cuda.load_all(("fe_loss_grad", "linsolve", "newton_lanes", "fe_hybrid",
+                    "windowed_scatter"))
     _say("build", seconds=round(time.perf_counter() - t0, 2),
          nvcc={k: round(v, 2) for k, v in _cuda.build_seconds.items()})
     for name, rep in _cuda.ptxas_report.items():
@@ -1017,6 +1032,337 @@ def phase_fe_fit(card):
     return launches
 
 
+WIDE_D = 1_000_000    # the bench's fe_wide_d workload (bench.py:740-754)
+WIDE_D_CONVERGED_LAMBDA = 1e4
+
+
+def _fe_objective_plain(b, d, x, lam=1.0):
+    """The FE objective at λ (bias unregularized) through the plain
+    version: the yardstick of every wide_d objective and fit."""
+    from gdmix_tpu_torch.ops.fe_loss_grad import fe_loss_grad_plain
+    from gdmix_tpu_torch.ops.logistic import l2_value_and_grad
+    v, g = fe_loss_grad_plain(x, b.indices, b.values, b.labels, b.weights,
+                              b.offsets, d)
+    lv, lg = l2_value_and_grad(x, lam, has_intercept=True,
+                               regularize_bias=False, intercept_at_end=True)
+    return v + lv, g + lg
+
+
+def _hybrid_counters():
+    from gdmix_tpu_torch.ops import fe_hybrid as fh, windowed_scatter as ws
+    return (fh.fe_hybrid_hot, ws.windowed_scatter_add) + _fe_counters()
+
+
+def _counted(fn):
+    """(fn(), launches by kernel) with every count zeroed just before."""
+    import torch
+    for c in _hybrid_counters():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {c.__name__: c.launches for c in _hybrid_counters()}
+
+
+def _top_kernels(fn, reps=5, top=8):
+    """Device ms per call of fn's largest device events under
+    torch.profiler, and the device-busy ms per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in ev) / 1e3 / reps
+    ev.sort(key=lambda e: -e.self_device_time_total)
+    return busy, {e.key[:60]: round(e.self_device_time_total / 1e3 / reps, 4)
+                  for e in ev[:top]}
+
+
+def _k12_row(tag, aux, b, x, dtype):
+    """K12 against its plain version on one split's hot side (θc = w[hot],
+    off₂ = offsets + z_cold), in `dtype`; returns the result row."""
+    import torch
+    from gdmix_tpu_torch.ops import fe_hybrid as fh
+    w = x[:-1].to(dtype)
+    z_cold = torch.zeros(FE_N, dtype=dtype, device=DEV).index_add_(
+        0, aux.cold_row.long(), w[aux.cold_idx.long()] * aux.cold_val.to(dtype))
+    A = aux.hot_ids.shape[0]
+    args = (w[aux.hot_ids.long()], x[-1].to(dtype), aux.hot_idx,
+            b.values.to(dtype), b.labels.to(dtype), b.weights.to(dtype),
+            b.offsets.to(dtype) + z_cold, A)
+    k = lambda: fh.fe_hybrid_hot(*args)
+    p = lambda: fh.fe_hybrid_hot_plain(*args)
+    (lk, gk, sk, rk), (lp, gp, sp, rp) = k(), p()
+    torch.cuda.synchronize()
+    tol = FE_F64_RTOL if dtype == torch.float64 else FE_GRAD_RTOL
+    l_rel = abs(float(lk - lp)) / abs(float(lp))
+    s_rel = abs(float(sk - sp)) / float(rp.abs().sum())
+    g_rel, r_rel = _rel(gk, gp), _rel(rk, rp)
+    _check(gk.dtype == dtype and l_rel <= min(tol, FE_LOSS_RTOL)
+           and max(g_rel, r_rel, s_rel) <= tol,
+           f"fe_hybrid_hot {tag}: loss {l_rel} g {g_rel} r {r_rel} "
+           f"Σr {s_rel}")
+    ms, pms = _time_ms(k, 10), _time_ms(p, 3)
+    item = torch.finfo(dtype).bits // 8
+    # ids and values [N, K], y, w, off₂ and θc in; g [A] and r [N] out; per
+    # entry a gather and a scatter multiply-add, per record ~10 flops
+    bound, by = _bound(4 * FE_N * FE_K + item * (FE_N * FE_K + 4 * FE_N
+                                                 + 2 * A),
+                       4 * FE_N * FE_K + 10 * FE_N, item)
+    _say("kernels", kernel="fe_hybrid_hot", cut=tag, N=FE_N, K=FE_K, A=A,
+         dtype=str(dtype).split(".")[1],
+         memory="shared" if fh.shared_form(A, item) else "global",
+         loss_rel=f"{l_rel:.2e}", grad_rel=f"{g_rel:.2e}",
+         r_rel=f"{r_rel:.2e}", ms=f"{ms:.3f}", plain_ms=f"{pms:.3f}",
+         bound_ms=f"{bound:.4f}", bound_by=by)
+    return dict(ms=ms, plain_ms=pms, bound_ms=bound, bound_by=by,
+                library_ms=None, max_abs_err=float((gk - gp).abs().max())), rp
+
+
+def _k13_row(tag, idxl, contrib, win, nw):
+    """K13 against its plain version and `index_add_` into the table (the
+    yardstick, with the per-entry targets made beforehand)."""
+    import torch
+    from gdmix_tpu_torch.ops import windowed_scatter as ws
+    from gdmix_tpu_torch.ops.logistic import HYBRID_SCATTER_WINDOW as W
+    tile_rows = idxl.shape[0] // win.shape[0]
+    k = lambda: ws.windowed_scatter_add(idxl, contrib, win, nw, W, tile_rows)
+    p = lambda: ws.windowed_scatter_add_plain(idxl, contrib, win, nw, W,
+                                              tile_rows)
+    target = (win.long().repeat_interleave(tile_rows * 16) * W
+              + idxl.reshape(-1).long())
+    flat = contrib.reshape(-1)
+    lib = lambda: torch.zeros(nw * W, device=DEV).index_add_(0, target, flat)
+    tk, tp = k(), p()
+    torch.cuda.synchronize()
+    err, rel = float((tk - tp).abs().max()), _rel(tk, tp)
+    _check(rel <= FE_GRAD_RTOL, f"windowed_scatter_add {tag}: rel {rel}")
+    ms, pms, lms = _time_ms(k, 20), _time_ms(p, 5), _time_ms(lib, 5)
+    M, n_tiles = flat.shape[0], win.shape[0]
+    # index and contribution per entry and the tile windows in, the table
+    # out; one add an entry
+    bound, by = _bound(8 * M + 4 * n_tiles + 4 * nw * W, M)
+    _say("kernels", kernel="windowed_scatter_add", layout=tag, M=M,
+         tiles=n_tiles, windows=nw, max_abs_err=f"{err:.3e}",
+         rel=f"{rel:.2e}", ms=f"{ms:.3f}", plain_ms=f"{pms:.3f}",
+         library_ms=f"{lms:.3f}", bound_ms=f"{bound:.4f}", bound_by=by)
+    return dict(ms=ms, plain_ms=pms, bound_ms=bound, bound_by=by,
+                library_ms=lms, max_abs_err=err)
+
+
+def phase_wide_d(card):
+    """The JAX bench's wide-D FE workload (bench.py:521-582, :740-754) at
+    full width: N = 4,997,120, D = 1,000,000, K = 16, Zipf(1.2) ids, f32,
+    λ = 1, through FixedEffectLRModel with grad_mode auto, which resolves
+    to the hot/cold hybrid. The split's build (cold and warm); the
+    objective at one x through auto (K12 + 2×K13), pallas_hybrid (K12, the
+    cold side in PyTorch) and scatter (the fused K5: this workload's path
+    before the hybrid), each against the plain version; one fit_data
+    through auto (the main path: K12 once and K13 twice per funcall),
+    with a plain-version L-BFGS fit beside it, then both at λ = 10⁴, where
+    they converge and must agree; K12 and K13 against their plain
+    versions at this split's shapes, plus K12 at hot_features 65,536 (the
+    device-memory form) and in float64; and uniform ids, where the builder
+    declines and the fused kernel runs. Returns (kernel rows, launches)."""
+    import torch
+    from gdmix_tpu_torch.io.input_pipeline import PerRecordData
+    from gdmix_tpu_torch.ops.lbfgs import lbfgs
+    from gdmix_tpu_torch.ops.logistic import (HYBRID_SCATTER_WINDOW as W,
+                                              build_hybrid_aux)
+    D = WIDE_D
+    rows = {}
+    with tempfile.TemporaryDirectory(prefix="gdx_smoke_wide_d_") as tmp:
+        # no thresholding: the fit's coefficients are its final point
+        models = {m: fe_stage_model(os.path.join(tmp, m), m, d=D,
+                                    sparsity_threshold=0.0)
+                  for m in ("auto", "pallas_hybrid", "scatter")}
+        model, schema = models["auto"]
+        b = fe_problem("zipf", seed=3, d=D)
+        torch.cuda.synchronize()
+        build_s = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            aux = model.build_hybrid_aux_for(b)
+            torch.cuda.synchronize()
+            build_s.append(time.perf_counter() - t0)
+        _check(aux is not None and aux.zs_win is not None,
+               "wide_d: the split declined or lacks the windowed layouts")
+        A = aux.hot_ids.shape[0]
+        mc = int((aux.cold_val != 0).sum())
+        _say("wide_d", workload="fe_wide_d", N=FE_N, D=D, K=FE_K,
+             ids="zipf1.2", aux_build_cold_s=f"{build_s[0]:.3f}",
+             aux_build_s=f"{build_s[1]:.3f}", A=A, mc=mc,
+             cold_share=f"{mc / float((b.values != 0).sum()):.4f}",
+             mc_pad=aux.cold_val.shape[0],
+             grad_windows=(D + W - 1) // W, row_windows=aux.zs_nwin,
+             grad_tiles=aux.gs_win.shape[0], row_tiles=aux.zs_win.shape[0])
+        _check(A == 16384, f"wide_d: adaptive A {A}, want 16384")
+        aux_ph = models["pallas_hybrid"][0].build_hybrid_aux_for(b)
+        _check(aux_ph is not None and aux_ph.zs_win is None,
+               "wide_d: pallas_hybrid's split")
+
+        g = torch.Generator(device=DEV).manual_seed(1)
+        x = 0.05 * torch.randn(D + 1, generator=g, device=DEV)
+        lp, gp = _fe_objective_plain(b, D, x)
+        want = {"auto": {"fe_hybrid_hot": 1, "windowed_scatter_add": 2},
+                "pallas_hybrid": {"fe_hybrid_hot": 1,
+                                  "windowed_scatter_add": 0},
+                "scatter": {"fe_loss_grad_fused": 1, "fe_hybrid_hot": 0}}
+        obj_ms = {}
+        for mode, ax in (("auto", aux), ("pallas_hybrid", aux_ph),
+                         ("scatter", None)):
+            fun = models[mode][0]._objective_fun(b, ax)
+            (lv, gv), counts = _counted(lambda: fun(x))
+            l_rel = abs(float(lv - lp)) / abs(float(lp))
+            g_rel = _rel(gv, gp)
+            _check(all(counts[k] == v for k, v in want[mode].items()),
+                   f"wide_d {mode}: launches {counts}")
+            _check(l_rel <= FE_LOSS_RTOL and g_rel <= FE_GRAD_RTOL,
+                   f"wide_d {mode}: loss rel {l_rel}, grad rel {g_rel}")
+            obj_ms[mode] = _time_ms(lambda: fun(x), 10)
+            _say("wide_d", grad_mode=mode, loss_rel=f"{l_rel:.2e}",
+                 grad_rel=f"{g_rel:.2e}", objective_ms=f"{obj_ms[mode]:.3f}",
+                 funcalls_per_s=f"{1000.0 / obj_ms[mode]:.1f}",
+                 launches=counts)
+        plain_ms = _time_ms(lambda: _fe_objective_plain(b, D, x), 3)
+        auto_fun = models["auto"][0]._objective_fun(b, aux)
+        busy, top = _top_kernels(lambda: auto_fun(x))
+        _say("wide_d",
+             fe_wide_d_funcalls_per_sec=f"{1000 / obj_ms['auto']:.1f}",
+             scatter_funcalls_per_sec=f"{1000 / obj_ms['scatter']:.1f}",
+             auto_vs_scatter=f"{obj_ms['scatter'] / obj_ms['auto']:.2f}",
+             plain_ms=f"{plain_ms:.3f}", auto_device_busy_ms=f"{busy:.3f}",
+             auto_top_device_ms=top, card=repr(card))
+
+        # ---- the main path: one fit through auto ----
+        data = PerRecordData(
+            columns={"uid": np.arange(FE_N, dtype=np.int64),
+                     "response": b.labels.cpu().numpy(),
+                     "offset": b.offsets.cpu().numpy()},
+            indices=b.indices.cpu().numpy(), values=b.values.cpu().numpy(),
+            num_samples=FE_N)
+        t0 = time.perf_counter()
+        coef, launches = _counted(lambda: model.fit_data(data, schema))
+        wall = time.perf_counter() - t0
+        # ----
+        lf = model.last_fit
+        _say("wide_d", fit="auto", iterations=lf["iterations"],
+             funcalls=lf["funcalls"], converged=lf["converged"],
+             host_syncs=lf["host_syncs"], fit_s=f"{lf['seconds']:.3f}",
+             wall_s=f"{wall:.3f}",
+             funcalls_per_s=f"{lf['funcalls'] / lf['seconds']:.1f}",
+             f=f"{lf['f']:.6f}", launches=launches)
+        # At D = 1M on λ = 1 the objective is far worse conditioned than at
+        # 10k (the hottest id carries ~10⁶ times the curvature of a rare
+        # one): L-BFGS stops within neither its 100 iterations nor 1,000
+        # (chip runs of this phase), and two unconverged float32 runs part
+        # by more than FE_FIT_RTOL (their gradients' atomics add in other
+        # orders). So the fit is held to running its iterations without a
+        # line-search failure, to lowering the objective, and to the
+        # objective it reports at its final point, recomputed through the
+        # plain version; the plain version's own fit is printed beside it.
+        _check((lf["converged"] or not lf["line_search_failed"])
+               and np.isfinite(coef).all() and coef.shape == (D + 1,),
+               "wide_d fit: line search failed or bad coefficients")
+        x_fit = torch.as_tensor(coef, dtype=torch.float32, device=DEV)
+        f_fit = float(_fe_objective_plain(b, D, x_fit)[0])
+        f_0 = float(_fe_objective_plain(b, D, torch.zeros_like(x_fit))[0])
+        fit_rel = abs(lf["f"] - f_fit) / abs(f_fit)
+        _say("wide_d", fit="auto", f0=f"{f_0:.3f}",
+             f_final_plain=f"{f_fit:.3f}",
+             f_rel_at_final_x=f"{fit_rel:.2e}")
+        _check(fit_rel <= FE_LOSS_RTOL and lf["f"] < f_0,
+               f"wide_d fit: f {lf['f']} against the plain version's "
+               f"{f_fit} at its final point (f(0) = {f_0})")
+        _check(launches["fe_hybrid_hot"] == lf["funcalls"]
+               and launches["windowed_scatter_add"] == 2 * lf["funcalls"]
+               and launches["fe_loss_grad_fused"] == 0,
+               f"wide_d fit: launches {launches} for {lf['funcalls']} "
+               "funcalls")
+        t0 = time.perf_counter()
+        ref = lbfgs(lambda xx: _fe_objective_plain(b, D, xx),
+                    torch.zeros(D + 1, device=DEV),
+                    maxiter=model.model_params.num_of_lbfgs_iterations)
+        ref_s = time.perf_counter() - t0
+        f_rel = abs(lf["f"] - ref.f) / abs(ref.f)
+        _say("wide_d", reference="plain version",
+             iterations=ref.num_iterations, funcalls=ref.num_funcalls,
+             converged=ref.converged, fit_s=f"{ref_s:.3f}",
+             f=f"{ref.f:.6f}", f_rel=f"{f_rel:.2e}")
+        _check(ref.converged or not ref.line_search_failed,
+               "wide_d plain-version fit: line search failed")
+        # λ = 10⁴ cuts the hottest id's curvature against a rare id's from
+        # ~10⁶ to a few hundred: both fits converge (~20 iterations), so the
+        # fit through auto is held to the plain-version fit's optimum
+        lam = WIDE_D_CONVERGED_LAMBDA
+        m_lam = fe_stage_model(os.path.join(tmp, "lambda"), "auto", d=D,
+                               sparsity_threshold=0.0, l2_reg_weight=lam)[0]
+        m_lam.fit_data(data, schema)
+        lf = m_lam.last_fit
+        ref = lbfgs(lambda xx: _fe_objective_plain(b, D, xx, lam),
+                    torch.zeros(D + 1, device=DEV),
+                    maxiter=m_lam.model_params.num_of_lbfgs_iterations)
+        f_rel = abs(lf["f"] - ref.f) / abs(ref.f)
+        _say("wide_d", fit="auto", l2_reg_weight=lam,
+             iterations=lf["iterations"], funcalls=lf["funcalls"],
+             converged=lf["converged"], f=f"{lf['f']:.6f}",
+             plain_iterations=ref.num_iterations,
+             plain_converged=ref.converged, plain_f=f"{ref.f:.6f}",
+             f_rel=f"{f_rel:.2e}")
+        _check(lf["converged"] and ref.converged and f_rel <= FE_FIT_RTOL,
+               f"wide_d fit at λ = {lam}: converged {lf['converged']} and "
+               f"{ref.converged}, f rel {f_rel}")
+        del data, m_lam
+
+        # ---- the kernels at this split's shapes ----
+        rows["fe_hybrid_hot"], r = _k12_row("wide_d", aux, b, x,
+                                            torch.float32)
+        aux65 = build_hybrid_aux(b.indices, b.values, D, hot_features=65536)
+        _check(aux65 is not None, "wide_d: hot_features 65536 declined")
+        for tag, ax, dt in (("hot_features_65536", aux65, torch.float32),
+                            ("float64", aux, torch.float64)):
+            row, _ = _k12_row(tag, ax, b, x, dt)
+            rows["fe_hybrid_hot"]["max_abs_err"] = max(
+                rows["fe_hybrid_hot"]["max_abs_err"], row["max_abs_err"])
+        del aux65
+        w = x[:-1]
+        ce = (aux.gs_val * r[aux.gs_row.long()]).float()
+        wv = (w[aux.zs_idx.long()] * aux.zs_val).float()
+        rows["windowed_scatter_add"] = _k13_row(
+            "gradient", aux.gs_idxl, ce, aux.gs_win, (D + W - 1) // W)
+        zrow = _k13_row("rows", aux.zs_rowl, wv, aux.zs_win, aux.zs_nwin)
+        rows["windowed_scatter_add"]["max_abs_err"] = max(
+            rows["windowed_scatter_add"]["max_abs_err"], zrow["max_abs_err"])
+        del aux, aux_ph, b, ce, wv, r
+
+        # uniform ids: no hot set, the builder declines, the fused kernel
+        bu = fe_problem("uniform", seed=4, d=D)
+        model_u = fe_stage_model(os.path.join(tmp, "uniform"), "auto", d=D)[0]
+        _check(model_u.build_hybrid_aux_for(bu) is None,
+               "wide_d uniform: the builder did not decline")
+        fun = model_u._objective_fun(bu, None)
+        (lv, gv), counts = _counted(lambda: fun(x))
+        lp, gp = _fe_objective_plain(bu, D, x)
+        l_rel, g_rel = abs(float(lv - lp)) / abs(float(lp)), _rel(gv, gp)
+        _check(counts["fe_loss_grad_fused"] == 1
+               and counts["fe_hybrid_hot"] == 0
+               and l_rel <= FE_LOSS_RTOL and g_rel <= FE_GRAD_RTOL,
+               f"wide_d uniform: launches {counts}, loss {l_rel}, "
+               f"grad {g_rel}")
+        u_ms = _time_ms(lambda: fun(x), 10)
+        _say("wide_d", ids="uniform", aux="declined",
+             loss_rel=f"{l_rel:.2e}", grad_rel=f"{g_rel:.2e}",
+             objective_ms=f"{u_ms:.3f}",
+             fe_wide_d_uniform_funcalls_per_sec=f"{1000 / u_ms:.1f}")
+    return rows, {k: launches[k] for k in ("fe_hybrid_hot",
+                                           "windowed_scatter_add")}
+
+
 def phase_pipeline(card, tmp):
     """The in-memory pipeline through the workflow CLI; returns the
     movieLens data root."""
@@ -1133,6 +1479,10 @@ KERNELS = (
     ("fe_scatter_entries", "gdmix_tpu_torch/csrc/fe_loss_grad.cu",
      "gdmix_tpu/ops/pallas/fe_flat.py:109; gdmix_tpu/ops/pallas/"
      "fe_flat.py:134"),
+    ("fe_hybrid_hot", "gdmix_tpu_torch/csrc/fe_hybrid.cu",
+     "gdmix_tpu/ops/pallas/fe_hybrid.py:53"),
+    ("windowed_scatter_add", "gdmix_tpu_torch/csrc/windowed_scatter.cu",
+     "gdmix_tpu/ops/pallas/windowed_scatter.py:40"),
 )
 
 
@@ -1148,6 +1498,9 @@ def main():
     launches["spd_solve_batched_mrhs"] = phase_wide(card)[
         "spd_solve_batched_mrhs"]
     launches.update(phase_fe_fit(card))
+    wide_rows, wide_launches = phase_wide_d(card)
+    res.update(wide_rows)
+    launches.update(wide_launches)
     with tempfile.TemporaryDirectory(prefix="gdx_smoke_ml_") as tmp:
         ml = phase_pipeline(card, tmp)
         phase_cli()

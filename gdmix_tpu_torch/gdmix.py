@@ -3,7 +3,9 @@
 The port of gdmix_tpu/gdmix.py (reference gdmix.py:13-40): one argv serves
 both the run's Params and the model's params; unknown flags are ignored by
 each parser. The port trains and scores the fixed effect (logistic or
-linear regression) and random-effect logistic regression on one device.
+linear regression) and random-effect logistic regression on one device: the
+first card, or the CPU with --device=cpu (taken out of argv before the
+params parsers see it).
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import os
 import sys
 
 from gdmix_tpu_torch import constants
+from gdmix_tpu_torch.device import pop_device_flag
 from gdmix_tpu_torch.drivers.factory import get_driver
 from gdmix_tpu_torch.params import Params, from_argv
 
@@ -28,7 +31,8 @@ def _print_help() -> None:
           "--stage=fixed_effect|random_effect "
           "--model_type=logistic_regression|linear_regression --<flags>\n\n"
           "One argv serves driver, schema, and model params; flags each parser"
-          " doesn't know are ignored (reference gdmix.py:13-40 behavior).\n")
+          " doesn't know are ignored (reference gdmix.py:13-40 behavior).\n"
+          "--device=cpu runs on the CPU (default: the first card).\n")
     for title, cls in (("driver params", Params),
                        ("schema params", SchemaParams),
                        ("fixed-effect LR params", FixedLRParams),
@@ -56,8 +60,9 @@ def run(argv) -> None:
         _print_help()
         return
     _refuse_multi_process_env()
+    argv, device = pop_device_flag(argv)
     params = from_argv(Params, argv)
-    driver = get_driver(params, argv)
+    driver = get_driver(params, argv, device)
     if params.action == constants.ACTION_INFERENCE:
         driver.run_inference(params)
     elif params.action == constants.ACTION_TRAIN:

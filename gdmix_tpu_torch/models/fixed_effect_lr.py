@@ -15,11 +15,16 @@ predictionScore / predictionScorePerCoordinate; SIMPLE/FULL training
 variance; photon-ml avro export.
 
 grad_mode: the JAX package's modes are strategies for one sum on a TPU.
-After `effective_grad_mode` resolves the mode, `pallas_flat` runs the flat
-entry gather/scatter pair and every other mode the fused kernel.
-Not ported (each raises NotImplementedError naming its ROADMAP item): the
-pallas_hybrid kernel (B.7), streaming ingestion (A.9) and multi-process data
-parallelism (A.6).
+After `effective_grad_mode` resolves the mode, `hybrid` and `pallas_hybrid`
+run the wide-D hot/cold split (ops/logistic.py HybridAux) when its builder
+accepts the batch: the hot side through the fe_hybrid_hot kernel and, under
+`hybrid` on a card, both cold scatters through the windowed-scatter kernel
+(`pallas_hybrid` keeps the cold side in PyTorch and the hot side in float32,
+as JAX's). `pallas_flat` runs the flat entry gather/scatter pair; every
+other mode, and a hybrid mode whose builder declined (no hot set, e.g.
+uniform ids), runs the fused kernel. Not ported (each raises
+NotImplementedError naming its ROADMAP item): streaming ingestion (A.9) and
+multi-process data parallelism (A.6).
 """
 from __future__ import annotations
 
@@ -32,7 +37,7 @@ import numpy as np
 import torch
 
 from gdmix_tpu_torch import constants
-from gdmix_tpu_torch.device import resolve_device
+from gdmix_tpu_torch.device import pad_to_multiple, resolve_device
 from gdmix_tpu_torch.io import fs, model_avro, scores as scores_io
 from gdmix_tpu_torch.io.input_pipeline import PerRecordData, load_per_record
 from gdmix_tpu_torch.io.metadata import DatasetMetadata
@@ -40,9 +45,11 @@ from gdmix_tpu_torch.models.api import Model
 from gdmix_tpu_torch.ops.fe_loss_grad import (fe_loss_grad_flat,
                                               fe_loss_grad_fused)
 from gdmix_tpu_torch.ops.lbfgs import lbfgs
-from gdmix_tpu_torch.ops.logistic import (SparseBatch, hessian_diag,
-                                          hessian_full, l2_value_and_grad,
-                                          predict_logits)
+from gdmix_tpu_torch.ops.logistic import (
+    HybridAux, SparseBatch, build_hybrid_aux, extend_hybrid_aux_windowed,
+    fixed_effect_value_and_grad_hybrid,
+    fixed_effect_value_and_grad_hybrid_pallas, hessian_diag, hessian_full,
+    l2_value_and_grad, predict_logits)
 from gdmix_tpu_torch.params import FixedLRParams, Params, from_argv
 from gdmix_tpu_torch.util.convert import fe_coefficients_from_numpy
 from gdmix_tpu_torch.util.model_utils import threshold_coefficients
@@ -189,7 +196,9 @@ class FixedEffectLRModel(Model):
         columns stay on the device and only offsets cross. A hit requires
         matching shapes AND equal uids; the caller owns the stronger
         invariant that indices/values/labels/weights are unchanged
-        (workflow/pipeline.py mutates only the offset column)."""
+        (workflow/pipeline.py mutates only the offset column). A miss also
+        drops the cached hybrid split, which was built from the old
+        columns."""
         n = data.num_samples
         indices, values, offsets, labels, weights, uid = \
             self._host_arrays(data, schema_params)
@@ -222,6 +231,7 @@ class FixedEffectLRModel(Model):
                 f"{self.feature_bag_name!r})")
         if cache is not None:
             self.static_upload_count += 1
+            cache.pop("hybrid_aux", None)
             cache["batch"] = dict(
                 n=n, shape=indices.shape, uid=np.array(uid, copy=True),
                 indices=batch.indices, values=batch.values,
@@ -230,21 +240,32 @@ class FixedEffectLRModel(Model):
 
     # ------------------------------------------------------------- objective --
 
-    def _objective_fun(self, batch: SparseBatch):
-        """(value, grad) of the objective: the data term through the FE
-        kernels, then the λ-term once."""
+    def _grad_mode(self) -> str:
         p = self.model_params
-        if p.grad_mode == "pallas_hybrid":
-            raise NotImplementedError(
-                "ROADMAP B.7: grad_mode='pallas_hybrid' (the wide-D hybrid "
-                "hot-side kernel, K12)")
-        mode = effective_grad_mode(p.grad_mode, self.has_intercept,
+        return effective_grad_mode(p.grad_mode, self.has_intercept,
                                    self.num_features, p.block_min_features,
                                    p.onehot_max_features,
                                    p.block_max_features)
+
+    def _objective_fun(self, batch: SparseBatch,
+                       hybrid_aux: Optional[HybridAux] = None):
+        """(value, grad) of the objective: the data term through the FE
+        kernels, then the λ-term once. `hybrid_aux`: the hot/cold split
+        (build_hybrid_aux_for); without one, the hybrid modes take the fused
+        kernel, as JAX's fall through to scatter."""
+        mode = self._grad_mode()
         linear = self.model_type == constants.LINEAR_REGRESSION
         b = batch
-        if mode == "pallas_flat":
+        if mode in ("hybrid", "pallas_hybrid") and hybrid_aux is not None:
+            hybrid = (fixed_effect_value_and_grad_hybrid_pallas
+                      if mode == "pallas_hybrid"
+                      else fixed_effect_value_and_grad_hybrid)
+
+            def data_term(x):
+                return hybrid(x, b, hybrid_aux, self.num_features,
+                              has_intercept=self.has_intercept,
+                              model_type=self.model_type)
+        elif mode == "pallas_flat":
             def data_term(x):
                 return fe_loss_grad_flat(
                     x, b.indices, b.values, b.labels, b.weights, b.offsets,
@@ -271,22 +292,64 @@ class FixedEffectLRModel(Model):
                  warm_start: Optional[np.ndarray] = None,
                  device_cache=None) -> np.ndarray:
         """In-memory fit: solve on the device, threshold, set
-        model_coefficients. device_cache: see _device_batch."""
+        model_coefficients. device_cache: see _device_batch; it also keeps
+        the hybrid split across sweeps (build_hybrid_aux_for)."""
         batch, train_uid, n_train = self._device_batch(
             train_data, schema_params, cache=device_cache)
-        return self._fit_batch(batch, train_uid, n_train, warm_start)
+        return self._fit_batch(batch, train_uid, n_train, warm_start,
+                               device_cache=device_cache)
+
+    def build_hybrid_aux_for(self, batch: SparseBatch, device_cache=None
+                             ) -> Optional[HybridAux]:
+        """The hot/cold split for the wide-D fit (ops/logistic.py
+        HybridAux; port of gdmix_tpu/models/fixed_effect_lr.py:688-739).
+        None when grad_mode does not resolve to a hybrid mode or the data
+        declines (no hot set). Cached in `device_cache` across sweeps: the
+        split depends only on indices/values, which the multi-sweep pipeline
+        keeps identical (only offsets change).
+
+        The windowed cold layouts are attached for `hybrid` when
+        `hybrid_windowed_cold` is "on", or "auto" on a card (where the
+        windowed-scatter kernel runs; JAX's "auto" asks for a single TPU);
+        `pallas_hybrid` never reads them. Their row span is the chunk-padded
+        row count of JAX's objective, so the layouts equal JAX's."""
+        p = self.model_params
+        mode = self._grad_mode()
+        if mode not in ("hybrid", "pallas_hybrid"):
+            return None
+        if device_cache is not None and "hybrid_aux" in device_cache:
+            return device_cache["hybrid_aux"]
+        aux = build_hybrid_aux(batch.indices, batch.values,
+                               self.num_features,
+                               hot_features=p.hot_features,
+                               cold_max_frac=p.hybrid_cold_max_frac)
+        use_windowed = (mode == "hybrid"
+                        and (p.hybrid_windowed_cold == "on"
+                             or (p.hybrid_windowed_cold == "auto"
+                                 and self.device.type == "cuda")))
+        if aux is not None and use_windowed:
+            n = batch.labels.shape[0]
+            hy_chunk = p.train_chunk_size or max(256,
+                                                 min(n, p.block_chunk_size))
+            aux = extend_hybrid_aux_windowed(aux, self.num_features,
+                                             pad_to_multiple(n, hy_chunk))
+        if device_cache is not None:
+            device_cache["hybrid_aux"] = aux
+        return aux
 
     def _fit_batch(self, batch: SparseBatch, train_uid: np.ndarray,
                    n_train: int,
-                   warm_start: Optional[np.ndarray] = None) -> np.ndarray:
+                   warm_start: Optional[np.ndarray] = None,
+                   device_cache=None) -> np.ndarray:
         if warm_start is not None and len(warm_start) == self._dim:
             x0 = fe_coefficients_from_numpy(warm_start, self.device,
                                             self.dtype)
         else:
             x0 = torch.zeros(self._dim, dtype=self.dtype, device=self.device)
         p = self.model_params
+        aux = self.build_hybrid_aux_for(batch, device_cache)
         t0 = time.perf_counter()
-        res = lbfgs(self._objective_fun(batch), x0,
+        res = lbfgs(self._objective_fun(batch, aux), x0,
                     m=p.num_of_lbfgs_curvature_pairs, ftol=p.lbfgs_tolerance,
                     pgtol=p.lbfgs_pgtol, maxiter=p.num_of_lbfgs_iterations)
         coeffs = res.x.to("cpu", torch.float64).numpy()

@@ -708,5 +708,7 @@ class RandomEffectLRModel(Model):
                            schema_params, model_weights)
 
     @staticmethod
-    def from_argv(argv, base_params: Params) -> "RandomEffectLRModel":
-        return RandomEffectLRModel(from_argv(REParams, argv), base_params)
+    def from_argv(argv, base_params: Params,
+                  device=None) -> "RandomEffectLRModel":
+        return RandomEffectLRModel(from_argv(REParams, argv), base_params,
+                                   device)

@@ -5,7 +5,8 @@ Port of gdmix_tpu/workflow/main.py (reference gdmixworkflow/main.py:12-66).
 The port runs `in_memory`: the whole coordinate descent in one process with
 the score ledger in memory (workflow/pipeline.py). The other modes raise,
 naming their ROADMAP item: `single_node` (file handoffs between stages) is
-A.5; `distributed`, `dag` and `kubernetes` are A.6/A.9.
+A.5; `distributed`, `dag` and `kubernetes` are A.6/A.9. It runs on the
+first card; `--device cpu` runs the plain kernel versions on the CPU.
 """
 from __future__ import annotations
 
@@ -44,6 +45,9 @@ def get_parser() -> argparse.ArgumentParser:
                              "batches; auto (default, also a YAML top-level "
                              "key) takes host on one device; sharded is "
                              "ROADMAP A.6")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: the first card; "
+                             "cpu runs the plain kernel versions)")
     parser.add_argument("--compile_dag_to", default=None,
                         help=argparse.SUPPRESS)
     # accepted for reference-config compatibility; unused:
@@ -60,7 +64,7 @@ def main(args=None) -> dict:
     from gdmix_tpu_torch.workflow.pipeline import run_gdmix_in_memory
     metrics = run_gdmix_in_memory(args.config_path,
                                   num_sweeps=args.num_sweeps,
-                                  re_mode=args.re_mode)
+                                  re_mode=args.re_mode, device=args.device)
     logger.info("workflow metrics: %s", json.dumps(metrics))
     return metrics
 

@@ -139,7 +139,8 @@ def _cli(ds, out):
         f"--output_model_dir={out}/models", "--l2_reg_weight=0.7",
         "--regularize_bias=false", "--dtype=float64",
         "--lbfgs_tolerance=1e-14", "--lbfgs_pgtol=1e-10",
-        "--num_of_lbfgs_iterations=500", "--sparsity_threshold=0.0"]
+        "--num_of_lbfgs_iterations=500", "--sparsity_threshold=0.0",
+        "--device=cpu"]
 
 
 def test_cli_train_matches_jax(tmp_path):
@@ -226,7 +227,6 @@ def test_out_of_range_feature_id_raises(tmp_path, bad_id):
 
 
 @pytest.mark.parametrize("over,ctx,item", [
-    (dict(grad_mode="pallas_hybrid"), {}, "B.7"),
     (dict(stream_chunk_rows=64), {}, "A.9"),
     (dict(), {constants.NUM_WORKERS: 2}, "A.6"),
 ])

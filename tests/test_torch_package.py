@@ -196,7 +196,9 @@ def test_cuda_wrappers_raise_without_a_card():
     build raises where nvcc is missing."""
     _no_card()
     from gdmix_tpu_torch.ops import _cuda, linsolve, newton_lanes as nl
+    from gdmix_tpu_torch.ops import fe_hybrid as fh
     from gdmix_tpu_torch.ops import fe_loss_grad as fe
+    from gdmix_tpu_torch.ops import windowed_scatter as ws
     with pytest.raises((RuntimeError, AssertionError)):
         torch.zeros(1, device="cuda")
     m = lambda *shape: torch.zeros(*shape, device="meta")
@@ -218,25 +220,49 @@ def test_cuda_wrappers_raise_without_a_card():
         lambda: fe.fe_scatter_entries(mi(n), m(n), d),
         lambda: fe.fe_loss_grad_flat(m(d + 1), mi(n, 3), m(n, 3), m(n),
                                      m(n), m(n), d),
+        lambda: fh.fe_hybrid_hot(m(d), m(()), mi(n, 3), m(n, 3), m(n),
+                                 m(n), m(n), d),
+        lambda: ws.windowed_scatter_add(mi(n, 16), m(n, 16), mi(n // 4), 2,
+                                        4096, 4),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="expected CUDA tensors"):
             call()
     for fn in (linsolve.spd_solve_batched, linsolve.spd_solve_batched_mrhs,
                nl.newton_full, nl.newton_fgd, fe.fe_loss_grad_fused,
-               fe.fe_gather_entries, fe.fe_scatter_entries):
+               fe.fe_gather_entries, fe.fe_scatter_entries,
+               fh.fe_hybrid_hot, ws.windowed_scatter_add):
         assert fn.launches == 0
     try:
         _cuda._nvcc()
     except RuntimeError:
-        for name in ("linsolve", "fe_loss_grad"):
+        for name in ("linsolve", "fe_loss_grad", "fe_hybrid",
+                     "windowed_scatter"):
             with pytest.raises(RuntimeError, match="nvcc not found"):
                 _cuda.load(name)
 
 
 def test_resolve_device_is_cpu_without_a_card():
+    """Without a card the CPU is had by asking for it, on the API and on
+    the trainer's command line (--device is taken out of argv)."""
     _no_card()
-    from gdmix_tpu_torch.device import pad_to_multiple, resolve_device
-    assert resolve_device() == torch.device("cpu")
+    from gdmix_tpu_torch.device import (pad_to_multiple, pop_device_flag,
+                                        resolve_device)
+    assert resolve_device("cpu") == torch.device("cpu")
     assert resolve_device("cuda:0") == torch.device("cuda:0")
     assert [pad_to_multiple(x, 8) for x in (1, 8, 25)] == [8, 8, 32]
+    assert pop_device_flag(["--a=1", "--device=cpu", "--b"]) == (
+        ["--a=1", "--b"], "cpu")
+    assert pop_device_flag(["--device", "cuda:1", "--a"]) == (["--a"],
+                                                              "cuda:1")
+    assert pop_device_flag(["--a"]) == (["--a"], None)
+
+
+def test_resolve_device_raises_without_a_card(monkeypatch):
+    """No silent CPU: with CUDA reported absent, the default device (the
+    one every model, the pipeline and both CLIs resolve through) is an
+    error."""
+    from gdmix_tpu_torch.device import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()

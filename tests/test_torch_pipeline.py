@@ -101,7 +101,8 @@ def test_cli_in_memory_and_unported_modes(ml_data, tmp_path):
     cfg_path = str(tmp_path / "cfg.yaml")
     with open(cfg_path, "w") as f:
         yaml.safe_dump(_config_dict(ml_data, out), f, sort_keys=False)
-    metrics = torch_main(["--config_path", cfg_path, "--mode", "in_memory"])
+    metrics = torch_main(["--config_path", cfg_path, "--mode", "in_memory",
+                          "--device", "cpu"])
     assert metrics["global"] < metrics["per-user"] < metrics["per-movie"]
     for mode, item in (("single_node", "A.5"), ("dag", "A.6"),
                        ("distributed", "A.6"), ("kubernetes", "A.6")):

@@ -190,7 +190,7 @@ def test_cli_train_matches_jax(tmp_path):
         "--l2_reg_weight=0.6", "--regularize_bias=false",
         "--dtype=float64", "--lbfgs_tolerance=1e-14",
         "--lbfgs_pgtol=1e-10", "--num_of_lbfgs_iterations=500",
-        "--sparsity_threshold=0.0"])
+        "--sparsity_threshold=0.0", "--device=cpu"])
     jax_model, schema = _build_model(md_file, train_dir, feature_file,
                                      tmp_path / "jax")
     jax_ctx = _ctx(tmp_path / "jax")
