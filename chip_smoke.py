@@ -11,9 +11,16 @@ Phases, each printing one result line; any failure exits non-zero:
                 path's shapes, with its least time on the card (bytes or
                 flops at the published peak) and, where one PyTorch call
                 computes the same function, that call's time: the RE
-                kernels on inputs made from a numpy seed (the SPD solves at
-                d = 100, 160, 200, 256 and the dual's n = 32, 64, 128, at
-                B = 4,096 and at the wide fit's buckets of 128); the FE
+                kernels on inputs made from a numpy seed (K1/K2 at the
+                primary tiers, at B = 65,536/16,384 and at the buckets of
+                128 the fit launches; the SPD solves at d = 100, 160, 200,
+                256 and the dual's n = 32, 64, 128, at B = 4,096, at the
+                wide fit's buckets of 128 and at the support_120 fit's own
+                bucket shape, each also against the kernel's LDLᵀ
+                arithmetic in float64, and timed against
+                torch.linalg.solve in turns, medians of 5, which it must
+                not be slower than; and one K3 and one K4 row in float64
+                on damped systems of condition ~1e11); the FE
                 kernels at the JAX bench's full width
                 (N = 4,997,120, D = 10,000, K = 16) with uniform and
                 Zipf(1.2) ids, logistic and linear, plus a float64 cut.
@@ -70,6 +77,18 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 F32_TOL = 5e-3     # the JAX package's own lanes-vs-batch-major bound
 F64_REL_TOL = 1e-9
+# the LDLᵀ kernel against its own arithmetic (ldlt_solve_plain) in float64:
+# the same panel-blocked operations, summed in other orders, on systems of
+# condition ≤ ~5 (H = QQᵀ/d + I)
+LDLT_F64_RTOL = 1e-12
+# the same on damped, badly conditioned systems (eigenvalues 1e-6…1e6,
+# cond ≈ 2.4e11): two backward-stable solves sit up to cond·ε apart; the
+# CPU mirror, Gauss–Jordan and LAPACK's LU sit ≤ 2e-6 apart there
+# (tests/test_torch_linsolve.py), so 1e-5 relative. The residual
+# max|H·x − R| / (max|H|·max|x|), which conditioning does not enlarge,
+# is ~1e-16 for each, so 1e-12
+ILL_F64_RTOL, ILL_F64_RESID = 1e-5, 1e-12
+SOLVE_ROUNDS = 5   # kernel and library timed in turns; medians
 # a float32 variance against the float64 fit's: the variance follows the
 # weights p(1−p) at the fitted margins, |d ln p(1−p)/dz| ≤ 1, so its
 # relative gap is at most the margins' gap, a few 1e-3 at the θ gaps the
@@ -158,6 +177,13 @@ def make_workload_flat(num_entities, seed=0, d=24, max_nnz=4, count_lo=2,
         columns={"uid": np.arange(total, dtype=np.int64), "response": y_all,
                  "offset": 0.1 * rng.randn(total)},
         indices=idx_all, values=val_all, rec_nnz=nnz_all)
+
+
+def support_120_workload():
+    """The moderate-support RE cut: 16,384 entities, 120 features, ≤ 8 nnz,
+    16–64 samples: dims 81–121, the batch-major primal Newton and K3."""
+    return make_workload_flat(16384, seed=4, d=120, max_nnz=8, count_lo=16,
+                              count_hi=64)
 
 
 def _write_metadata(tmp, d):
@@ -315,8 +341,8 @@ def phase_device():
 def phase_build():
     from gdmix_tpu_torch.ops import _cuda
     t0 = time.perf_counter()
-    _cuda.load_all(("fe_loss_grad", "linsolve", "newton_lanes", "fe_hybrid",
-                    "windowed_scatter"))
+    _cuda.load_all(("fe_loss_grad", "ldlt_solve", "newton_lanes",
+                    "fe_hybrid", "windowed_scatter"))
     _say("build", seconds=round(time.perf_counter() - t0, 2),
          nvcc={k: round(v, 2) for k, v in _cuda.build_seconds.items()})
     for name, rep in _cuda.ptxas_report.items():
@@ -346,10 +372,14 @@ def phase_kernels():
         err = float((thk - thp).abs()[both].max())
         agree = float((ck == cp).float().mean())
         ms, pms = _time_ms(k, 5), _time_ms(p, 2)
+        # the fit's own launch shape: a bucket of 128 entities
+        a128 = [a[:128] for a in (th0, X, y, w, off, cnt)]
+        ms128, dev128 = _launch_shape_ms(lambda: nl.newton_full(*a128, **kw))
         _say("kernels", kernel="newton_full", B=65536, n=n, dim=25,
              max_abs_dtheta=f"{err:.3e}", converged_agree=f"{agree:.6f}",
              converged=f"{float(ck.float().mean()):.6f}",
-             iters_max=int(ik.max()), ms=f"{ms:.3f}", plain_ms=f"{pms:.3f}")
+             iters_max=int(ik.max()), ms=f"{ms:.3f}", plain_ms=f"{pms:.3f}",
+             ms_B128=f"{ms128:.4f}", device_ms_B128=f"{dev128:.4f}")
         _check(err <= F32_TOL, f"newton_full n={n}: max|dθ| {err}")
         _check(agree >= 0.999, f"newton_full n={n}: converged flags agree "
                                f"on {agree}")
@@ -383,10 +413,13 @@ def phase_kernels():
         g_err = float((ga - gb).abs().max())
         d_err = float((da - db).abs().max())
         ms, pms = _time_ms(k, 20), _time_ms(p, 5)
+        a128 = [a[:128] for a in (X, y, w, off, cnt, th)]
+        ms128, dev128 = _launch_shape_ms(lambda: nl.newton_fgd(*a128, **fk))
         _say("kernels", kernel="newton_fgd", B=B, n=n, dim=25,
              f_rel=f"{f_rel:.3e}", max_abs_dg=f"{g_err:.3e}",
              max_abs_ddelta=f"{d_err:.3e}", ms=f"{ms:.3f}",
-             plain_ms=f"{pms:.3f}")
+             plain_ms=f"{pms:.3f}", ms_B128=f"{ms128:.4f}",
+             device_ms_B128=f"{dev128:.4f}")
         _check(f_rel <= 1e-4 and g_err <= 1e-4 and d_err <= F32_TOL,
                f"newton_fgd n={n}: f {f_rel} g {g_err} delta {d_err}")
         worst = max(worst, d_err)
@@ -403,17 +436,24 @@ def phase_kernels():
     res["newton_fgd"]["max_abs_err"] = worst
 
     # K3: damped SPD solves at the batch-major Newton's width (d = 100), at
-    # the widths the primal rung now admits past 128 (shared memory up to
-    # d = 240 in f32 and 169 in f64; d = 256 in the global workspace), and
-    # K4: the dual Newton's n×n systems, r = 2, n = 32, 64 and 128; then
-    # K4 at the wide fit's own launches, one bucket of B = 128 at its
-    # n_cap 32 and 64
+    # the widths the primal rung admits past 128 (shared memory up to
+    # d = 308 in f32 and 208 in f64; d = 256 in f64 in the device-memory
+    # workspace), and at the support_120 fit's most frequent bucket shape,
+    # read from its bucket plan; K4: the dual Newton's n×n systems, r = 2,
+    # n = 32, 64 and 128; then K4 at the wide fit's own launches, one
+    # bucket of B = 128 at its n_cap 32 and 64
     f32, f64 = torch.float32, torch.float64
+    shapes = _support_120_k3_shapes()
+    (b_fit, d_fit), _ = shapes.most_common(1)[0]
+    _say("kernels", support_120_k3_buckets={f"B{b}_d{dd}": c for (b, dd), c
+                                            in sorted(shapes.items())},
+         linalg_library=torch.backends.cuda.preferred_linalg_library())
     for name, B, d, r, dts in (
             ("spd_solve_batched", 4096, 100, 1, (f32, f64)),
             ("spd_solve_batched", 4096, 200, 1, (f32,)),
             ("spd_solve_batched", 4096, 160, 1, (f64,)),
-            ("spd_solve_batched", 4096, 256, 1, (f32,)),
+            ("spd_solve_batched", 4096, 256, 1, (f32, f64)),
+            ("spd_solve_batched", b_fit, d_fit, 1, (f32,)),
             ("spd_solve_batched_mrhs", 4096, 32, 2, (f32,)),
             ("spd_solve_batched_mrhs", 4096, 64, 2, (f32, f64)),
             ("spd_solve_batched_mrhs", 4096, 128, 2, (f32, f64)),
@@ -423,6 +463,9 @@ def phase_kernels():
         if (name, B, d) in (("spd_solve_batched", 4096, 100),
                             ("spd_solve_batched_mrhs", 4096, 64)):
             res[name] = row
+    # both near singularity, where a tiled sum or a pivot gone wrong shows
+    _ill_conditioned_row("spd_solve_batched", 128, d_fit, 1)
+    _ill_conditioned_row("spd_solve_batched_mrhs", 128, 128, 2)
     return res
 
 
@@ -448,11 +491,56 @@ def _spd_solve_flops(d: int, r: int) -> float:
     return d ** 3 / 3 + 2 * d * d * r
 
 
+def _support_120_k3_shapes():
+    """{(B, dim): buckets} of the support_120 fit's bucket plan, for the
+    buckets whose solve reaches K3 (the primal rung past the fused
+    kernels' dim 64): the shapes the fit launches K3 at."""
+    from collections import Counter
+    from gdmix_tpu_torch.data.bucketing import iter_bucketize_flat
+    shapes = Counter()
+    with tempfile.TemporaryDirectory(prefix="gdx_smoke_plan_") as tmp:
+        # the plan is host work: the model only answers _select_solver
+        model, schema = stage_model(120, tmp, device="cpu")
+        for b in iter_bucketize_flat(
+                support_120_workload(), schema,
+                model.model_params.offset_column_name,
+                has_intercept=model.has_intercept):
+            B, dim = b.indices.shape[0], b.u_cap + int(model.has_intercept)
+            rung, _ = model._select_solver(b.u_cap, B, b.n_cap)
+            if rung == "newton" and dim > 64:
+                shapes[(B, dim)] += 1
+    return shapes
+
+
+def _medians_ms(fns, reps, rounds=SOLVE_ROUNDS):
+    """Median device ms of each of `fns` over `rounds` rounds, timed in
+    turns within each round: a library call's time moves between calls
+    (27 to 107 ms at d = 256 on one H100), and a median of turns in one
+    call is what decides kernel against library."""
+    times = [[] for _ in fns]
+    for _ in range(rounds):
+        for t, fn in zip(times, fns):
+            t.append(_time_ms(fn, reps))
+    return [float(np.median(t)) for t in times]
+
+
+def _launch_shape_ms(fn):
+    """(ms a call by CUDA events over back-to-back calls, device-busy ms a
+    call by torch.profiler) at a launch of one bucket of 128: the first
+    includes the wrapper's host time where that, not the card, sets the
+    rate; the second is the card's own."""
+    return _time_ms(fn, 20), _top_kernels(fn, reps=10)[0]
+
+
 def _solve_row(name, B, d, r, dtypes, seed):
-    """K3 (r = 1) or K4 against its plain version and torch.linalg.solve
-    (the yardstick, which the port never calls) on damped SPD systems
-    H = QQᵀ/d + I. Tolerances: max|Δx| ≤ 1e-4·max|x| in float32, 1e-9
-    relative in float64. Returns the first dtype's result row."""
+    """K3 (r = 1) or K4 against its plain version, against the kernel's own
+    LDLᵀ arithmetic (ldlt_solve_plain) in float64, and against
+    torch.linalg.solve (the yardstick, which the port never calls) on
+    damped SPD systems H = QQᵀ/d + I. Tolerances: max|Δx| ≤ 1e-4·max|x| in
+    float32 and 1e-9 relative in float64 against the Gauss–Jordan plain
+    version; 1e-12 relative in float64 against ldlt_solve_plain. Kernel
+    and library are timed in turns (medians of SOLVE_ROUNDS). Returns the
+    first dtype's result row."""
     import torch
     from gdmix_tpu_torch.ops import linsolve
     dev = torch.device("cuda:0")
@@ -462,6 +550,18 @@ def _solve_row(name, B, d, r, dtypes, seed):
                                                 device=dev)
     del Q
     R64 = torch.from_numpy(rng.randn(B, d, r)).to(dev)
+
+    def kernel(H, R):
+        if r == 1:
+            return linsolve.spd_solve_batched(H, R[..., 0].contiguous())
+        return linsolve.spd_solve_batched_mrhs(H, R)
+    x64 = kernel(H64, R64).reshape(B, d, r)
+    ref = linsolve.ldlt_solve_plain(H64, R64)
+    ldlt_rel = _rel(x64, ref)
+    _check(ldlt_rel <= LDLT_F64_RTOL,
+           f"{name} B={B} d={d}: float64 against ldlt_solve_plain, rel "
+           f"{ldlt_rel}")
+    del x64, ref
     first = None
     for dt in dtypes:
         H = H64.to(dt).contiguous()
@@ -480,22 +580,67 @@ def _solve_row(name, B, d, r, dtypes, seed):
         err = float((xk - xp).abs().max())
         rel = err / float(xp.abs().max())
         tol = F64_REL_TOL if dt == torch.float64 else 1e-4
-        ms, pms, lms = _time_ms(k, 10), _time_ms(p, 2), _time_ms(lib, 5)
+        ms, lms = _medians_ms((k, lib), 5)
+        pms = _time_ms(p, 2)
+        extra = ({} if B > 256 else
+                 dict(device_ms=f"{_top_kernels(k, reps=10)[0]:.4f}"))
+        # bytes: the lower triangle of H (all that the function needs of a
+        # symmetric H, and all that the kernel reads), R in and X out
         item = H.element_size()
-        bound, by = _bound(item * (B * d * d + 2 * B * d * r),
+        bound, by = _bound(item * (B * d * (d + 1) // 2 + 2 * B * d * r),
                            B * _spd_solve_flops(d, r), item)
         ws = linsolve._workspace(1, d, r, H) is not None
         _say("kernels", kernel=name, B=B, d=d, r=r,
              dtype=str(dt).split(".")[1], memory="global" if ws else "shared",
-             max_abs_dx=f"{err:.3e}", rel=f"{rel:.3e}", ms=f"{ms:.3f}",
-             plain_ms=f"{pms:.3f}", library_ms=f"{lms:.3f}",
-             bound_ms=f"{bound:.4f}", bound_by=by)
+             max_abs_dx=f"{err:.3e}", rel=f"{rel:.3e}",
+             ldlt_f64_rel=f"{ldlt_rel:.3e}", ms=f"{ms:.4f}",
+             plain_ms=f"{pms:.3f}", library_ms=f"{lms:.4f}",
+             kernel_le_library=ms <= lms,
+             bound_ms=f"{bound:.4f}", bound_by=by, **extra)
         _check(rel <= tol, f"{name} d={d} {dt}: rel err {rel}")
+        _check(ms <= lms, f"{name} B={B} d={d} {dt}: kernel {ms} ms slower "
+                          f"than torch.linalg.solve {lms} ms")
         if first is None:
             first = dict(ms=ms, plain_ms=pms, max_abs_err=err,
                          library_ms=lms, bound_ms=bound, bound_by=by)
         del H, R, xk, xp
     return first
+
+
+def _ill_conditioned_row(name, B, d, r):
+    """K3 (r = 1) or K4 in float64 on damped, badly conditioned systems:
+    eigenvalues over 1e-6…1e6 plus the primal Newton's damping
+    1e-10·(1 + |diag|), as tests/test_torch_linsolve.py builds them. The
+    kernel must be finite, within ILL_F64_RTOL of ldlt_solve_plain and of
+    the Gauss–Jordan plain version, and its residual within
+    ILL_F64_RESID."""
+    import torch
+    from gdmix_tpu_torch.ops import linsolve
+    rng = np.random.RandomState(d + r)
+    V = np.linalg.qr(rng.randn(B, d, d))[0]
+    H = np.einsum("bij,j,bkj->bik", V, np.logspace(-6, 6, d), V)
+    H = (H + H.transpose(0, 2, 1)) / 2
+    diag = np.arange(d)
+    H[:, diag, diag] += 1e-10 * (1.0 + np.abs(H[:, diag, diag]))
+    H = torch.from_numpy(H).to(DEV)
+    R = torch.from_numpy(rng.randn(B, d, r)).to(DEV)
+    if r == 1:
+        x = linsolve.spd_solve_batched(H, R[..., 0].contiguous())[..., None]
+    else:
+        x = linsolve.spd_solve_batched_mrhs(H, R)
+    ldlt_rel = _rel(x, linsolve.ldlt_solve_plain(H, R))
+    gj_rel = _rel(x, linsolve.gj_solve_mrhs_plain(H, R))
+    resid = float((H @ x - R).abs().max() / (H.abs().max() * x.abs().max()))
+    finite = bool(torch.isfinite(x).all())
+    _say("kernels", kernel=name, B=B, d=d, r=r, dtype="float64",
+         systems="ill_conditioned", finite=finite,
+         ldlt_f64_rel=f"{ldlt_rel:.3e}", gj_f64_rel=f"{gj_rel:.3e}",
+         residual=f"{resid:.3e}")
+    _check(finite and ldlt_rel <= ILL_F64_RTOL and gj_rel <= ILL_F64_RTOL
+           and resid <= ILL_F64_RESID,
+           f"{name} B={B} d={d} badly conditioned: finite {finite}, against "
+           f"ldlt_solve_plain {ldlt_rel}, against Gauss–Jordan {gj_rel}, "
+           f"residual {resid}")
 
 
 def _rel(a, b) -> float:
@@ -613,8 +758,7 @@ def phase_fit(card):
     with tempfile.TemporaryDirectory(prefix="gdx_smoke_fit_") as tmp:
         fg = make_workload_flat(100_000, seed=0)
         model, schema = stage_model(24, os.path.join(tmp, "primary"))
-        wide = make_workload_flat(16384, seed=4, d=120, max_nnz=8,
-                                  count_lo=16, count_hi=64)
+        wide = support_120_workload()
         wmodel, wschema = stage_model(120, os.path.join(tmp, "wide"))
         torch.cuda.reset_peak_memory_stats()
         for c in counters:
@@ -625,8 +769,10 @@ def phase_fit(card):
         torch.cuda.synchronize()
         cold_s = time.perf_counter() - t0
         primary_launches = {c.__name__: c.launches for c in counters}
+        t0 = time.perf_counter()
         wtable = wmodel.fit_flat(wide, {}, wschema)
         torch.cuda.synchronize()
+        wide_s = time.perf_counter() - t0
         launches = {c.__name__: c.launches for c in counters}
         # ----
         share = _converged_share(model)
@@ -645,7 +791,10 @@ def phase_fit(card):
              peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
              card=repr(card))
         _say("fit", workload="support_120", entities=len(wide),
-             converged=f"{wshare:.6f}", launches=launches)
+             converged=f"{wshare:.6f}", cold_s=f"{wide_s:.3f}",
+             phases={k: round(v, 3)
+                     for k, v in wmodel.last_fit_phases.items()},
+             launches=launches)
         _check(share >= 0.999, f"primary converged share {share}")
         _check(wshare >= 0.999, f"support_120 converged share {wshare}")
         _check(primary_launches["newton_full"] > 0
@@ -1466,9 +1615,9 @@ KERNELS = (
      "gdmix_tpu/ops/pallas/newton_lanes.py:175"),
     ("newton_fgd", "gdmix_tpu_torch/csrc/newton_lanes.cu",
      "gdmix_tpu/ops/pallas/newton_lanes.py:137"),
-    ("spd_solve_batched", "gdmix_tpu_torch/csrc/linsolve.cu",
+    ("spd_solve_batched", "gdmix_tpu_torch/csrc/ldlt_solve.cu",
      "gdmix_tpu/ops/pallas/linsolve.py:27"),
-    ("spd_solve_batched_mrhs", "gdmix_tpu_torch/csrc/linsolve.cu",
+    ("spd_solve_batched_mrhs", "gdmix_tpu_torch/csrc/ldlt_solve.cu",
      "gdmix_tpu/ops/pallas/linsolve.py:103"),
     ("fe_loss_grad_fused", "gdmix_tpu_torch/csrc/fe_loss_grad.cu",
      "gdmix_tpu/ops/pallas/fe_grad.py:48; gdmix_tpu/ops/pallas/"

@@ -501,9 +501,11 @@ def upload_dir(local_dir: str, remote_dir: str) -> None:
 
 
 def download_dir(remote_dir: str, local_dir: str) -> None:
-    """Recursively copy a (remote) directory tree to a local one."""
-    base = remote_dir.rstrip("/")
-    for f in find_files(base):
+    """Recursively copy a (remote) directory tree to a local one: every
+    file, dot-files included, as upload_dir copies them (find_files, the
+    score-directory walk, skips hidden files)."""
+    fs_, base = get_fs(remote_dir.rstrip("/"))
+    for f in _walk(fs_, base, skip_hidden=False):
         rel = f[len(base) + 1:]
         dst = os.path.join(local_dir, *rel.split("/"))
         os.makedirs(os.path.dirname(dst), exist_ok=True)
@@ -521,8 +523,14 @@ def find_files(path: str, suffix: str = "") -> List[str]:
             out.extend(os.path.join(root, f) for f in files
                        if f.endswith(suffix) and not f.startswith("."))
         return sorted(out)
-    out = []
-    stack = [p.rstrip("/")]
+    return sorted(f for f in _walk(fs_, p.rstrip("/"), skip_hidden=True)
+                  if f.endswith(suffix))
+
+
+def _walk(fs_: FileSystem, base: str, skip_hidden: bool) -> Iterator[str]:
+    """Every file under `base` on `fs_`, depth first; with `skip_hidden`,
+    no dot-name and nothing under one."""
+    stack = [base]
     while stack:
         d = stack.pop()
         try:
@@ -530,14 +538,13 @@ def find_files(path: str, suffix: str = "") -> List[str]:
         except (FileNotFoundError, NotADirectoryError):
             continue
         for n in names:
-            if n.startswith("."):
+            if skip_hidden and n.startswith("."):
                 continue
             full = d + "/" + n
             if fs_.isdir(full):
                 stack.append(full)
-            elif full.endswith(suffix):
-                out.append(full)
-    return sorted(out)
+            else:
+                yield full
 
 
 def copy(src: str, dst: str) -> None:

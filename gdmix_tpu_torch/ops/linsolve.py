@@ -3,11 +3,13 @@
 Port of gdmix_tpu/ops/pallas/linsolve.py: `spd_solve_batched` (one
 right-hand side, the primal Newton's step) and `spd_solve_batched_mrhs`
 (r right-hand sides, the dual Newton's n×n kernel system). On a CUDA tensor
-each is the hand-written kernel of csrc/linsolve.cu (one block per system;
-the augmented matrix in shared memory, or in a global-memory workspace once
-it outgrows the 227 KB a block may opt into); on a CPU tensor it is the
-plain PyTorch version below, the same unpivoted Gauss–Jordan elimination
-written as batched tensor ops.
+each is the hand-written kernel of csrc/ldlt_solve.cu: a panel-blocked,
+unpivoted LDLᵀ factorisation and two substitutions, one block per system,
+the packed lower triangle in shared memory, or in a device-memory workspace
+once it outgrows the 227 KB a block may opt into. On a CPU tensor each is
+the plain PyTorch version below, the TPU kernels' unpivoted Gauss–Jordan
+elimination written as batched tensor ops. `ldlt_solve_plain` repeats the
+kernel's own arithmetic, for the tests and the on-card check.
 """
 from __future__ import annotations
 
@@ -46,13 +48,89 @@ def gj_solve_plain(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return gj_solve_mrhs_plain(A, b[..., None])[..., 0]
 
 
+NB = 16   # the kernel's panel width (kNB in csrc/ldlt_solve.cu)
+
+
+def ldlt_solve_plain(H: torch.Tensor, R: torch.Tensor,
+                     nb: int = NB) -> torch.Tensor:
+    """X = H⁻¹·R by the kernel's panel-blocked, unpivoted LDLᵀ: H [B, d, d]
+    damped SPD, R [B, d, r]. Per panel of nb columns: the diagonal block
+    right-looking column by column with the forward substitution of its
+    right-hand sides, W21 = A21·L11⁻ᵀ, L21 = W21·D1⁻¹, then A22 −= L21·W21ᵀ
+    and Y2 −= L21·Y1; then Y /= D and the back substitution panel by panel
+    from the last. Only the lower triangle of A is read."""
+    A, Y = H.clone(), R.clone()
+    d = A.shape[-1]
+    for j0 in range(0, d, nb):
+        j1 = min(j0 + nb, d)
+        for j in range(j0, j1):
+            w = A[:, j + 1:j1, j].clone()
+            l = w * (1.0 / A[:, j, j, None])
+            A[:, j + 1:j1, j + 1:j1] -= l[:, :, None] * w[:, None, :]
+            A[:, j + 1:j1, j] = l
+        for k in range(j0, j1):
+            Y[:, k + 1:j1] -= A[:, k + 1:j1, k, None] * Y[:, k, None, :]
+        W = A[:, j1:, j0:j1].clone()
+        for m in range(1, j1 - j0):
+            W[:, :, m] -= (W[:, :, :m] * A[:, None, j0 + m, j0:j0 + m]).sum(-1)
+        dinv = 1.0 / torch.diagonal(A, dim1=1, dim2=2)[:, j0:j1]
+        L = W * dinv[:, None, :]
+        A[:, j1:, j0:j1] = L
+        Y[:, j1:] -= L @ Y[:, j0:j1]
+        A[:, j1:, j1:] -= L @ W.mT
+    Y /= torch.diagonal(A, dim1=1, dim2=2)[:, :, None]
+    for j0 in reversed(range(0, d, nb)):
+        j1 = min(j0 + nb, d)
+        for k in reversed(range(j0 + 1, j1)):
+            Y[:, j0:k] -= A[:, k, j0:k, None] * Y[:, k, None, :]
+        Y[:, :j0] -= A[:, j0:j1, :j0].mT @ Y[:, j0:j1]
+    return Y
+
+
+def _workspace_elems(d: int, r: int) -> int:
+    """Elements the kernel keeps per system (its Layout): the packed lower
+    triangle, the two [NB, d] panels and Y [d, r], each rounded up to 4."""
+    r4 = lambda x: (x + 3) & ~3
+    return r4(d * (d + 1) // 2) + 2 * NB * r4(d) + r4(d * r)
+
+
 def _workspace(B: int, d: int, r: int, like: torch.Tensor):
-    """None when [H | R] fits a block's shared memory, else the
-    global-memory workspace the kernel eliminates in."""
-    stride = (d + r) | 1
-    if like.element_size() * d * stride <= SMEM_OPTIN:
+    """None when a system (its arrays and the diagonal block's L11 and 1/D)
+    fits a block's shared memory, else the device-memory workspace the
+    kernel factors in."""
+    elems = _workspace_elems(d, r) + NB * NB + NB
+    if like.element_size() * elems <= SMEM_OPTIN:
         return None
-    return torch.empty((B, d, stride), dtype=like.dtype, device=like.device)
+    return torch.empty((B, _workspace_elems(d, r)), dtype=like.dtype,
+                       device=like.device)
+
+
+_lib = None
+
+
+def _library() -> ctypes.CDLL:
+    """csrc/ldlt_solve.cu's library, typed once when first loaded, and its
+    storage layout checked then against _workspace_elems (d ≤ 400, r ≤ 3):
+    each launch is then the launch alone."""
+    global _lib
+    if _lib is None:
+        lib = _cuda.load("ldlt_solve")
+        elems = lib.gdx_ldlt_workspace_elems
+        elems.restype = ctypes.c_int64
+        elems.argtypes = [ctypes.c_int, ctypes.c_int]
+        for d in range(1, 401):
+            for r in (1, 2, 3):
+                if elems(d, r) != _workspace_elems(d, r):
+                    raise RuntimeError(
+                        f"spd solve: the kernel's layout differs from "
+                        f"_workspace_elems at d={d}, r={r}")
+        for fn in (lib.gdx_ldlt_solve_f32, lib.gdx_ldlt_solve_f64):
+            fn.argtypes = [ctypes.c_void_p] * 3 + [
+                ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
 
 
 def _launch(what: str, H: torch.Tensor, R: torch.Tensor, r: int):
@@ -61,13 +139,9 @@ def _launch(what: str, H: torch.Tensor, R: torch.Tensor, r: int):
     if B == 0:
         return x
     ws = _workspace(B, d, r, H)
-    lib = _cuda.load("linsolve")
-    fn = (lib.gdx_spd_solve_f64 if H.dtype == torch.float64
-          else lib.gdx_spd_solve_f32)
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_void_p,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib = _library()
+    fn = (lib.gdx_ldlt_solve_f64 if H.dtype == torch.float64
+          else lib.gdx_ldlt_solve_f32)
     with torch.cuda.device(H.device):
         err = fn(_cuda.ptr(H), _cuda.ptr(R), _cuda.ptr(x), B, d, r,
                  None if ws is None else _cuda.ptr(ws), _cuda.stream_of(H))

@@ -147,6 +147,59 @@ EDITS = {
          '"-pthread",\n'
          '                  _BKT_SRC], _BKT_SO)\n'),
     ],
+    # download_dir copies every file, dot-files included, as upload_dir
+    # does (the original walks through find_files, which skips them); both
+    # walk a remote tree through one _walk
+    "io/fs.py": [
+        ('    """Recursively copy a (remote) directory tree to a local one."""\n'
+         '    base = remote_dir.rstrip("/")\n'
+         '    for f in find_files(base):\n',
+         '    """Recursively copy a (remote) directory tree to a local one: every\n'
+         '    file, dot-files included, as upload_dir copies them (find_files, the\n'
+         '    score-directory walk, skips hidden files)."""\n'
+         '    fs_, base = get_fs(remote_dir.rstrip("/"))\n'
+         '    for f in _walk(fs_, base, skip_hidden=False):\n'),
+        ('    out = []\n'
+         '    stack = [p.rstrip("/")]\n'
+         '    while stack:\n'
+         '        d = stack.pop()\n'
+         '        try:\n'
+         '            names = fs_.listdir(d)\n'
+         '        except (FileNotFoundError, NotADirectoryError):\n'
+         '            continue\n'
+         '        for n in names:\n'
+         '            if n.startswith("."):\n'
+         '                continue\n'
+         '            full = d + "/" + n\n'
+         '            if fs_.isdir(full):\n'
+         '                stack.append(full)\n'
+         '            elif full.endswith(suffix):\n'
+         '                out.append(full)\n'
+         '    return sorted(out)\n',
+         '    return sorted(f for f in _walk(fs_, p.rstrip("/"), skip_hidden=True)\n'
+         '                  if f.endswith(suffix))\n'
+         '\n\n'
+         'def _walk(fs_: FileSystem, base: str, skip_hidden: bool) -> '
+         'Iterator[str]:\n'
+         '    """Every file under `base` on `fs_`, depth first; with '
+         '`skip_hidden`,\n'
+         '    no dot-name and nothing under one."""\n'
+         '    stack = [base]\n'
+         '    while stack:\n'
+         '        d = stack.pop()\n'
+         '        try:\n'
+         '            names = fs_.listdir(d)\n'
+         '        except (FileNotFoundError, NotADirectoryError):\n'
+         '            continue\n'
+         '        for n in names:\n'
+         '            if skip_hidden and n.startswith("."):\n'
+         '                continue\n'
+         '            full = d + "/" + n\n'
+         '            if fs_.isdir(full):\n'
+         '                stack.append(full)\n'
+         '            else:\n'
+         '                yield full\n'),
+    ],
 }
 
 
@@ -236,7 +289,7 @@ def test_cuda_wrappers_raise_without_a_card():
     try:
         _cuda._nvcc()
     except RuntimeError:
-        for name in ("linsolve", "fe_loss_grad", "fe_hybrid",
+        for name in ("ldlt_solve", "fe_loss_grad", "fe_hybrid",
                      "windowed_scatter"):
             with pytest.raises(RuntimeError, match="nvcc not found"):
                 _cuda.load(name)
