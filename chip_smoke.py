@@ -23,7 +23,13 @@ Phases, each printing one result line; any failure exits non-zero:
                 on damped systems of condition ~1e11); the FE
                 kernels at the JAX bench's full width
                 (N = 4,997,120, D = 10,000, K = 16) with uniform and
-                Zipf(1.2) ids, logistic and linear, plus a float64 cut.
+                Zipf(1.2) ids, logistic and linear; the fused kernel in
+                both of its forms there (privatised and device-memory; the
+                privatised one must not be the slower on uniform ids,
+                medians of 5 turns), the privatised form at the largest D
+                it takes, the device-memory form at D = 100,000 Zipf and
+                D = 1,000,000 uniform, cuts at K = 5 and 12, without an
+                intercept and with weight-0 rows, and float64.
   4. fit      — RandomEffectLRModel.fit_flat at full width: the primary
                 random-effect workload (100k entities, 24 features, pareto
                 sample counts 2..64), then a moderate-support cut
@@ -48,7 +54,8 @@ Phases, each printing one result line; any failure exits non-zero:
                 point: it does not converge in 100 iterations at λ = 1),
                 the same fit at λ = 10⁴, which converges, against a
                 plain-version fit, K12
-                (shared-memory, device-memory and float64 forms) and K13
+                (A = 16,384, A = 65,536 through the tiered table, float64,
+                and uniform compact ids) and K13
                 (gradient and row layouts) against their plain versions;
                 uniform ids at D = 1M, where the split declines.
   6. pipeline — `python -m gdmix_tpu_torch.workflow.main --mode in_memory
@@ -346,9 +353,8 @@ def phase_build():
     _say("build", seconds=round(time.perf_counter() - t0, 2),
          nvcc={k: round(v, 2) for k, v in _cuda.build_seconds.items()})
     for name, rep in _cuda.ptxas_report.items():
-        for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas[{name}] {line.strip()}")
+        for line in _cuda.ptxas_lines(rep):
+            print(f"  ptxas[{name}] {line}")
 
 
 def phase_kernels():
@@ -647,17 +653,170 @@ def _rel(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
+def _device_form(fe):
+    """Context: `fe_loss_grad_fused` takes its device-memory form whatever
+    the shape (the wrapper's chooser is swapped for the block; the main
+    path never runs under it)."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def forced():
+        keep = fe.privatised_form
+        fe.privatised_form = (
+            lambda num_features, element_size: fe.FORM_DEVICE)
+        try:
+            yield
+        finally:
+            fe.privatised_form = keep
+    return forced()
+
+
+def _largest_privatised_d(fe, item):
+    """The largest D whose gradient `privatised_form` keeps in shared
+    memory at this element size."""
+    lo, hi = 1, 1 << 20
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if fe.privatised_form(mid, item) else (lo, mid - 1)
+    return lo
+
+
+def _fe_fused_row(tag, args, reps=10, device=False, **kw):
+    """K5 against its plain version on one batch, in the form the wrapper
+    chooses or (device=True) the device-memory form: FE_LOSS_RTOL and
+    FE_GRAD_RTOL in float32, FE_F64_RTOL in float64. The plain version runs
+    in float64 on the same values: under Zipf ids ~10⁷ float32 additions
+    into one slot round by a few 1e-5 of max|g| in whatever order they are
+    made, and the error reported should be the kernel's, not the
+    reference's. Returns (ms, max|Δg|, the kernel call)."""
+    import contextlib
+    import torch
+    from gdmix_tpu_torch.ops import fe_loss_grad as fe
+    x, d = args[0], args[-1]
+    form = (lambda: _device_form(fe)) if device else contextlib.nullcontext
+
+    def k():
+        with form():
+            return fe.fe_loss_grad_fused(*args, **kw)
+    f64 = x.dtype == torch.float64
+    ref = tuple(t.double() if torch.is_tensor(t) and t.is_floating_point()
+                else t for t in args)
+    (lv, gv), (lp, gp) = k(), fe.fe_loss_grad_plain(*ref, **kw)
+    del ref
+    torch.cuda.synchronize()
+    l_rel = abs(float(lv - lp)) / abs(float(lp))
+    g_rel = _rel(gv, gp)
+    _check(gv.dtype == x.dtype
+           and l_rel <= (FE_F64_RTOL if f64 else FE_LOSS_RTOL)
+           and g_rel <= (FE_F64_RTOL if f64 else FE_GRAD_RTOL),
+           f"fe_loss_grad_fused {tag}: loss rel {l_rel}, grad rel {g_rel}")
+    ms = _time_ms(k, reps)
+    shared = not device and fe.privatised_form(d, x.element_size())
+    _say("kernels", kernel="fe_loss_grad_fused", cut=tag, N=args[1].shape[0],
+         D=d, K=args[1].shape[1], dtype=str(x.dtype).split(".")[1],
+         form="privatised" if shared else "device_memory",
+         loss_rel=f"{l_rel:.2e}", grad_rel=f"{g_rel:.2e}", ms=f"{ms:.3f}",
+         **{k_: v for k_, v in kw.items()})
+    return ms, float((gv - gp).abs().max()), k
+
+
+def _fe_edge_rows():
+    """The two pass kernels at ragged sizes the full-width batches never
+    reach (N not a multiple of a warp's records, K = 3, 4, 8, 20, tables of
+    1, 7, 44 and 300 ids, ~30% value-0 entries and a run of weight-0 rows,
+    both with out-of-range ids), float32 and float64, each against its plain
+    version in float64 on sanitised ids; the fused kernel in the form the
+    wrapper chooses and in its device-memory form."""
+    import torch
+    from gdmix_tpu_torch.ops import fe_hybrid as fh, fe_loss_grad as fe
+    worst = {"fe_loss_grad_fused": 0.0, "fe_hybrid_hot": 0.0}
+    for n, k, d in ((1001, 8, 44), (37, 3, 7), (4099, 20, 300), (513, 4, 1),
+                    (70_001, 16, 300)):
+        rng = np.random.RandomState(n + k)
+        idx = rng.randint(0, d + 1, (n, k))        # d: K12's dump slot
+        val = rng.randn(n, k) * (rng.rand(n, k) < 0.7)
+        w = rng.rand(n) + 0.5
+        w[n // 3:n // 3 + n // 10] = 0.0
+        inert = (val == 0) | (w == 0)[:, None]
+        raw = np.where(inert, d + 1_000_003, idx).astype(np.int32)
+        y = (rng.rand(n) < 0.5).astype(np.float64)
+        off, x = 0.3 * rng.randn(n), 0.2 * rng.randn(d + 1)
+        for dt in (torch.float32, torch.float64):
+            t = lambda a, dtype=dt: torch.as_tensor(a, dtype=dtype,
+                                                    device=DEV)
+            ti = lambda a: torch.as_tensor(a, dtype=torch.int32, device=DEV)
+            tol = FE_F64_RTOL if dt == torch.float64 else FE_GRAD_RTOL
+            # K5: ids in [0, d); the entries drawn at d take id 0
+            ids5 = np.where(idx == d, 0, idx)
+            k5 = (t(x), ti(np.where(inert, raw, ids5)), t(val), t(y), t(w),
+                  t(off), d)
+            got = fe.fe_loss_grad_fused(*k5)
+            with _device_form(fe):
+                gotd = fe.fe_loss_grad_fused(*k5)
+            want = fe.fe_loss_grad_plain(
+                t(x, torch.float64), ti(np.where(inert, 0, ids5)),
+                t(val, torch.float64), t(y, torch.float64),
+                t(w, torch.float64), t(off, torch.float64), d)
+            # K12: compact ids in [0, d], d the dump slot
+            gotk = fh.fe_hybrid_hot(t(x[:-1]), t(x[-1]), ti(raw), t(val),
+                                    t(y), t(w), t(off), d)
+            wantk = fh.fe_hybrid_hot_plain(
+                t(x[:-1], torch.float64), t(x[-1], torch.float64),
+                ti(np.where(inert, d, idx)), t(val, torch.float64),
+                t(y, torch.float64), t(w, torch.float64),
+                t(off, torch.float64), d)
+            torch.cuda.synchronize()
+            rels = dict(
+                k5_loss=abs(float(got[0] - want[0])) / abs(float(want[0])),
+                k5_grad=_rel(got[1], want[1]),
+                k5_device_loss=abs(float(gotd[0] - want[0]))
+                / abs(float(want[0])),
+                k5_device_grad=_rel(gotd[1], want[1]),
+                k12_loss=abs(float(gotk[0] - wantk[0])) / abs(float(wantk[0])),
+                k12_grad=_rel(gotk[1], wantk[1]),
+                k12_r=_rel(gotk[3], wantk[3]),
+                k12_rsum=abs(float(gotk[2] - wantk[2]))
+                / float(wantk[3].abs().sum()))
+            _say("kernels", kernel="fe_pass_edges", N=n, K=k, D=d,
+                 dtype=str(dt).split(".")[1],
+                 **{k_: f"{v:.2e}" for k_, v in rels.items()})
+            _check(max(rels.values()) <= tol
+                   and max(rels["k5_loss"], rels["k5_device_loss"],
+                           rels["k12_loss"]) <= min(tol, FE_LOSS_RTOL),
+                   f"FE pass kernels at N={n} K={k} D={d} {dt}: {rels}")
+            worst["fe_loss_grad_fused"] = max(
+                worst["fe_loss_grad_fused"],
+                float((got[1] - want[1]).abs().max()),
+                float((gotd[1] - want[1]).abs().max()))
+            worst["fe_hybrid_hot"] = max(
+                worst["fe_hybrid_hot"],
+                float((gotk[1] - wantk[1]).abs().max()))
+    return worst
+
+
 def phase_fe_kernels():
     """The three FE kernels against their plain versions at full width,
-    uniform and Zipf(1.2) ids, logistic and linear; a float64 cut."""
+    uniform and Zipf(1.2) ids, logistic and linear; the fused kernel in
+    both of its forms at D = 10,000 (the privatised one must not be the
+    slower on uniform ids), the privatised form at the largest D it takes
+    in float32 and float64, the device-memory form at D = 100,000 Zipf and
+    D = 1,000,000 uniform, and cuts at K = 5 and K = 12, without an
+    intercept, with a block of weight-0 rows and in float64 (both forms);
+    first, both pass kernels at small ragged sizes (_fe_edge_rows)."""
     import torch
     from gdmix_tpu_torch.ops import fe_loss_grad as fe
     res = {n: dict(max_abs_err=0.0) for n in (
         "fe_loss_grad_fused", "fe_gather_entries", "fe_scatter_entries")}
+    fused = res["fe_loss_grad_fused"]
+    fused["forms"] = {}
+
+    def worst(err):
+        fused["max_abs_err"] = max(fused["max_abs_err"], err)
+    worst(_fe_edge_rows()["fe_loss_grad_fused"])
+    g = torch.Generator(device=DEV).manual_seed(1)
+    x = 0.05 * torch.randn(FE_D + 1, generator=g, device=DEV)
     for ids in ("uniform", "zipf"):
         b = fe_problem(ids)
-        g = torch.Generator(device=DEV).manual_seed(1)
-        x = 0.05 * torch.randn(FE_D + 1, generator=g, device=DEV)
         args = (x, b.indices, b.values, b.labels, b.weights, b.offsets, FE_D)
         for linear in (False, True):
             k = lambda: fe.fe_loss_grad_fused(*args, linear=linear)
@@ -673,14 +832,14 @@ def phase_fe_kernels():
                        f"FE {name} {ids} linear={linear}: loss rel {l_rel}"
                        f", grad rel {g_rel}")
                 if name == "fused":
-                    res["fe_loss_grad_fused"]["max_abs_err"] = max(
-                        res["fe_loss_grad_fused"]["max_abs_err"],
-                        float((gv - gp).abs().max()))
+                    worst(float((gv - gp).abs().max()))
             ms, fms, pms = _time_ms(k, 10), _time_ms(fl, 10), _time_ms(p, 5)
             _say("kernels", kernel="fe_loss_grad", ids=ids, linear=linear,
                  N=FE_N, D=FE_D, K=FE_K, fused_ms=f"{ms:.3f}",
                  flat_ms=f"{fms:.3f}", plain_ms=f"{pms:.3f}",
                  loss_rel_grad_rel=errs)
+            if not linear:
+                fused["forms"][f"privatised_{ids}_ms"] = ms
             if ids == "uniform" and not linear:
                 # ids and values [N, K], labels/weights/offsets [N] and θ
                 # in, the gradient and loss out; per entry a gather and a
@@ -688,9 +847,44 @@ def phase_fe_kernels():
                 bound, by = _bound(
                     4 * (2 * FE_N * FE_K + 3 * FE_N + 2 * (FE_D + 1)) + 4,
                     4 * FE_N * FE_K + 10 * FE_N)
-                res["fe_loss_grad_fused"].update(
-                    ms=ms, plain_ms=pms, bound_ms=bound, bound_by=by,
-                    library_ms=None)
+                fused.update(ms=ms, plain_ms=pms, bound_ms=bound, bound_by=by,
+                             library_ms=None)
+        # the device-memory form on the same batch, and the two forms in
+        # turns: the privatised one must not be the slower on uniform ids
+        dms, err, kd = _fe_fused_row(f"{ids}_device_form", args, device=True)
+        worst(err)
+        fused["forms"][f"device_memory_{ids}_ms"] = dms
+        if ids == "uniform":
+            pm, dm = _medians_ms(
+                (lambda: fe.fe_loss_grad_fused(*args), kd), 10)
+            _say("kernels", kernel="fe_loss_grad_fused", ids=ids, D=FE_D,
+                 privatised_median_ms=f"{pm:.4f}",
+                 device_memory_median_ms=f"{dm:.4f}",
+                 privatised_le_device=pm <= dm,
+                 blocks_per_sm=fe.fused_blocks_per_sm(FE_D, torch.float32,
+                                                      FE_K))
+            _check(pm <= dm, f"fe_loss_grad_fused D={FE_D} uniform: the "
+                             f"privatised form {pm} ms is slower than the "
+                             f"device-memory form {dm} ms")
+            # cuts of the same batch: the general loop (K = 5, in both
+            # forms) and the 16-byte path at another width (K = 12); no
+            # intercept; linear without intercept; a block of weight-0 rows
+            for kk in (5, 12):
+                cut = (x, b.indices[:, :kk].contiguous(),
+                       b.values[:, :kk].contiguous()) + args[3:]
+                worst(_fe_fused_row(f"K{kk}", cut, reps=5)[1])
+                if kk == 5:
+                    worst(_fe_fused_row("K5_device_form", cut, reps=5,
+                                        device=True)[1])
+            no_b = (x[:-1].contiguous(),) + args[1:]
+            worst(_fe_fused_row("no_intercept", no_b, reps=5,
+                                has_intercept=False)[1])
+            worst(_fe_fused_row("no_intercept_linear", no_b, reps=5,
+                                has_intercept=False, linear=True)[1])
+            w0 = b.weights.clone()
+            w0[FE_N // 3:FE_N // 3 + 100_000] = 0.0
+            worst(_fe_fused_row("weight_0_rows", args[:4] + (w0,) + args[5:],
+                                reps=5)[1])
         # the flat pair's kernels alone, on the logistic entry residuals
         idx, val = b.indices.reshape(-1), b.values.reshape(-1)
         z = torch.sum(fe.fe_gather_entries_plain(x[:-1], idx, val).reshape(
@@ -727,22 +921,45 @@ def phase_fe_kernels():
                 res[name].update(ms=ms, plain_ms=pms, library_ms=lms,
                                  bound_ms=bound, bound_by=by)
         del b, args, z, ce, idx, val
-    # float64: the kernels must not quietly run in float32
+    # other widths of the table: the largest D the privatised form takes,
+    # and the device-memory form at D = 100,000 Zipf and D = 1,000,000
+    # uniform
+    for tag, ids, d in (
+            ("largest_privatised", "uniform",
+             _largest_privatised_d(fe, 4)),
+            ("D100k_zipf", "zipf", 100_000),
+            ("D1M_uniform", "uniform", 1_000_000)):
+        bd = fe_problem(ids, seed=5, d=d)
+        xd = 0.05 * torch.randn(d + 1, generator=g, device=DEV)
+        ms, err, _ = _fe_fused_row(tag, (
+            xd, bd.indices, bd.values, bd.labels, bd.weights, bd.offsets, d))
+        worst(err)
+        fused["forms"][f"{tag}_ms"] = ms
+        del bd
+    # float64: the kernels must not quietly run in float32; the privatised
+    # form at D = 10,000 and at the largest D it takes in float64, and the
+    # device-memory form (its cache and shared atomics in double) at both
     n64 = FE_N // 10
-    b = fe_problem("uniform", seed=2, n=n64, dtype=torch.float64)
-    x = torch.linspace(-0.05, 0.05, FE_D + 1, dtype=torch.float64,
-                       device=DEV)
-    args = (x, b.indices, b.values, b.labels, b.weights, b.offsets, FE_D)
-    lp, gp = fe.fe_loss_grad_plain(*args)
-    for name, (lv, gv) in (("fused", fe.fe_loss_grad_fused(*args)),
-                           ("flat", fe.fe_loss_grad_flat(*args))):
-        l_rel = abs(float(lv - lp)) / abs(float(lp))
-        g_rel = _rel(gv, gp)
-        _say("kernels", kernel=f"fe_{name}", dtype="float64", N=n64,
-             loss_rel=f"{l_rel:.2e}", grad_rel=f"{g_rel:.2e}")
-        _check(gv.dtype == torch.float64 and l_rel <= FE_F64_RTOL
-               and g_rel <= FE_F64_RTOL,
-               f"FE {name} float64: loss rel {l_rel}, grad rel {g_rel}")
+    for tag, d in (("float64", FE_D),
+                   ("float64_largest_privatised",
+                    _largest_privatised_d(fe, 8))):
+        b = fe_problem("uniform", seed=2, n=n64, dtype=torch.float64, d=d)
+        x = torch.linspace(-0.05, 0.05, d + 1, dtype=torch.float64,
+                           device=DEV)
+        args = (x, b.indices, b.values, b.labels, b.weights, b.offsets, d)
+        _check(fe.privatised_form(d, 8), f"{tag}: not the privatised form")
+        _fe_fused_row(tag, args, reps=5)
+        _fe_fused_row(f"{tag}_device_form", args, reps=5, device=True)
+        if d == FE_D:
+            lp, gp = fe.fe_loss_grad_plain(*args)
+            lv, gv = fe.fe_loss_grad_flat(*args)
+            l_rel = abs(float(lv - lp)) / abs(float(lp))
+            g_rel = _rel(gv, gp)
+            _say("kernels", kernel="fe_flat", dtype="float64", N=n64,
+                 loss_rel=f"{l_rel:.2e}", grad_rel=f"{g_rel:.2e}")
+            _check(gv.dtype == torch.float64 and l_rel <= FE_F64_RTOL
+                   and g_rel <= FE_F64_RTOL,
+                   f"FE flat float64: loss rel {l_rel}, grad rel {g_rel}")
     return res
 
 
@@ -1146,6 +1363,7 @@ def phase_fe_fit(card):
             fun = model._objective_fun(batch)
             x = torch.as_tensor(coef, dtype=torch.float32, device=DEV)
             fun_ms = _time_ms(lambda: fun(x), 20)
+            busy, top = _top_kernels(lambda: fun(x))
             fits[mode] = lf["f"]
             _say("fe_fit", grad_mode=mode, N=FE_N, D=FE_D, K=FE_K,
                  iterations=lf["iterations"], funcalls=lf["funcalls"],
@@ -1153,6 +1371,8 @@ def phase_fe_fit(card):
                  fit_s=f"{lf['seconds']:.3f}", wall_s=f"{wall:.3f}",
                  funcalls_per_s=f"{lf['funcalls'] / lf['seconds']:.1f}",
                  objective_ms=f"{fun_ms:.3f}",
+                 objective_device_busy_ms=f"{busy:.3f}",
+                 objective_top_device_ms=dict(list(top.items())[:3]),
                  fe_funcalls_per_sec=f"{1000.0 / fun_ms:.1f}",
                  f=f"{lf['f']:.6f}", launches=counts, card=repr(card))
             _check(lf["converged"] and np.isfinite(coef).all()
@@ -1232,18 +1452,25 @@ def _top_kernels(fn, reps=5, top=8):
                   for e in ev[:top]}
 
 
-def _k12_row(tag, aux, b, x, dtype):
-    """K12 against its plain version on one split's hot side (θc = w[hot],
-    off₂ = offsets + z_cold), in `dtype`; returns the result row."""
+def _k12_args(aux, b, x, dtype):
+    """`fe_hybrid_hot`'s arguments on one split's hot side (θc = w[hot],
+    off₂ = offsets + z_cold), in `dtype`."""
     import torch
-    from gdmix_tpu_torch.ops import fe_hybrid as fh
     w = x[:-1].to(dtype)
     z_cold = torch.zeros(FE_N, dtype=dtype, device=DEV).index_add_(
         0, aux.cold_row.long(), w[aux.cold_idx.long()] * aux.cold_val.to(dtype))
     A = aux.hot_ids.shape[0]
-    args = (w[aux.hot_ids.long()], x[-1].to(dtype), aux.hot_idx,
+    return (w[aux.hot_ids.long()], x[-1].to(dtype), aux.hot_idx,
             b.values.to(dtype), b.labels.to(dtype), b.weights.to(dtype),
             b.offsets.to(dtype) + z_cold, A)
+
+
+def _k12_row(tag, args):
+    """K12 against its plain version on `fe_hybrid_hot`'s arguments; returns
+    (the result row, the plain version's r)."""
+    import torch
+    from gdmix_tpu_torch.ops import fe_hybrid as fh
+    dtype, A = args[0].dtype, args[-1]
     k = lambda: fh.fe_hybrid_hot(*args)
     p = lambda: fh.fe_hybrid_hot_plain(*args)
     (lk, gk, sk, rk), (lp, gp, sp, rp) = k(), p()
@@ -1265,7 +1492,8 @@ def _k12_row(tag, aux, b, x, dtype):
                        4 * FE_N * FE_K + 10 * FE_N, item)
     _say("kernels", kernel="fe_hybrid_hot", cut=tag, N=FE_N, K=FE_K, A=A,
          dtype=str(dtype).split(".")[1],
-         memory="shared" if fh.shared_form(A, item) else "global",
+         shared_tier=fh.shared_tier(A, item),
+         blocks_per_sm=fh.hot_blocks_per_sm(A, dtype, FE_K),
          loss_rel=f"{l_rel:.2e}", grad_rel=f"{g_rel:.2e}",
          r_rel=f"{r_rel:.2e}", ms=f"{ms:.3f}", plain_ms=f"{pms:.3f}",
          bound_ms=f"{bound:.4f}", bound_by=by)
@@ -1316,8 +1544,9 @@ def phase_wide_d(card):
     with a plain-version L-BFGS fit beside it, then both at λ = 10⁴, where
     they converge and must agree; K12 and K13 against their plain
     versions at this split's shapes, plus K12 at hot_features 65,536 (the
-    device-memory form) and in float64; and uniform ids, where the builder
-    declines and the fused kernel runs. Returns (kernel rows, launches)."""
+    tiered table), in float64 and on uniform compact ids; and uniform ids,
+    where the split declines and the fused kernel runs. Returns (kernel
+    rows, launches)."""
     import torch
     from gdmix_tpu_torch.io.input_pipeline import PerRecordData
     from gdmix_tpu_torch.ops.lbfgs import lbfgs
@@ -1469,16 +1698,30 @@ def phase_wide_d(card):
         del data, m_lam
 
         # ---- the kernels at this split's shapes ----
-        rows["fe_hybrid_hot"], r = _k12_row("wide_d", aux, b, x,
-                                            torch.float32)
+        a16 = _k12_args(aux, b, x, torch.float32)
+        rows["fe_hybrid_hot"], r = _k12_row("wide_d", a16)
         aux65 = build_hybrid_aux(b.indices, b.values, D, hot_features=65536)
         _check(aux65 is not None, "wide_d: hot_features 65536 declined")
-        for tag, ax, dt in (("hot_features_65536", aux65, torch.float32),
-                            ("float64", aux, torch.float64)):
-            row, _ = _k12_row(tag, ax, b, x, dt)
+        # uniform compact ids over [0, A): no id is frequent, nothing is
+        # dumped, so the strips cannot help and must not cost
+        A16 = a16[-1]
+        uni = torch.randint(0, A16, (FE_N, FE_K), device=DEV,
+                            dtype=torch.int32,
+                            generator=torch.Generator(device=DEV)
+                            .manual_seed(5))
+        cuts = {}
+        for tag, args in (
+                ("hot_features_65536",
+                 _k12_args(aux65, b, x, torch.float32)),
+                ("float64", _k12_args(aux, b, x, torch.float64)),
+                ("uniform_compact_ids",
+                 a16[:2] + (uni,) + a16[3:6] + (b.offsets, A16))):
+            row, _ = _k12_row(tag, args)
+            cuts[f"{tag}_ms"] = row["ms"]
             rows["fe_hybrid_hot"]["max_abs_err"] = max(
                 rows["fe_hybrid_hot"]["max_abs_err"], row["max_abs_err"])
-        del aux65
+        rows["fe_hybrid_hot"]["forms"] = cuts
+        del aux65, uni, a16
         w = x[:-1]
         ce = (aux.gs_val * r[aux.gs_row.long()]).float()
         wv = (w[aux.zs_idx.long()] * aux.zs_val).float()
@@ -1657,7 +1900,9 @@ def main():
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     rows = [dict(name=name, route="cuda", source=src, replaces=rep,
-                 launches=launches[name], **{k: res[name][k] for k in keys})
+                 launches=launches[name], **{k: res[name][k] for k in keys},
+                 **({"forms": res[name]["forms"]} if "forms" in res[name]
+                    else {}))
             for name, src, rep in KERNELS]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,470 @@
+// One fused pass over padded COO records [N, K], shared by the fixed-effect
+// data term (fe_loss_grad.cu, K5) and the hot side of the wide-D hybrid
+// (fe_hybrid.cu, K12). Per record, against a table θ of d coefficients:
+//   z = Σ v·θ[id] + off + b
+//   loss += w·bce(z, y) (or w·(y − z)²), r = w·(σ(z) − y) (or w·2(z − y))
+//   g[id] += v·r,  Σr += r
+// K12 is the same pass with three additions (kHybrid): ids run over a
+// compact space [0, d] whose slot d is a dump that is skipped, r is written
+// per record, and ids are rank-ordered (0 the most frequent), which the
+// strip below uses. Entries of value 0 and records of weight 0 are inert:
+// their ids are never used as an address. Float and double.
+//
+// Bound: device memory. A record is read once (K ids and values, y, w, off;
+// 140 bytes at K = 16 in float32) and, for K12, r written once; θ and g stay
+// on the SM. What the design has to keep off the critical path is the N·K
+// additions into g.
+//
+// Design.
+//  * A persistent grid (blocks = SMs × occupancy) of kThreads threads. While
+//    the table fits (kBlock), each block keeps a private copy of the
+//    gradient in shared memory: an entry's addition is a shared-memory
+//    atomic, and a block flushes its table once at its end, one device atomic
+//    per non-zero slot, each block starting at another slot so that blocks
+//    do not meet. Past that (kDevice: K5 beyond the shared-memory budget)
+//    an addition is a device atomic, except for the ids a block has cached:
+//    a hashed table of kCache slots in shared memory, each kept by the
+//    first id that reaches it (under skewed ids, the frequent ones), summed
+//    there and flushed once per block. For K12 the table is tiered: compact
+//    ids below s live in shared memory, ids in [s, d) (the cold tail of a
+//    rank-ordered space, which rarely meet) go to device memory. θ is read
+//    through the read-only cache in every form. Every address space is
+//    chosen at compile time, per branch.
+//  * The vector path (kVec; K ≤ 16 and K % 4 == 0, 16-byte aligned rows):
+//    four lanes share a record, each holding four entries in registers from
+//    16-byte loads, so an entry is read once and a warp's loads are
+//    contiguous; z is summed over the lanes of a record by two shuffles.
+//    Any other K takes the scalar path: a thread per record, a loop over K,
+//    the entries read again for the gradient.
+//  * Equal ids. A floating-point atomic in shared memory is a
+//    compare-and-swap loop, so the lanes of a warp (and the warps of a block)
+//    that hit one address take turns; in device memory they queue in L2.
+//    The kStrip most frequent ids therefore get a strip of 32 slots
+//    each, one a lane: no two lanes of a warp share a slot, no vote is
+//    needed, and the strips are summed into the table once per block. K12's
+//    compact ids are rank-ordered, so its strips are the ids below
+//    kStrip. K5's raw ids carry no rank: each block first counts a
+//    sample of its entries in a hashed table (learn_hot_ids) and gives a
+//    strip to every id above 1/256 of the sample; an entry then costs one
+//    more shared load to ask whether its id has a strip. Which ids are
+//    chosen affects the time only, never the sums.
+//  * Loss and Σr are double sums, reduced over the block, one double atomic
+//    per block.
+// The headers of the two .cu files give the alternatives that were measured
+// against each of these choices, and their times.
+#pragma once
+
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+namespace gdx_fe {
+
+constexpr int kThreads = 1024;
+// the vector path: kVecLanes lanes a record, kVecMaxK / kVecLanes entries each
+constexpr int kVecLanes = 4;
+constexpr int kVecMaxK = 16;
+// ids that get a lane-private strip
+constexpr int kStrip = 32;
+// K5's hashed table of sampled ids: kBuckets slots (a power of two), a
+// sample of kSample entries per block
+constexpr int kBuckets = 1024;
+constexpr int kSample = 4096;
+// K5's device-memory form: slots (a power of two) of the hashed cache that
+// keeps the gradient of recurring ids in shared memory
+constexpr int kCache = 8192;
+constexpr unsigned kFull = 0xffffffffu;
+// the forms of the gradient table: device memory, or a block's shared memory
+constexpr int kDevice = 0, kBlock = 1;
+
+__device__ __forceinline__ float exp_(float x) { return expf(x); }
+__device__ __forceinline__ double exp_(double x) { return exp(x); }
+__device__ __forceinline__ float log1p_(float x) { return log1pf(x); }
+__device__ __forceinline__ double log1p_(double x) { return log1p(x); }
+template <typename T>
+__device__ __forceinline__ T abs_(T x) { return x < T(0) ? -x : x; }
+
+template <typename T>
+__device__ __forceinline__ T sigmoid(T z) {
+  // both branches exp(-|z|) ≤ 1: no overflow at large |z|
+  const T e = exp_(-abs_(z));
+  return z >= T(0) ? T(1) / (T(1) + e) : e / (T(1) + e);
+}
+
+// The weighted loss of one record at margin z (returned) and its residual
+// r = w·dloss/dz.
+template <typename T>
+__device__ __forceinline__ T loss_residual(T z, T y, T w, int linear, T* r) {
+  T per, dz;
+  if (linear) {
+    per = (y - z) * (y - z);
+    dz = T(2) * (z - y);
+  } else {
+    per = (z > T(0) ? z : T(0)) - z * y + log1p_(exp_(-abs_(z)));
+    dz = sigmoid(z) - y;
+  }
+  *r = w * dz;
+  return w * per;
+}
+
+// Sum of v over the block, in thread 0 (all threads must call).
+__device__ __forceinline__ double block_sum(double v) {
+  __shared__ double part[kThreads / 32];
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();  // the array may still be read from an earlier call
+  if (lane == 0) part[warp] = v;
+  __syncthreads();
+  v = 0.0;
+  if (warp == 0) {
+    v = lane < (kThreads / 32) ? part[lane] : 0.0;
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
+  }
+  return v;
+}
+
+__device__ __forceinline__ void load4(const int32_t* p, int32_t* out) {
+  const int4 t = __ldg(reinterpret_cast<const int4*>(p));
+  out[0] = t.x; out[1] = t.y; out[2] = t.z; out[3] = t.w;
+}
+__device__ __forceinline__ void load4(const float* p, float* out) {
+  const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+  out[0] = t.x; out[1] = t.y; out[2] = t.z; out[3] = t.w;
+}
+__device__ __forceinline__ void load4(const double* p, double* out) {
+  const double2 a = __ldg(reinterpret_cast<const double2*>(p));
+  const double2 b = __ldg(reinterpret_cast<const double2*>(p + 2));
+  out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
+}
+
+// A lane's E entries of one record (E a multiple of 4), from position j0,
+// by 16-byte loads. Positions at or past k (k % 4 == 0) get value 0.
+template <typename T, int E>
+__device__ __forceinline__ void load_entries(const int32_t* ri, const T* rv,
+                                             int j0, int k, int32_t* id,
+                                             T* v) {
+#pragma unroll
+  for (int q = 0; q < E; q += 4) {
+    if (j0 + q < k) {
+      load4(ri + j0 + q, id + q);
+      load4(rv + j0 + q, v + q);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        id[q + u] = 0;
+        v[q + u] = T(0);
+      }
+    }
+  }
+}
+
+template <typename T>
+struct Pass {
+  const int32_t* idx;  // [n, k]
+  const T* val;        // [n, k]
+  const T* y;          // [n]
+  const T* w;          // [n]
+  const T* off;        // [n]
+  const T* theta;      // [d]
+  const T* b;          // the intercept, or null
+  int64_t n;
+  int k;
+  int d;               // table size; for kHybrid also the dump slot
+  int s;               // ids below s add into shared memory; 0: none do
+  int linear;
+  T* g;                // [d], zero on entry
+  T* r_out;            // [n] (kHybrid)
+  double* sums;        // [2]: loss, Σr; zero on entry
+};
+
+// Dynamic shared memory of one form: the table [s], the strips
+// [kStrip, 32], for K5 the hashed table of its sampled ids, and for K5's
+// device-memory form the cache's ids and sums.
+template <typename T, bool kHybrid, int kForm>
+size_t smem_bytes(int s) {
+  return sizeof(T) * ((size_t)s + 32 * (size_t)kStrip) +
+         (kHybrid ? 0 : sizeof(int32_t) * (2 * kBuckets + kStrip)) +
+         (kHybrid || kForm != kDevice ? 0
+                                      : (sizeof(int32_t) + sizeof(T)) * kCache);
+}
+
+// K5: which ids get a strip. The block counts a sample of its entries by
+// id & (kBuckets − 1), keeping one candidate id a bucket and counting only
+// that id; ids at or above 1/64 of the sample are placed first, then those
+// at or above 1/256, up to kStrip. On return key[b] is the id with a strip
+// in bucket b (or −1), slot[b] its strip, hot_id[i] the id of strip i;
+// returns the number of strips in use. All threads must call.
+template <typename T>
+__device__ __forceinline__ int learn_hot_ids(const Pass<T>& p, int32_t* key,
+                                             int32_t* slot, int32_t* hot_id) {
+  __shared__ int n_hot;
+  for (int b = threadIdx.x; b < kBuckets; b += kThreads) {
+    key[b] = -1;
+    slot[b] = 0;
+  }
+  if (threadIdx.x == 0) n_hot = 0;
+  __syncthreads();
+  const int64_t total = p.n * p.k;
+  const int64_t first = total > 0 ? ((int64_t)blockIdx.x * kSample) % total
+                                  : 0;
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int64_t i = threadIdx.x; i < kSample && i < total; i += kThreads) {
+      const int64_t e = first + i < total ? first + i : first + i - total;
+      if (p.val[e] == T(0)) continue;
+      const int32_t a = p.idx[e];
+      const int b = a & (kBuckets - 1);
+      if (pass == 0) key[b] = a;       // any one of the bucket's ids
+      else if (key[b] == a) atomicAdd(slot + b, 1);
+    }
+    __syncthreads();
+  }
+  for (int share = 64; share <= 256; share *= 4) {
+    for (int b = threadIdx.x; b < kBuckets; b += kThreads) {
+      if (slot[b] >= kSample / share) {
+        const int i = atomicAdd(&n_hot, 1);
+        if (i < kStrip) {
+          hot_id[i] = key[b];
+          slot[b] = -(i + 1);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  for (int b = threadIdx.x; b < kBuckets; b += kThreads) {
+    if (slot[b] < 0) slot[b] = -slot[b] - 1;
+    else key[b] = -1;
+  }
+  __syncthreads();
+  return n_hot < kStrip ? n_hot : kStrip;
+}
+
+template <typename T, bool kVec, bool kHybrid, int kForm>
+__global__ void __launch_bounds__(kThreads)
+fe_pass_kernel(const Pass<T> p) {
+  constexpr int L = kVec ? kVecLanes : 1;             // lanes per record
+  constexpr int E = kVec ? kVecMaxK / kVecLanes : 1;  // entries per lane
+  constexpr int R = 32 / L;                           // records per warp
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* g_s = reinterpret_cast<T*>(smem_raw);            // [s]
+  T* strip = g_s + p.s;                               // [kStrip, 32]
+  int32_t* key = reinterpret_cast<int32_t*>(strip + 32 * kStrip);
+  int32_t* slot = key + kBuckets;
+  int32_t* hot_id = slot + kBuckets;
+  // K5's device-memory form: slot h caches the gradient of the first id a
+  // with a % kCache == h that the block meets (−1: free)
+  constexpr bool kCached = !kHybrid && kForm == kDevice;
+  int32_t* c_id = hot_id + kStrip;
+  T* c_sum = reinterpret_cast<T*>(c_id + kCache);
+  for (int a = threadIdx.x; a < p.s + 32 * kStrip; a += kThreads)
+    g_s[a] = T(0);
+  if constexpr (kCached) {
+    for (int h = threadIdx.x; h < kCache; h += kThreads) {
+      c_id[h] = -1;
+      c_sum[h] = T(0);
+    }
+  }
+  // the strips in use: K12's most frequent compact ids, or K5's sampled ones
+  int hs = kStrip < p.d ? kStrip : p.d;
+  if constexpr (!kHybrid) hs = learn_hot_ids(p, key, slot, hot_id);
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int sub = lane % L;
+  // into the table, wherever this form keeps slot a
+  auto table_add = [&](int32_t a, T c) {
+    if constexpr (kForm == kDevice) {
+      if constexpr (kCached) {
+        // first come, first kept: under skewed ids the frequent ones come
+        // first, and a slot never changes hands, so no sum is ever moved
+        const int h = a & (kCache - 1);
+        int32_t owner = *(volatile int32_t*)(c_id + h);
+        if (owner == -1) {
+          owner = atomicCAS(c_id + h, -1, a);
+          if (owner == -1) owner = a;
+        }
+        if (owner == a) {
+          atomicAdd(c_sum + h, c);
+          return;
+        }
+      }
+      atomicAdd(p.g + a, c);
+    } else {
+      if (!kHybrid || a < p.s) atomicAdd(g_s + a, c);
+      else atomicAdd(p.g + a, c);
+    }
+  };
+  auto add = [&](int32_t a, T c) {
+    if constexpr (kHybrid) {
+      if (a < hs) {
+        atomicAdd(strip + a * 32 + lane, c);
+        return;
+      }
+    } else {
+      // hs is uniform over the block: data without frequent ids pays
+      // nothing for the question
+      const int b = a & (kBuckets - 1);
+      if (hs > 0 && key[b] == a) {
+        atomicAdd(strip + slot[b] * 32 + lane, c);
+        return;
+      }
+    }
+    table_add(a, c);
+  };
+  // whether an entry counts: a non-zero value and, for kHybrid, an id that
+  // is not the dump slot
+  auto counts = [&](int32_t a, T v) -> bool {
+    if constexpr (kHybrid) return v != T(0) && (unsigned)a < (unsigned)p.d;
+    else return v != T(0);
+  };
+  const T b = p.b != nullptr ? *p.b : T(0);
+  const int64_t warp = (int64_t)blockIdx.x * (kThreads / 32) +
+                       (threadIdx.x >> 5);
+  const int64_t stride = (int64_t)gridDim.x * (kThreads / 32) * R;
+  double loss = 0.0, rsum = 0.0;
+  // the loop bound is uniform over a warp: the shuffles below need every
+  // lane
+  for (int64_t base = warp * R; base < p.n; base += stride) {
+    const int64_t row = base + lane / L;
+    const bool live = row < p.n;
+    const T wt = live ? p.w[row] : T(0);
+    const bool on = wt != T(0);
+    const int32_t* ri = p.idx + (live ? row : 0) * p.k;
+    const T* rv = p.val + (live ? row : 0) * p.k;
+    int32_t id[E];
+    T v[E];
+    T z = T(0);
+    if constexpr (kVec) {
+      if (on) {
+        load_entries<T, E>(ri, rv, sub * E, p.k, id, v);
+      } else {
+#pragma unroll
+        for (int e = 0; e < E; ++e) v[e] = T(0);
+      }
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        if (counts(id[e], v[e])) z += v[e] * __ldg(p.theta + id[e]);
+        else v[e] = T(0);
+      }
+#pragma unroll
+      for (int o = L / 2; o > 0; o >>= 1) z += __shfl_xor_sync(kFull, z, o);
+    } else if (on) {
+      for (int j = 0; j < p.k; ++j) {
+        const T vj = rv[j];
+        if (vj != T(0)) {
+          const int32_t a = ri[j];
+          if (counts(a, vj)) z += vj * __ldg(p.theta + a);
+        }
+      }
+    }
+    T r = T(0);
+    if (on) {
+      const T per = loss_residual(z + p.off[row] + b, p.y[row], wt, p.linear,
+                                  &r);
+      if (sub == 0) {
+        loss += (double)per;
+        rsum += (double)r;
+      }
+    }
+    if constexpr (kHybrid) {
+      if (live && sub == 0) p.r_out[row] = r;
+    }
+    if constexpr (kVec) {
+      if (r != T(0)) {
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          if (v[e] != T(0)) add(id[e], v[e] * r);
+      }
+    } else if (r != T(0)) {
+      for (int j = 0; j < p.k; ++j) {
+        const T vj = rv[j];
+        if (vj != T(0)) {
+          const int32_t a = ri[j];
+          if (counts(a, vj)) add(a, vj * r);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  // a warp per strip in use: its 32 slots into the id's place
+  for (int i = threadIdx.x >> 5; i < hs; i += kThreads / 32) {
+    T t = strip[i * 32 + lane];
+    for (int o = 16; o > 0; o >>= 1) t += __shfl_down_sync(kFull, t, o);
+    if (lane == 0 && t != T(0)) table_add(kHybrid ? i : hot_id[i], t);
+  }
+  if constexpr (kCached) {
+    __syncthreads();
+    for (int h = threadIdx.x; h < kCache; h += kThreads) {
+      const T t = c_sum[h];
+      if (t != T(0)) atomicAdd(p.g + c_id[h], t);
+    }
+  }
+  if constexpr (kForm == kBlock) {
+    __syncthreads();
+    // each block starts its flush at another slot (a multiple of 32, so a
+    // warp still covers whole lines)
+    const int start = (int)((int64_t)blockIdx.x * p.s / gridDim.x) & ~31;
+    for (int i = threadIdx.x; i < p.s; i += kThreads) {
+      int a = i + start;
+      if (a >= p.s) a -= p.s;
+      const T t = g_s[a];
+      if (t != T(0)) atomicAdd(p.g + a, t);
+    }
+  }
+  loss = block_sum(loss);
+  rsum = block_sum(rsum);
+  if (threadIdx.x == 0) {
+    atomicAdd(p.sums, loss);
+    atomicAdd(p.sums + 1, rsum);
+  }
+}
+
+// Launches one instantiation on a persistent grid; with blocks_per_sm not
+// null, only reports the occupancy the grid would be sized from.
+template <typename T, bool kVec, bool kHybrid, int kForm>
+int launch_form(const Pass<T>& p, cudaStream_t stream, int* blocks_per_sm) {
+  auto kernel = fe_pass_kernel<T, kVec, kHybrid, kForm>;
+  const size_t smem = smem_bytes<T, kHybrid, kForm>(p.s);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (blocks_per_sm != nullptr) {
+    *blocks_per_sm = per_sm;
+    return 0;
+  }
+  constexpr int kRecords = kThreads / (kVec ? kVecLanes : 1);
+  const int64_t need = (p.n + kRecords - 1) / kRecords;
+  int64_t blocks = (int64_t)(per_sm > 0 ? per_sm : 1) * sms;
+  if (need < blocks) blocks = need > 0 ? need : 1;
+  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// vec: 1 for the vector path (the caller has checked the alignment).
+// form: kBlock (p.s = d for K5, the tier for K12) or, for K5, kDevice.
+template <typename T, bool kHybrid>
+int launch(const Pass<T>& p, int vec, int form, cudaStream_t stream,
+           int* blocks_per_sm) {
+  if (p.s < 0 || p.s > p.d || (vec && (p.k > kVecMaxK || p.k % 4 != 0)))
+    return (int)cudaErrorInvalidValue;
+  if (form == kBlock)
+    return vec ? launch_form<T, true, kHybrid, kBlock>(p, stream,
+                                                       blocks_per_sm)
+               : launch_form<T, false, kHybrid, kBlock>(p, stream,
+                                                        blocks_per_sm);
+  if constexpr (!kHybrid) {
+    if (form == kDevice)
+      return vec ? launch_form<T, true, false, kDevice>(p, stream,
+                                                        blocks_per_sm)
+                 : launch_form<T, false, false, kDevice>(p, stream,
+                                                         blocks_per_sm);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace gdx_fe

@@ -12,239 +12,91 @@
 // and rows padded to 8 tiles; none of that exists here: the card gathers
 // and adds natively, and each thread masks its own rows.
 //
-// Bound: device memory. A record is read once (K ids and values, y, w,
-// off₂) and r written once: at N = 4,997,120, K = 16 in f32 about 720 MB,
-// 0.21 ms at 3.35 TB/s. What stands between the kernel and that bound is
-// contention: on Zipf(1.2) ids the hottest id alone is ~14% of all entries,
-// and the fused kernel of fe_loss_grad.cu, whose atomics all go to device
-// memory, runs ten times slower there than on uniform ids.
+// The kernel is fe_common.cuh's pass with kHybrid set (its header gives the
+// design): this file holds its C entry points. Bound: device memory. A
+// record is read once (K ids and values, y, w, off₂) and r written once: at
+// N = 4,997,120, K = 16 in float32 about 720 MB, 0.215 ms at 3.35 TB/s.
 //
-// Design: a persistent grid, as many blocks as fit on the SMs. While
-// 2·A·sizeof(T) fits the shared-memory opt-in (A ≤ ~28k in f32), each block
-// copies θc into shared memory and keeps a private compact gradient there,
-// so the gradient's additions are shared-memory atomics, flushed at the end
-// with one device atomic per non-zero slot per block. Past that (the wrapper
-// decides by shape), the kernel reads θc and adds into the gradient in
-// device memory: one template instantiation per address space, so the
-// shared form keeps plain shared loads. One thread per record, each warp on
-// 32 consecutive records: within a warp, the entries of one position k that
-// share an id are summed first (__match_any_sync, then a tree over the
-// peers), so one atomic goes out per distinct id. Entries at the dump slot
-// or with value 0, and rows of weight 0, are skipped (r_out is 0 there).
-// Loss and Σr are summed in double, reduced over the block and added with
-// one double atomic per block.
+// What the pass adds for the compact space, which the split hands out in
+// descending order of count (ops/logistic.py _hybrid_hot: compact id 0 is
+// the most frequent):
+//  * a strip of 32 lane-private slots for each of the 32 (kStrip) most
+//    frequent ids, so the ids that many lanes of a warp hold at once never
+//    share an address and need no vote;
+//  * a tiered table (ops/fe_hybrid.py shared_tier): the gradient of the
+//    ids below S in shared memory, S = A while A·sizeof(T) fits what is left
+//    of the 227 KB a block may opt into, and the ids in [S, A), the rarest,
+//    added in device memory.
+//
+// What decided each choice: each alternative was built and timed against
+// what is here while the kernel was designed, and only the winner is kept in
+// the source (NVIDIA H100 80GB HBM3, 700 W; N = 4,997,120, K = 16, the hot
+// side of the D = 1,000,000 Zipf(1.2) split; ms a call at A = 16,384 float32
+// / A = 65,536 float32 / A = 16,384 float64, CUDA events around the wrapper):
+// as kept 0.382 / 0.560 / 0.679. No strips 1.951 / 2.023 / 2.774; no strips
+// but warp aggregation (__match_any_sync and a tree over the peers, what
+// this kernel did before) 0.652 / 0.796 / 0.909. 16 strips 0.379 / 0.566 /
+// 0.691, 64 strips 0.373 / 0.551 / 0.666: 32 kept. On uniform compact ids,
+// where no id is frequent, 0.390 with the strips and 0.388 without: they
+// cost nothing there. Lanes a record: one 0.458 / 0.523 / 0.821, sixteen
+// 0.739 / 1.228 / 1.514, four kept. Blocks of 512 threads 0.438 / 0.935 /
+// 1.151, 1,024 kept. θc in shared memory beside the gradient measured 0.518
+// at A = 16,384 against 0.382 through the read-only cache: with the table
+// alone two blocks are resident on an SM instead of one, so θc left.
+// ptxas: 32 registers in float32, 62 in float64, no spills; resident
+// 1,024-thread blocks an SM: 2 at A = 16,384 float32, 1 at A = 65,536 and
+// in float64.
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "fe_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float exp_(float x) { return expf(x); }
-__device__ __forceinline__ double exp_(double x) { return exp(x); }
-__device__ __forceinline__ float log1p_(float x) { return log1pf(x); }
-__device__ __forceinline__ double log1p_(double x) { return log1p(x); }
 template <typename T>
-__device__ __forceinline__ T abs_(T x) { return x < T(0) ? -x : x; }
-
-template <typename T>
-__device__ __forceinline__ T sigmoid(T z) {
-  const T e = exp_(-abs_(z));
-  return z >= T(0) ? T(1) / (T(1) + e) : e / (T(1) + e);
-}
-
-// Sum of v over the block, in thread 0 (all threads must call).
-__device__ __forceinline__ double block_sum(double v) {
-  __shared__ double part[kThreads / 32];
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) part[warp] = v;
-  __syncthreads();
-  v = 0.0;
-  if (warp == 0) {
-    v = lane < (kThreads / 32) ? part[lane] : 0.0;
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
-  }
-  return v;
-}
-
-// The sum of x over the lanes of `peers` (the lanes holding the same id),
-// in the lowest of them: a tree over the peers' ranks, each step adding the
-// next remaining peer's partial sum. The whole warp must call.
-template <typename T>
-__device__ __forceinline__ T sum_peers(unsigned peers, T x) {
-  const int lane = threadIdx.x & 31;
-  int rank = __popc(peers & ((1u << lane) - 1u));
-  peers &= ~((2u << lane) - 1u);        // peers above this lane
-  while (__any_sync(kFull, peers != 0u)) {
-    const int next = __ffs(peers);      // 1 + lane of the next peer, or 0
-    const T t = __shfl_sync(kFull, x, (next - 1) & 31);
-    if (next) x += t;
-    peers &= ~__ballot_sync(kFull, rank & 1);   // odd ranks are absorbed
-    rank >>= 1;
-  }
-  return x;
-}
-
-template <typename T, bool kShared>
-__global__ void __launch_bounds__(kThreads)
-fe_hybrid_hot_kernel(const int32_t* __restrict__ idx,
-                     const T* __restrict__ val, const T* __restrict__ y,
-                     const T* __restrict__ w, const T* __restrict__ off2,
-                     const T* __restrict__ theta_c,
-                     const T* __restrict__ b_ptr, int64_t n, int k, int hot,
-                     int linear, T* __restrict__ g, T* __restrict__ r_out,
-                     double* __restrict__ sums) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const T* th;
-  T* acc;
-  if constexpr (kShared) {
-    T* th_s = reinterpret_cast<T*>(smem_raw);
-    T* g_s = th_s + hot;
-    for (int a = threadIdx.x; a < hot; a += blockDim.x) {
-      th_s[a] = theta_c[a];
-      g_s[a] = T(0);
-    }
-    __syncthreads();
-    th = th_s;
-    acc = g_s;
-  } else {
-    th = theta_c;
-    acc = g;
-  }
-  const T b = *b_ptr;
-  const int lane = threadIdx.x & 31;
-  const int64_t warp = (int64_t)blockIdx.x * (kThreads / 32) +
-                       (threadIdx.x >> 5);
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  double loss = 0.0, rsum = 0.0;
-  // the loop bound is uniform over a warp: the warp-wide votes below need
-  // every lane
-  for (int64_t base = warp * 32; base < n; base += stride) {
-    const int64_t row = base + lane;
-    const bool live = row < n;
-    const int32_t* ri = idx + (live ? row : 0) * k;
-    const T* rv = val + (live ? row : 0) * k;
-    const T wt = live ? w[row] : T(0);
-    T r = T(0);
-    if (wt != T(0)) {
-      T z = off2[row] + b;
-      for (int j = 0; j < k; ++j) {
-        const int32_t a = ri[j];
-        const T v = rv[j];
-        if ((unsigned)a < (unsigned)hot && v != T(0)) z += v * th[a];
-      }
-      const T yt = y[row];
-      T per, dz;
-      if (linear) {
-        per = (yt - z) * (yt - z);
-        dz = T(2) * (z - yt);
-      } else {
-        per = (z > T(0) ? z : T(0)) - z * yt + log1p_(exp_(-abs_(z)));
-        dz = sigmoid(z) - yt;
-      }
-      r = wt * dz;
-      loss += (double)(wt * per);
-      rsum += (double)r;
-    }
-    if (live) r_out[row] = r;
-    for (int j = 0; j < k; ++j) {
-      int32_t a = hot;
-      T c = T(0);
-      if (r != T(0)) {
-        const T v = rv[j];
-        a = ri[j];
-        if ((unsigned)a < (unsigned)hot && v != T(0)) {
-          c = v * r;
-        } else {
-          a = hot;
-        }
-      }
-      const unsigned peers = __match_any_sync(kFull, a);
-      c = sum_peers(peers, c);
-      if (a != hot && lane == __ffs(peers) - 1) atomicAdd(acc + a, c);
-    }
-  }
-  if constexpr (kShared) {
-    __syncthreads();
-    for (int a = threadIdx.x; a < hot; a += blockDim.x) {
-      const T v = acc[a];
-      if (v != T(0)) atomicAdd(g + a, v);
-    }
-  }
-  loss = block_sum(loss);
-  __syncthreads();  // block_sum's shared array is reused below
-  rsum = block_sum(rsum);
-  if (threadIdx.x == 0) {
-    atomicAdd(sums, loss);
-    atomicAdd(sums + 1, rsum);
-  }
-}
-
-template <typename T, bool kShared>
-int launch_form(const int32_t* idx, const T* val, const T* y, const T* w,
-                const T* off2, const T* theta_c, const T* b, int64_t n, int k,
-                int hot, int linear, T* g, T* r, double* sums,
-                cudaStream_t stream) {
-  auto kernel = fe_hybrid_hot_kernel<T, kShared>;
-  const size_t smem = kShared ? 2 * sizeof(T) * (size_t)hot : 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int64_t need = (n + kThreads - 1) / kThreads;
-  int64_t blocks = (int64_t)(per_sm > 0 ? per_sm : 1) * sms;
-  if (need < blocks) blocks = need > 0 ? need : 1;
-  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
-      idx, val, y, w, off2, theta_c, b, n, k, hot, linear, g, r, sums);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch(const int32_t* idx, const T* val, const T* y, const T* w,
-           const T* off2, const T* theta_c, const T* b, int64_t n, int k,
-           int hot, int linear, int shared, T* g, T* r, double* sums,
-           void* stream) {
-  if (shared)
-    return launch_form<T, true>(idx, val, y, w, off2, theta_c, b, n, k, hot,
-                                linear, g, r, sums, (cudaStream_t)stream);
-  return launch_form<T, false>(idx, val, y, w, off2, theta_c, b, n, k, hot,
-                               linear, g, r, sums, (cudaStream_t)stream);
+int hot(const int32_t* idx, const T* val, const T* y, const T* w,
+        const T* off2, const T* theta_c, const T* b, int64_t n, int k, int a,
+        int linear, int s, int vec, T* g, T* r, double* sums, void* stream,
+        int* blocks_per_sm) {
+  const gdx_fe::Pass<T> p{idx, val, y, w, off2, theta_c, b, n, k, a,
+                          s, linear, g, r, sums};
+  return gdx_fe::launch<T, true>(p, vec, gdx_fe::kBlock,
+                                 (cudaStream_t)stream, blocks_per_sm);
 }
 
 }  // namespace
 
 extern "C" {
 
-// g [hot] and sums [2] (loss, Σr in double) must be zero on entry; r [n] is
-// written whole. shared: 1 to keep θc and the gradient in shared memory
-// (2·hot·sizeof(T) bytes), 0 for the device-memory form.
+// g [a] and sums [2] (loss, Σr in double) must be zero on entry; r [n] is
+// written whole. s: the compact ids below it add into shared memory
+// (s·sizeof(T) bytes), the rest in device memory; vec: 1 for the vector path
+// (k ≤ 16, k % 4 == 0, rows 16-byte aligned). With blocks_per_sm not null
+// nothing is launched: the form's resident blocks per SM are written there.
 int gdx_fe_hybrid_hot_f32(const int32_t* idx, const float* val,
                           const float* y, const float* w, const float* off2,
                           const float* theta_c, const float* b, int64_t n,
-                          int k, int hot, int linear, int shared, float* g,
-                          float* r, double* sums, void* stream) {
-  return launch<float>(idx, val, y, w, off2, theta_c, b, n, k, hot, linear,
-                       shared, g, r, sums, stream);
+                          int k, int a, int linear, int s, int vec,
+                          float* g, float* r, double* sums, void* stream,
+                          int* blocks_per_sm) {
+  return hot<float>(idx, val, y, w, off2, theta_c, b, n, k, a, linear, s,
+                    vec, g, r, sums, stream, blocks_per_sm);
 }
 
 int gdx_fe_hybrid_hot_f64(const int32_t* idx, const double* val,
                           const double* y, const double* w,
                           const double* off2, const double* theta_c,
-                          const double* b, int64_t n, int k, int hot,
-                          int linear, int shared, double* g, double* r,
-                          double* sums, void* stream) {
-  return launch<double>(idx, val, y, w, off2, theta_c, b, n, k, hot, linear,
-                        shared, g, r, sums, stream);
+                          const double* b, int64_t n, int k, int a,
+                          int linear, int s, int vec, double* g, double* r,
+                          double* sums, void* stream, int* blocks_per_sm) {
+  return hot<double>(idx, val, y, w, off2, theta_c, b, n, k, a, linear, s,
+                     vec, g, r, sums, stream, blocks_per_sm);
 }
+
+// The number of ids that get a lane-private strip (the wrapper's byte budget
+// counts 32 slots for each).
+int gdx_fe_hybrid_strip_ids(void) { return gdx_fe::kStrip; }
 
 const char* gdx_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

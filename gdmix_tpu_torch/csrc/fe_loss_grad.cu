@@ -1,7 +1,7 @@
 // The fixed-effect data term that every L-BFGS funcall of the global model
 // evaluates: Σ weighted loss and its gradient over padded COO records
-// (indices / values [N, K], labels / weights / offsets [N], θ = [w(D), b]).
-// Float and double, one template each.
+// (indices / values [N, K], labels / weights / offsets [N], θ = [w(D), b]),
+// and the flat entry-space gather / scatter pair. Float and double.
 //
 // Replaces seven pallas_call sites of the JAX package:
 //   fe_loss_grad_fused  ← gdmix_tpu/ops/pallas/fe_grad.py:48 _kernel (K5),
@@ -15,108 +15,60 @@
 //   fe_scatter_entries  ← fe_flat.py:109 _scatter_kernel_split (K10) and :134
 //                         _scatter_kernel_f32 (K11).
 //
-// Bound: the gradient's atomics, not the reads. A funcall reads each record
-// once: K·(4 + sizeof(T)) bytes of ids and values plus three scalars (at
-// N = 5M, K = 16, f32: ~700 MB, about 0.2 ms at 3.35 TB/s); θ and the
-// gradient (D + 1 values, 40 KB at D = 10k) live in L2. But every non-zero
-// entry is one atomicAdd into D + 1 addresses: on an H100 (700 W) the entry
-// scatter alone takes 1.9 ms of the fused kernel's 2.4 ms at that shape with
-// uniform ids, and ten times more with Zipf(1.2) ids, where the hot ids
-// serialise.
+// The fused kernel is fe_common.cuh's pass (its header gives the design):
+// this file holds its C entry points. Bound: the reads, K·(4 + sizeof(T))
+// bytes of ids and values a record plus three scalars (at N = 4,997,120,
+// K = 16, float32: 700 MB, 0.209 ms at 3.35 TB/s).
 //
-// Design: one thread per record in a grid-stride loop, so the loss, the
-// residual and the gather stay in registers and nothing of size N·K is
-// written (the flat pair writes two such vectors by construction). θ is read
-// through the read-only cache; the gradient takes global atomicAdd, native
-// for float and double on sm_90. The loss and Σr are summed in double inside
-// a thread, reduced over the block and added with one double atomic per
-// block, so their rounding does not grow with N. Entries with value 0 and
-// rows with weight 0 (the padding of the batch) are skipped: they are inert
-// by construction, and a skipped entry's id is never read. A shared-memory
-// copy of θ and a privatised gradient are later work.
+// Forms, chosen by the wrapper from the shape alone
+// (ops/fe_loss_grad.py privatised_form): a block-private gradient in shared
+// memory while D·sizeof(T) fits the 227 KB a block may opt into beside the
+// strips and the hashed table of frequent ids (D ≤ 54,752 in float32,
+// 26,864 in float64); past that device-memory atomics, with the strips and
+// a hashed cache of 8,192 first-come ids in shared memory. The vector path
+// takes K ≤ 16 with K % 4 == 0 and 16-byte aligned rows; any other K the
+// scalar path.
+//
+// What decided each choice: each alternative was built and timed against
+// what is here while the kernel was designed, and only the winner is kept in
+// the source (NVIDIA H100 80GB HBM3, 700 W; N = 4,997,120, K = 16, float32;
+// ms a call with uniform / Zipf(1.2) ids, CUDA events around the wrapper). At
+// D = 10,000, as kept 0.342 / 0.565 (the kernel alone 0.26 under the
+// profiler, uniform). Lanes a record: one 0.373 / 0.980, sixteen 0.693 /
+// 0.810, four kept. Blocks of 512 threads 0.381 / 0.579, 1,024 kept. No
+// strips 0.310 / 2.216: the strips cost uniform ids a tenth and save Zipf
+// ids 3.9×. Warp aggregation in their place 0.832 / 0.677: __match_any_sync
+// on 32 distinct ids costs more than the atomics it saves, so it was not
+// kept. 64 strips 0.345 / 0.716: the 1/256 share, not their number, bounds
+// the set. θ in shared memory beside the gradient, before the strips were
+// added, 0.306 against 0.316 through the read-only cache: dropped, it
+// halves the D that fits. The device-memory form, uniform / Zipf: D =
+// 100,000 1.600 / 1.022, D = 1,000,000 1.589 / 0.858; without the cache
+// 1.575 / 4.772 and 1.588 / 6.610; without the strips 1.567 / 2.076 and
+// 1.585 / 1.994; with neither (every addition a device atomic) 24–26 on
+// Zipf ids; a cache of 16,384 slots leaves one block an SM and measured
+// 1.502 / 1.263 at D = 100,000. ptxas: 32 registers in float32, 54 to 61
+// in float64, no spills but 40 bytes in the float32 scalar device-memory
+// instantiation; two 1,024-thread blocks an SM at D = 10,000 and in the
+// device-memory form, one past D ≈ 27,000 block-private.
+// A cluster-sharded form (the table over the shared memories of a cluster
+// of 8 blocks, 7 of 8 additions remote) against the device-memory
+// form: D = 100,000 2.160 / 5.414 against 1.600 / 1.022; D = 400,000
+// uniform 2.300 against 1.610; D = 10,000 uniform 2.609 against 0.342
+// block-private. An atomic through distributed shared memory costs more
+// than one in L2, so that form was not kept.
+//
+// The gather and the scatter of the flat pair are grid-stride loops over the
+// entry axis; the scatter's additions are device atomics.
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "fe_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ float exp_(float x) { return expf(x); }
-__device__ __forceinline__ double exp_(double x) { return exp(x); }
-__device__ __forceinline__ float log1p_(float x) { return log1pf(x); }
-__device__ __forceinline__ double log1p_(double x) { return log1p(x); }
-template <typename T>
-__device__ __forceinline__ T abs_(T x) { return x < T(0) ? -x : x; }
-
-template <typename T>
-__device__ __forceinline__ T sigmoid(T z) {
-  // both branches exp(-|z|) ≤ 1: no overflow at large |z|
-  const T e = exp_(-abs_(z));
-  return z >= T(0) ? T(1) / (T(1) + e) : e / (T(1) + e);
-}
-
-// Sum of v over the block, in thread 0 (all threads must call).
-__device__ __forceinline__ double block_sum(double v) {
-  __shared__ double part[kThreads / 32];
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) part[warp] = v;
-  __syncthreads();
-  v = 0.0;
-  if (warp == 0) {
-    v = lane < (kThreads / 32) ? part[lane] : 0.0;
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  }
-  return v;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-fe_fused_kernel(const int32_t* __restrict__ idx, const T* __restrict__ val,
-                const T* __restrict__ y, const T* __restrict__ w,
-                const T* __restrict__ off, const T* __restrict__ theta,
-                int64_t n, int k, int d, int has_intercept, int linear,
-                T* __restrict__ grad, double* __restrict__ sums) {
-  const T b = has_intercept ? theta[d] : T(0);
-  double loss = 0.0, rsum = 0.0;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       row < n; row += stride) {
-    const T wt = w[row];
-    if (wt == T(0)) continue;
-    const int32_t* ri = idx + row * k;
-    const T* rv = val + row * k;
-    T z = off[row] + b;
-    for (int j = 0; j < k; ++j) {
-      const T v = rv[j];
-      if (v != T(0)) z += v * __ldg(theta + ri[j]);
-    }
-    const T yt = y[row];
-    T per, dz;
-    if (linear) {
-      per = (yt - z) * (yt - z);
-      dz = T(2) * (z - yt);
-    } else {
-      per = (z > T(0) ? z : T(0)) - z * yt + log1p_(exp_(-abs_(z)));
-      dz = sigmoid(z) - yt;
-    }
-    const T r = wt * dz;
-    loss += (double)(wt * per);
-    rsum += (double)r;
-    for (int j = 0; j < k; ++j) {
-      const T v = rv[j];
-      if (v != T(0)) atomicAdd(grad + ri[j], v * r);
-    }
-  }
-  loss = block_sum(loss);
-  __syncthreads();  // block_sum's shared array is reused below
-  rsum = block_sum(rsum);
-  if (threadIdx.x == 0) {
-    atomicAdd(sums, loss);
-    atomicAdd(sums + 1, rsum);
-  }
-}
+constexpr int kThreads = 256;   // the flat pair's block
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -152,12 +104,14 @@ int grid_for(int64_t items, int max_blocks) {
 template <typename T>
 int fused(const int32_t* idx, const T* val, const T* y, const T* w,
           const T* off, const T* theta, int64_t n, int k, int d,
-          int has_intercept, int linear, T* grad, double* sums,
-          int max_blocks, void* stream) {
-  fe_fused_kernel<T><<<grid_for(n, max_blocks), kThreads, 0,
-                       (cudaStream_t)stream>>>(
-      idx, val, y, w, off, theta, n, k, d, has_intercept, linear, grad, sums);
-  return (int)cudaGetLastError();
+          int has_intercept, int linear, int form, int vec, T* grad,
+          double* sums, void* stream, int* blocks_per_sm) {
+  const int s = form == gdx_fe::kBlock ? d : 0;
+  const gdx_fe::Pass<T> p{idx, val, y, w, off, theta,
+                          has_intercept ? theta + d : nullptr, n, k, d,
+                          s, linear, grad, nullptr, sums};
+  return gdx_fe::launch<T, false>(p, vec, form, (cudaStream_t)stream,
+                                  blocks_per_sm);
 }
 
 template <typename T>
@@ -180,22 +134,28 @@ int scatter(const int32_t* idx, const T* ce, int64_t e, T* g, int max_blocks,
 
 extern "C" {
 
+// grad [d (+1)] and sums [2] (loss, Σr in double) must be zero on entry.
+// form: 1 to keep a block-private gradient in shared memory (d·sizeof(T)
+// bytes), 0 for the device-memory form; vec: 1 for the vector path (k ≤ 16,
+// k % 4 == 0, rows 16-byte aligned). With blocks_per_sm not null nothing is
+// launched: the form's resident blocks per SM are written there.
 int gdx_fe_fused_f32(const int32_t* idx, const float* val, const float* y,
                      const float* w, const float* off, const float* theta,
                      int64_t n, int k, int d, int has_intercept, int linear,
-                     float* grad, double* sums, int max_blocks,
-                     void* stream) {
+                     int form, int vec, float* grad, double* sums,
+                     void* stream, int* blocks_per_sm) {
   return fused<float>(idx, val, y, w, off, theta, n, k, d, has_intercept,
-                      linear, grad, sums, max_blocks, stream);
+                      linear, form, vec, grad, sums, stream, blocks_per_sm);
 }
 
 int gdx_fe_fused_f64(const int32_t* idx, const double* val, const double* y,
                      const double* w, const double* off, const double* theta,
                      int64_t n, int k, int d, int has_intercept, int linear,
-                     double* grad, double* sums, int max_blocks,
-                     void* stream) {
+                     int form, int vec, double* grad, double* sums,
+                     void* stream, int* blocks_per_sm) {
   return fused<double>(idx, val, y, w, off, theta, n, k, d, has_intercept,
-                       linear, grad, sums, max_blocks, stream);
+                       linear, form, vec, grad, sums, stream,
+                       blocks_per_sm);
 }
 
 int gdx_fe_gather_f32(const int32_t* idx, const float* val,
@@ -219,6 +179,11 @@ int gdx_fe_scatter_f64(const int32_t* idx, const double* ce, int64_t e,
                        double* g, int max_blocks, void* stream) {
   return scatter<double>(idx, ce, e, g, max_blocks, stream);
 }
+
+// The number of ids that get a lane-private strip, and the buckets of the
+// hashed table that finds them (the wrapper's byte budget counts both).
+int gdx_fe_strip_ids(void) { return gdx_fe::kStrip; }
+int gdx_fe_buckets(void) { return gdx_fe::kBuckets; }
 
 const char* gdx_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -66,12 +66,12 @@ def effective_grad_mode(grad_mode: str, has_intercept: bool,
                         block_max_features: int = 700_000) -> str:
     """Resolve grad_mode to the CONCRETE strategy _objective_fun runs.
 
-    "auto" picks the two-level one-hot `block` path inside its measured win
-    region (block_min_features, block_max_features]: block's cost is O(D)
-    (v5e, N=5M K=16: 0.13 s @ D=10k, 0.27 s @ 100k, 1.83 s @ 1M —
-    scripts/fe_wide_d.py) while the scatter-add path is D-independent
-    (1.31 s @ 100k..1M, 1.72 s @ 10M), so past the measured ~700k crossover
-    auto takes `hybrid`: the hot/cold split that runs the frequent-feature
+    "auto" picks the two-level one-hot `block` path inside
+    (block_min_features, block_max_features]: in the JAX package block's
+    cost grows with D while the scatter-add path's does not, so past their
+    crossover on that package's device (block_max_features, copied so that
+    both packages route alike; not measured on the card) auto takes
+    `hybrid`: the hot/cold split that runs the frequent-feature
     majority through block's compact MXU path and only the cold tail through
     per-entry gather/scatter (ops/logistic.py HybridAux; the builder itself
     falls back to plain scatter when the data has no hot set — uniform ids —
@@ -79,11 +79,8 @@ def effective_grad_mode(grad_mode: str, has_intercept: bool,
     sparse graph is D-independent the same way
     (fixed_effect_lr_lbfgs_model.py:214-392). At/below
     onehot_max_features the single-level `onehot` densification wins.
-    The sorted-COO `segment` mode (flat 2.15 s at every D measured) is
-    explicit-only: it never beats scatter on TPU. The Pallas kernels are
-    strictly OPT-IN — in particular pallas_flat's [E, 1] entry columns tile
-    to T(8,128) in HBM (512 B per 4 B entry → 40 GB at N=5M, K=16), so it
-    loses to `block` at production batch sizes — and, except pallas_hybrid
+    The sorted-COO `segment` mode is explicit-only. The Pallas kernels are
+    strictly OPT-IN and, except pallas_hybrid
     (which handles b=0 natively), they require the fused intercept-last
     layout: without an intercept they resolve to the scatter path (the same
     fallthrough _objective_fun always applied)."""

@@ -85,6 +85,21 @@ def _build(names) -> None:
         raise RuntimeError("\n".join(failed))
 
 
+def ptxas_lines(report: str):
+    """'<entry function>: <registers, spills>' for each kernel of one
+    library's `ptxas -v` report."""
+    out, entry, spill = [], "", ""
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            used = line.split(":", 1)[1].strip()
+            out.append(f"{entry}: {used}; {spill}")
+    return out
+
+
 def load(name: str) -> ctypes.CDLL:
     """The library built from csrc/<name>.cu, compiled if needed."""
     lib = _libs.get(name)

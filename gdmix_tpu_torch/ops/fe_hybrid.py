@@ -5,11 +5,14 @@ CUDA tensor `fe_hybrid_hot` launches the hand-written kernel of
 csrc/fe_hybrid.cu; on a CPU tensor it takes the plain PyTorch version beside
 it. The wrapper counts its launches in `.launches`.
 
-The kernel keeps the compact θ and the compact gradient privatised in a
-block's shared memory while both fit the opt-in (2·A·sizeof(T) bytes: A up to
-~28k in float32); past that, the same kernel reads θ and adds into the
-gradient in device memory. The choice is made here by shape, as the SPD
-solves choose their workspace.
+The kernel keeps a block-private compact gradient in shared memory. The
+table is tiered: the compact ids below S add into shared memory, S = A while
+A·sizeof(T) fits the opt-in (A up to ~56k in float32) and what fits past
+that, and the ids in [S, A) add in device memory. Compact ids are handed out
+in descending order of count (ops/logistic.py `_hybrid_hot`), so the ids
+past S are the rarest; the kernel also gives the STRIP_IDS most frequent ids
+lane-private slots. `shared_tier` chooses S by shape, as the SPD solves
+choose their workspace.
 """
 from __future__ import annotations
 
@@ -18,18 +21,39 @@ import ctypes
 import torch
 
 from gdmix_tpu_torch.ops import _cuda
+from gdmix_tpu_torch.ops import fe_pass
 from gdmix_tpu_torch.ops.linsolve import SMEM_OPTIN
 from gdmix_tpu_torch.ops.logistic import stable_bce
 
-_FLOATS = (torch.float32, torch.float64)
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-# static shared memory of the kernel besides the two tables (the block sum)
-_SMEM_RESERVE = 1024
+_SUFFIX = fe_pass.SUFFIX
 
 
-def shared_form(hot: int, element_size: int) -> bool:
-    """Whether the kernel keeps θc and the gradient in shared memory."""
-    return 2 * hot * element_size + _SMEM_RESERVE <= SMEM_OPTIN
+def shared_tier(hot: int, element_size: int) -> int:
+    """S: the compact ids below S add into shared memory, by what the
+    opt-in holds beside the strips; S = A when the whole table fits."""
+    budget = (SMEM_OPTIN - fe_pass.SMEM_RESERVE
+              - fe_pass.strip_bytes(element_size))
+    return min(hot, budget // element_size)
+
+
+def _library():
+    """The library, typed, and its strip width checked against the one
+    `shared_tier` budgets for, once, at its first use."""
+    lib = _cuda.load("fe_hybrid")
+    if not getattr(lib, "_gdx_typed", False):
+        for suffix in _SUFFIX.values():
+            fn = getattr(lib, f"gdx_fe_hybrid_hot_{suffix}")
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64] + [
+                ctypes.c_int] * 5 + [ctypes.c_void_p] * 5
+            fn.restype = ctypes.c_int
+        lib.gdx_fe_hybrid_strip_ids.restype = ctypes.c_int
+        if lib.gdx_fe_hybrid_strip_ids() != fe_pass.STRIP_IDS:
+            raise RuntimeError(
+                f"fe_hybrid: the library's strip is "
+                f"{lib.gdx_fe_hybrid_strip_ids()} ids wide, the wrapper "
+                f"budgets {fe_pass.STRIP_IDS}")
+        lib._gdx_typed = True
+    return lib
 
 
 def fe_hybrid_hot_plain(theta_c, b, hot_idx, values, labels, weights,
@@ -60,46 +84,51 @@ def fe_hybrid_hot(theta_c, b, hot_idx, values, labels, weights, offsets2,
     and padding entries point, and such entries are skipped. offsets2 must
     include the cold forward correction z_cold. Float32 or float64, one type
     throughout; no row padding (the kernel masks its own edge)."""
-    if theta_c.device.type == "cpu":
-        return fe_hybrid_hot_plain(theta_c, b, hot_idx, values, labels,
-                                   weights, offsets2, hot, linear)
     what = "fe_hybrid_hot"
     floats = (theta_c, values, labels, weights, offsets2)
-    _cuda.require_cuda(what, hot_idx, dtypes=(torch.int32,))
-    _cuda.require_cuda(what, *floats, dtypes=_FLOATS)
+    fe_pass.check_records(what, theta_c, hot, hot_idx, values, floats[2:])
+    if theta_c.device.type == "cpu":
+        # inert entries (value 0, or a record of weight 0) point at the
+        # dump slot: the kernel never uses their ids as an address
+        live = (values != 0) & (weights != 0)[:, None]
+        return fe_hybrid_hot_plain(
+            theta_c, b, torch.where(live, hot_idx,
+                                    torch.full_like(hot_idx, hot)),
+            values, labels, weights, offsets2, hot, linear)
     dtype, dev = theta_c.dtype, theta_c.device
-    if any(t.dtype != dtype for t in floats) or any(
-            t.device != dev for t in floats + (hot_idx,)):
-        raise TypeError(f"{what}: every float input must be {dtype} on {dev}")
     n, k = hot_idx.shape
-    if (tuple(theta_c.shape) != (hot,) or tuple(values.shape) != (n, k)
-            or any(tuple(t.shape) != (n,)
-                   for t in (labels, weights, offsets2))):
-        raise ValueError(f"{what}: theta_c {tuple(theta_c.shape)} (A {hot}), "
-                         f"hot_idx {tuple(hot_idx.shape)}, values "
-                         f"{tuple(values.shape)}, labels/weights/offsets2 "
-                         f"{[tuple(t.shape) for t in floats[2:]]}")
     b = torch.as_tensor(b, dtype=dtype, device=dev).reshape(1).contiguous()
-    shared = shared_form(hot, theta_c.element_size())
+    tier = shared_tier(hot, theta_c.element_size())
     g = torch.zeros(hot, dtype=dtype, device=dev)
     r = torch.empty(n, dtype=dtype, device=dev)
     sums = torch.zeros(2, dtype=torch.float64, device=dev)
-    lib = _cuda.load("fe_hybrid")
+    lib = _library()
     fn = getattr(lib, f"gdx_fe_hybrid_hot_{_SUFFIX[dtype]}")
-    fn.argtypes = [ctypes.c_void_p] * 7 + [
-        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         err = fn(_cuda.ptr(hot_idx), _cuda.ptr(values), _cuda.ptr(labels),
                  _cuda.ptr(weights), _cuda.ptr(offsets2), _cuda.ptr(theta_c),
-                 _cuda.ptr(b), n, k, hot, int(linear), int(shared),
-                 _cuda.ptr(g), _cuda.ptr(r), _cuda.ptr(sums),
-                 _cuda.stream_of(theta_c))
+                 _cuda.ptr(b), n, k, hot, int(linear), tier,
+                 int(fe_pass.vector_path(k, hot_idx, values)), _cuda.ptr(g),
+                 _cuda.ptr(r), _cuda.ptr(sums), _cuda.stream_of(theta_c),
+                 None)
     _cuda.check(lib, err, what)
     fe_hybrid_hot.launches += 1
     return sums[0].to(dtype), g, sums[1].to(dtype), r
 
 
 fe_hybrid_hot.launches = 0
+
+
+def hot_blocks_per_sm(hot: int, dtype: torch.dtype, k: int) -> int:
+    """Resident blocks per SM of the form `fe_hybrid_hot` launches at this
+    shape (cudaOccupancyMaxActiveBlocksPerMultiprocessor), on the current
+    CUDA device; nothing is launched."""
+    lib = _library()
+    out = ctypes.c_int(0)
+    tier = shared_tier(hot, torch.empty((), dtype=dtype).element_size())
+    err = getattr(lib, f"gdx_fe_hybrid_hot_{_SUFFIX[dtype]}")(
+        None, None, None, None, None, None, None, 0, k, hot, 0, tier,
+        int(fe_pass.vector_shape(k)), None, None, None, None,
+        ctypes.byref(out))
+    _cuda.check(lib, err, "hot_blocks_per_sm")
+    return out.value

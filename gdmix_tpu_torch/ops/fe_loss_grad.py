@@ -9,6 +9,11 @@ plain PyTorch version beside it (`fixed_effect_value_and_grad` with λ = 0,
 or the gather / `index_add_` pair). Each wrapper counts its launches in
 `.launches`.
 
+The fused kernel keeps a block-private gradient in shared memory while the
+table fits the opt-in, and past it adds into device memory behind a
+shared-memory cache of recurring ids; `privatised_form` chooses by shape, as
+the SPD solves choose their workspace.
+
 All three return the DATA term only: the caller adds the L2 term once, as
 the JAX package's `_objective_fun` does around its kernels.
 """
@@ -19,12 +24,41 @@ import ctypes
 import torch
 
 from gdmix_tpu_torch.ops import _cuda
+from gdmix_tpu_torch.ops import fe_pass
+from gdmix_tpu_torch.ops.linsolve import SMEM_OPTIN
 from gdmix_tpu_torch.ops.logistic import (SparseBatch,
                                           fixed_effect_value_and_grad,
                                           stable_bce)
 
-_FLOATS = (torch.float32, torch.float64)
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_FLOATS, _SUFFIX = fe_pass.FLOATS, fe_pass.SUFFIX
+# the hashed table that finds the fused kernel's frequent ids: two int32
+# arrays of HOT_BUCKETS and one of fe_pass.STRIP_IDS (kBuckets in
+# csrc/fe_common.cuh; checked at the library's first load)
+HOT_BUCKETS = 1024
+
+# where the fused kernel keeps its gradient table (kDevice and kBlock in
+# csrc/fe_common.cuh)
+FORM_DEVICE, FORM_BLOCK = 0, 1
+
+
+def privatised_form(num_features: int, element_size: int) -> int:
+    """Where the fused kernel keeps the gradient while it adds: FORM_BLOCK,
+    a private copy in each block's shared memory, while the table fits the
+    opt-in beside the strips and the hashed table; FORM_DEVICE, device
+    memory, past that."""
+    extra = (fe_pass.strip_bytes(element_size)
+             + 4 * (2 * HOT_BUCKETS + fe_pass.STRIP_IDS))
+    fits = (num_features * element_size + extra + fe_pass.SMEM_RESERVE
+            <= SMEM_OPTIN)
+    return FORM_BLOCK if fits else FORM_DEVICE
+
+
+def inert_ids_to_zero(indices, values, weights):
+    """The ids with those of inert entries (value 0, or a record of weight
+    0) set to 0: the kernels never use such an id as an address, and the
+    plain versions, which gather every id, are handed these."""
+    live = (values != 0) & (weights != 0)[:, None]
+    return torch.where(live, indices, torch.zeros_like(indices))
 
 
 def _max_blocks(device: torch.device) -> int:
@@ -33,12 +67,33 @@ def _max_blocks(device: torch.device) -> int:
     return 8 * torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _fn(name: str, dtype: torch.dtype, argtypes):
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    "fused": [_P] * 6 + [ctypes.c_int64] + [_I] * 6 + [_P] * 4,
+    "gather": [_P] * 3 + [ctypes.c_int64, _P, _I, _P],
+    "scatter": [_P] * 2 + [ctypes.c_int64, _P, _I, _P],
+}
+
+
+def _fn(name: str, dtype: torch.dtype):
+    """(library, its entry point `name` for `dtype`); the library is typed,
+    and its strips and buckets checked against the wrapper's byte budget,
+    once, at its first use."""
     lib = _cuda.load("fe_loss_grad")
-    fn = getattr(lib, f"gdx_fe_{name}_{_SUFFIX[dtype]}")
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return lib, fn
+    if not getattr(lib, "_gdx_typed", False):
+        lib.gdx_fe_strip_ids.restype = lib.gdx_fe_buckets.restype = _I
+        got = (lib.gdx_fe_strip_ids(), lib.gdx_fe_buckets())
+        want = (fe_pass.STRIP_IDS, HOT_BUCKETS)
+        if got != want:
+            raise RuntimeError(
+                f"fe_loss_grad: the library has (strips, buckets) = {got}, "
+                f"the wrapper budgets {want}")
+        for entry, argtypes in _ARGTYPES.items():
+            for suffix in _SUFFIX.values():
+                fn = getattr(lib, f"gdx_fe_{entry}_{suffix}")
+                fn.argtypes, fn.restype = argtypes, _I
+        lib._gdx_typed = True
+    return lib, getattr(lib, f"gdx_fe_{name}_{_SUFFIX[dtype]}")
 
 
 def _check_inputs(what, indices, floats):
@@ -72,33 +127,27 @@ def fe_loss_grad_fused(x, indices, values, labels, weights, offsets,
     grad[dim]) with dim = num_features (+1, the intercept LAST, when
     has_intercept). Padding rows carry weight 0 and padding entries value 0;
     ids of non-zero entries must lie in [0, num_features)."""
-    if x.device.type == "cpu":
-        return fe_loss_grad_plain(x, indices, values, labels, weights,
-                                  offsets, num_features,
-                                  has_intercept=has_intercept, linear=linear)
     what = "fe_loss_grad_fused"
-    _check_inputs(what, indices, (x, values, labels, weights, offsets))
-    n, k = indices.shape
     dim = num_features + (1 if has_intercept else 0)
-    if (tuple(values.shape) != (n, k) or tuple(x.shape) != (dim,)
-            or any(tuple(t.shape) != (n,)
-                   for t in (labels, weights, offsets))):
-        raise ValueError(f"{what}: x {tuple(x.shape)} (dim {dim}), indices "
-                         f"{tuple(indices.shape)}, values "
-                         f"{tuple(values.shape)}, labels/weights/offsets "
-                         f"{[tuple(t.shape) for t in (labels, weights, offsets)]}")
+    fe_pass.check_records(what, x, dim, indices, values,
+                          (labels, weights, offsets))
+    if x.device.type == "cpu":
+        return fe_loss_grad_plain(x, inert_ids_to_zero(indices, values,
+                                                       weights),
+                                  values, labels, weights, offsets,
+                                  num_features, has_intercept=has_intercept,
+                                  linear=linear)
+    n, k = indices.shape
     grad = torch.zeros_like(x)
     sums = torch.zeros(2, dtype=torch.float64, device=x.device)
-    lib, fn = _fn("fused", x.dtype, [ctypes.c_void_p] * 6 + [
-        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p])
+    lib, fn = _fn("fused", x.dtype)
     with torch.cuda.device(x.device):
         err = fn(_cuda.ptr(indices), _cuda.ptr(values), _cuda.ptr(labels),
                  _cuda.ptr(weights), _cuda.ptr(offsets), _cuda.ptr(x), n, k,
                  num_features, int(has_intercept), int(linear),
-                 _cuda.ptr(grad), _cuda.ptr(sums), _max_blocks(x.device),
-                 _cuda.stream_of(x))
+                 privatised_form(num_features, x.element_size()),
+                 int(fe_pass.vector_path(k, indices, values)),
+                 _cuda.ptr(grad), _cuda.ptr(sums), _cuda.stream_of(x), None)
     _cuda.check(lib, err, what)
     fe_loss_grad_fused.launches += 1
     if has_intercept:
@@ -107,6 +156,21 @@ def fe_loss_grad_fused(x, indices, values, labels, weights, offsets,
 
 
 fe_loss_grad_fused.launches = 0
+
+
+def fused_blocks_per_sm(num_features: int, dtype: torch.dtype, k: int) -> int:
+    """Resident blocks per SM of the form `fe_loss_grad_fused` launches at
+    this shape (cudaOccupancyMaxActiveBlocksPerMultiprocessor), on the
+    current CUDA device; nothing is launched."""
+    lib, fn = _fn("fused", dtype)
+    out = ctypes.c_int(0)
+    item = torch.empty((), dtype=dtype).element_size()
+    err = fn(None, None, None, None, None, None, 0, k, num_features, 0, 0,
+             privatised_form(num_features, item),
+             int(fe_pass.vector_shape(k)), None, None, None,
+             ctypes.byref(out))
+    _cuda.check(lib, err, "fused_blocks_per_sm")
+    return out.value
 
 
 # ------------------------------------------------------------ flat entries --
@@ -126,8 +190,7 @@ def fe_gather_entries(theta_w: torch.Tensor, idx: torch.Tensor,
         raise ValueError(f"{what}: idx {tuple(idx.shape)}, val "
                          f"{tuple(val.shape)}: both [E]")
     out = torch.empty_like(val)
-    lib, fn = _fn("gather", val.dtype, [ctypes.c_void_p] * 3 + [
-        ctypes.c_int64, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    lib, fn = _fn("gather", val.dtype)
     with torch.cuda.device(val.device):
         err = fn(_cuda.ptr(idx), _cuda.ptr(val), _cuda.ptr(theta_w),
                  idx.shape[0], _cuda.ptr(out), _max_blocks(val.device),
@@ -156,8 +219,7 @@ def fe_scatter_entries(idx: torch.Tensor, ce: torch.Tensor,
         raise ValueError(f"{what}: idx {tuple(idx.shape)}, ce "
                          f"{tuple(ce.shape)}: both [E]")
     g = torch.zeros(num_features, dtype=ce.dtype, device=ce.device)
-    lib, fn = _fn("scatter", ce.dtype, [ctypes.c_void_p] * 2 + [
-        ctypes.c_int64, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    lib, fn = _fn("scatter", ce.dtype)
     with torch.cuda.device(ce.device):
         err = fn(_cuda.ptr(idx), _cuda.ptr(ce), idx.shape[0], _cuda.ptr(g),
                  _max_blocks(ce.device), _cuda.stream_of(ce))

@@ -171,9 +171,9 @@ class FixedLRParams(LRParams):
     # (ops/pallas/fe_grad.py), "pallas_block" the fused two-level kernel
     # (ops/pallas/fe_block.py — measured alternative, see its docstring),
     # "pallas_flat" the flat entry-space gather/scatter pair (ops/pallas/
-    # fe_flat.py — experimental SMALL-BATCH opt-in only: its [E, 1] entry
-    # columns tile to 512 B/entry in HBM, 40 GB at N=5M/K=16, and lose to
-    # "block" on HBM traffic whenever they do fit), "hybrid" the hot/cold
+    # fe_flat.py — in the JAX package an experimental small-batch opt-in,
+    # for what its entry columns cost in that device's memory layout),
+    # "hybrid" the hot/cold
     # feature split for the wide-D power-law regime (top-hot_features ids
     # through block's compact MXU path, cold tail through per-entry
     # gather/scatter; degrades to scatter when the data has no hot set),
@@ -181,18 +181,16 @@ class FixedLRParams(LRParams):
     grad_mode: str = "auto"   # "auto"|"block"|"onehot"|"scatter"|"hybrid"|"pallas"|"pallas_block"|"pallas_gather"|"pallas_flat"
     onehot_max_features: int = 16384
     block_min_features: int = 1024  # auto: block above, onehot at/below
-    # auto: block's measured win-region ceiling — its O(D) cost crosses the
-    # D-independent scatter path at ~700k features (v5e, N=5M K=16,
-    # scripts/fe_wide_d.py); past it auto takes the hot/cold hybrid
+    # auto: the ceiling of block's range; past it auto takes the hot/cold
+    # hybrid. The JAX package's value, copied so that both packages route
+    # alike: it has not been measured on the card
     block_max_features: int = 700_000
     # hybrid mode: compact hot-set size (top-A features by batch frequency)
     # and the cold-entry fraction above which the split stops paying and the
     # builder falls back to plain scatter (data-driven, e.g. uniform ids)
     # 0 = ADAPTIVE: the builder evaluates the measured cost model at pow-2
     # candidate sizes against the batch's own frequency profile (steeper
-    # distribution -> smaller hot set). Explicit values pin A; the probe-4
-    # optimum at D=1M zipf-1.2 was 16384 (0.40 s/funcall vs scatter's
-    # 1.37 s, 3.4x; 8k/32k within 15%).
+    # distribution -> smaller hot set). Explicit values pin A.
     hot_features: int = 0
     hybrid_cold_max_frac: float = 0.5
     # windowed cold scatters (pallas windowed_scatter kernel over sorted
@@ -200,8 +198,7 @@ class FixedLRParams(LRParams):
     # GSPMD-sharded; multi-chip keeps the XLA cold side), "on"/"off" force
     hybrid_windowed_cold: str = "auto"
     block_chunk_size: int = 8192    # records per scan step in block mode
-    # MXU dot precision for block mode: "float32" = bf16x3 (~f32-accurate —
-    # measured identical objective to "highest" at N=5M/D=10k, 15% faster;
+    # MXU dot precision for block mode: "float32" = bf16x3 (~f32-accurate;
     # the one-hot operand is exact in bf16). "default" (1-pass bf16) rounds θ.
     block_precision: str = "float32"  # "highest"|"float32"|"bf16x2"|"default"
 
