@@ -11,9 +11,12 @@ Phases, each printing one result line; any failure exits non-zero:
                 path's shapes, with its least time on the card (bytes or
                 flops at the published peak) and, where one PyTorch call
                 computes the same function, that call's time: the RE
-                kernels on inputs made from a numpy seed (K1/K2 at the
-                primary tiers, at B = 65,536/16,384 and at the buckets of
-                128 the fit launches; the SPD solves at d = 100, 160, 200,
+                kernels on inputs made from a numpy seed (K1 and K2, whole
+                solves, at B = 65,536 with n = 8/16/32, at every lanes tier
+                of the primary fit's plan, K2 at n = 64/512 and streamed at
+                n = 2,048, each with a shared-memory bound beside the
+                bytes/flops one, and K1 at the old 128-entity launch shape;
+                the SPD solves at d = 100, 160, 200,
                 256 and the dual's n = 32, 64, 128, at B = 4,096, at the
                 wide fit's buckets of 128 and at the support_120 fit's own
                 bucket shape, each also against the kernel's LDLᵀ
@@ -32,9 +35,14 @@ Phases, each printing one result line; any failure exits non-zero:
                 intercept and with weight-0 rows, and float64.
   4. fit      — RandomEffectLRModel.fit_flat at full width: the primary
                 random-effect workload (100k entities, 24 features, pareto
-                sample counts 2..64), then a moderate-support cut
+                sample counts 2..64), a moderate-support cut
                 (64 < dim ≤ 128) that runs the batch-major Newton and its
-                linear solve; a small cut against the float64 CPU solve.
+                linear solve, and the bench's heavy tail (20k entities,
+                counts 2..2,048) whose tiers take every form of K1/K2; one
+                lanes launch per tier of each form, no host read inside a
+                Newton solve; the primary warm and profiled (idle share);
+                small cuts of the primary and the heavy tail against the
+                float64 CPU solve.
      wide     — the bench's wide-support workload (4,096 entities, d = 512,
                 ≤ 16 nnz, 32–64 samples) cold and warm through the dual
                 Newton and its multi-RHS solve; SIMPLE and FULL variance;
@@ -364,82 +372,7 @@ def phase_kernels():
     res = {}
     kw = dict(lam=1.0, unreg_bias=True, maxiter=100, ftol=1e-12, pgtol=1e-5)
 
-    # K1: the whole solve, primary tiers n = 8, 16, 32 at dim 25
-    worst = 0.0
-    for n in (8, 16, 32):
-        X, y, w, off, cnt = (torch.from_numpy(a).to(dev)
-                             for a in lr_problem(65536, n, 25, seed=n))
-        th0 = torch.zeros(65536, 25, device=dev)
-        k = lambda: nl.newton_full(th0, X, y, w, off, cnt, **kw)
-        p = lambda: nl.newton_full_plain(th0, X, y, w, off, cnt, **kw)
-        (thk, ck, ik), (thp, cp, ip) = k(), p()
-        torch.cuda.synchronize()
-        both = ck & cp
-        err = float((thk - thp).abs()[both].max())
-        agree = float((ck == cp).float().mean())
-        ms, pms = _time_ms(k, 5), _time_ms(p, 2)
-        # the fit's own launch shape: a bucket of 128 entities
-        a128 = [a[:128] for a in (th0, X, y, w, off, cnt)]
-        ms128, dev128 = _launch_shape_ms(lambda: nl.newton_full(*a128, **kw))
-        _say("kernels", kernel="newton_full", B=65536, n=n, dim=25,
-             max_abs_dtheta=f"{err:.3e}", converged_agree=f"{agree:.6f}",
-             converged=f"{float(ck.float().mean()):.6f}",
-             iters_max=int(ik.max()), ms=f"{ms:.3f}", plain_ms=f"{pms:.3f}",
-             ms_B128=f"{ms128:.4f}", device_ms_B128=f"{dev128:.4f}")
-        _check(err <= F32_TOL, f"newton_full n={n}: max|dθ| {err}")
-        _check(agree >= 0.999, f"newton_full n={n}: converged flags agree "
-                               f"on {agree}")
-        worst = max(worst, err)
-        if n == 8:
-            # bytes: X, y, w, offsets, counts, θ0 in; θ, flags, counts out.
-            # flops per iteration and entity: the symmetric Hessian
-            # (n·d·(d+1)), its SPD solve, gradient, margins and line search
-            # (~6·n·d), over the iterations this run's entities took
-            B, d = 65536, 25
-            bound, by = _bound(
-                4 * (B * n * d + 3 * B * n + B + 2 * B * d) + 5 * B,
-                float(ik.sum()) * (n * d * (d + 1) + _spd_solve_flops(d, 1)
-                                   + 6 * n * d))
-            res["newton_full"] = dict(ms=ms, plain_ms=pms, bound_ms=bound,
-                                      bound_by=by, library_ms=None)
-    res["newton_full"]["max_abs_err"] = worst
-
-    # K2: one Newton iteration, the n = 64 tier and a heavy-tail n = 512
-    worst = 0.0
-    for n, B in ((64, 16384), (512, 2048)):
-        X, y, w, off, cnt = (torch.from_numpy(a).to(dev)
-                             for a in lr_problem(B, n, 25, seed=n))
-        th = torch.from_numpy((np.random.RandomState(7).randn(B, 25)
-                              * 0.3).astype(np.float32)).to(dev)
-        fk = dict(lam=1.0, unreg_bias=True)
-        k = lambda: nl.newton_fgd(X, y, w, off, cnt, th, **fk)
-        p = lambda: nl.newton_fgd_plain(X, y, w, off, cnt, th, **fk)
-        (fa, ga, da), (fb, gb, db) = k(), p()
-        f_rel = float(((fa - fb).abs() / fb.abs().clamp_min(1.0)).max())
-        g_err = float((ga - gb).abs().max())
-        d_err = float((da - db).abs().max())
-        ms, pms = _time_ms(k, 20), _time_ms(p, 5)
-        a128 = [a[:128] for a in (X, y, w, off, cnt, th)]
-        ms128, dev128 = _launch_shape_ms(lambda: nl.newton_fgd(*a128, **fk))
-        _say("kernels", kernel="newton_fgd", B=B, n=n, dim=25,
-             f_rel=f"{f_rel:.3e}", max_abs_dg=f"{g_err:.3e}",
-             max_abs_ddelta=f"{d_err:.3e}", ms=f"{ms:.3f}",
-             plain_ms=f"{pms:.3f}", ms_B128=f"{ms128:.4f}",
-             device_ms_B128=f"{dev128:.4f}")
-        _check(f_rel <= 1e-4 and g_err <= 1e-4 and d_err <= F32_TOL,
-               f"newton_fgd n={n}: f {f_rel} g {g_err} delta {d_err}")
-        worst = max(worst, d_err)
-        if n == 64:
-            # one iteration per entity: X, y, w, offsets, counts, θ in;
-            # f, g, δ out; the symmetric Hessian n·d·(d+1), its SPD solve,
-            # f and g ~4·n·d flops
-            bound, by = _bound(4 * (B * n * 25 + 3 * B * n + 4 * B * 25
-                                    + 2 * B),
-                               B * (n * 25 * 26 + _spd_solve_flops(25, 1)
-                                    + 4 * n * 25))
-            res["newton_fgd"] = dict(ms=ms, plain_ms=pms, bound_ms=bound,
-                                     bound_by=by, library_ms=None)
-    res["newton_fgd"]["max_abs_err"] = worst
+    res.update(_lanes_rows())
 
     # K3: damped SPD solves at the batch-major Newton's width (d = 100), at
     # the widths the primal rung admits past 128 (shared memory up to
@@ -497,25 +430,218 @@ def _spd_solve_flops(d: int, r: int) -> float:
     return d ** 3 / 3 + 2 * d * d * r
 
 
-def _support_120_k3_shapes():
-    """{(B, dim): buckets} of the support_120 fit's bucket plan, for the
-    buckets whose solve reaches K3 (the primal rung past the fused
-    kernels' dim 64): the shapes the fit launches K3 at."""
-    from collections import Counter
+def _plan_buckets(fg, d):
+    """[(B, n_cap, dim, rung)] of `fg`'s bucket plan, read from
+    iter_bucketize_flat in order, with the rung _select_solver gives each
+    bucket (the plan is host work: the model only answers that)."""
     from gdmix_tpu_torch.data.bucketing import iter_bucketize_flat
-    shapes = Counter()
+    out = []
     with tempfile.TemporaryDirectory(prefix="gdx_smoke_plan_") as tmp:
-        # the plan is host work: the model only answers _select_solver
-        model, schema = stage_model(120, tmp, device="cpu")
+        model, schema = stage_model(d, tmp, device="cpu")
         for b in iter_bucketize_flat(
-                support_120_workload(), schema,
-                model.model_params.offset_column_name,
+                fg, schema, model.model_params.offset_column_name,
                 has_intercept=model.has_intercept):
-            B, dim = b.indices.shape[0], b.u_cap + int(model.has_intercept)
+            B = b.indices.shape[0]
             rung, _ = model._select_solver(b.u_cap, B, b.n_cap)
-            if rung == "newton" and dim > 64:
-                shapes[(B, dim)] += 1
-    return shapes
+            out.append((B, b.n_cap, b.u_cap + int(model.has_intercept),
+                        rung))
+    return out
+
+
+# 32 banks of 4 bytes each, one access a clock, on every SM (Hopper): the
+# card's shared-memory rate is this times the SMs times the SM clock
+SMEM_BYTES_PER_CLOCK = 128
+
+
+def _max_sm_clock_hz():
+    """The card's maximum SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=120)
+    _check(out.returncode == 0, f"nvidia-smi clocks: {out.stderr.strip()}")
+    return float(out.stdout.split()[0]) * 1e6
+
+
+def _lanes_smem_wavefronts(form, n, d, iters):
+    """128-byte shared-memory wavefronts that the lanes kernels' design
+    needs (csrc/newton_lanes.cu) for entities of n rows and d coefficients
+    taking `iters` [B] iterations: per entity the staging and an exact z/g
+    pass; per iteration another z/g pass, the Hessian's 4×4 tiles (two
+    16-byte X loads and one weight a row and a tile a lane), in the block
+    forms the sum of four warps' tiles, the LDLᵀ and back substitution
+    (8 a column), the u = Xδ pass and one line-search trial. A lower
+    count: the trials past the first are left out."""
+    D4 = (d + 4) // 4
+    tiles = -(-(D4 * (D4 + 1) // 2) // 32)
+    groups = -(-n // 32)                  # 32-row groups of a row pass
+    stage = -(-n * d // 32) + 3 * groups
+    zg = 5 * D4 * groups + n * (1 + -(-4 * D4 // 32))
+    hess = 3 * n * tiles + (0 if form == "warp" else 96 * tiles)
+    per_iter = zg + hess + 8 * d + 5 * D4 * groups + 4 * groups + 2
+    return len(iters) * (stage + zg) + float(iters.sum()) * per_iter
+
+
+def _lanes_rows():
+    """K1 (newton_full) and K2 (newton_block), each a whole solve in one
+    launch, against their plain version on the card: max|Δθ| ≤ F32_TOL where
+    both converge, converged flags agreeing on ≥ 0.999 of the entities. K1
+    at B = 65,536 and n = 8, 16, 32; each at every lanes tier of the primary
+    and the heavy-tail fits' plans (read from iter_bucketize_flat), in the
+    form the gate gives the tier, and both forms at the gate's crossover
+    (`_gate_crossover`); K2 at n = 64 (B = 16,384), n = 512 (B = 2,048)
+    and, streamed, n = 2,048 (B = 64); K1 at the old launch shape of 128
+    entities. Bounds at each launch shape: bytes and flops (`_bound`), and,
+    printed beside them, the shared-memory traffic this design needs at the
+    card's shared-memory rate (`smem_bound_ms`). The K1 row of the kernels
+    line is B = 65,536, n = 8 (the primary's largest tier), K2's the
+    heavy tail's largest-B K2 tier."""
+    import torch
+    from gdmix_tpu_torch.ops import newton_lanes as nl
+    dev = torch.device(DEV)
+    kw = dict(lam=1.0, unreg_bias=True, maxiter=100, ftol=1e-12, pgtol=1e-5)
+    smem_rate = (SMEM_BYTES_PER_CLOCK * _max_sm_clock_hz()
+                 * torch.cuda.get_device_properties(0).multi_processor_count)
+    worst = {"newton_full": 0.0, "newton_block": 0.0}
+
+    def row(fn, B, n, d, tag, reps=5):
+        X, y, w, off, cnt = (torch.from_numpy(a).to(dev)
+                             for a in lr_problem(B, n, d, seed=n + d))
+        B = X.shape[0]
+        th0 = torch.zeros(B, d, device=dev)
+        k = lambda: fn(th0, X, y, w, off, cnt, **kw)
+        p = lambda: nl.newton_full_plain(th0, X, y, w, off, cnt, **kw)
+        (thk, ck, ik), (thp, cp, _) = k(), p()
+        torch.cuda.synchronize()
+        both = ck & cp
+        err = float((thk - thp).abs()[both].max())
+        agree = float((ck == cp).float().mean())
+        form = "warp" if fn is nl.newton_full else (
+            "stream" if nl.lanes_form(n, d) == "stream" else "block")
+        ms = _time_ms(k, reps)
+        pms = _time_ms(p, 1)
+        iters = ik.cpu().numpy()
+        # bytes: X, y, w, offsets, counts, θ0 in; θ, flags, counts out.
+        # flops per iteration and entity: the symmetric Hessian
+        # (n·d·(d+1)), its SPD solve, gradient, margins and line search
+        # (~6·n·d), over the iterations this run's entities took
+        bound, by = _bound(
+            4 * (B * n * d + 3 * B * n + B + 2 * B * d) + 5 * B,
+            float(iters.sum()) * (n * d * (d + 1) + _spd_solve_flops(d, 1)
+                                  + 6 * n * d))
+        smem = (_lanes_smem_wavefronts(form, n, d, iters)
+                * SMEM_BYTES_PER_CLOCK / smem_rate * 1e3)
+        _say("kernels", kernel=fn.__name__, shape=tag, form=form, B=B, n=n,
+             dim=d, max_abs_dtheta=f"{err:.3e}",
+             converged_agree=f"{agree:.6f}",
+             converged=f"{float(ck.float().mean()):.6f}",
+             iters_mean=f"{iters.mean():.3f}", iters_max=int(iters.max()),
+             ms=f"{ms:.4f}", plain_ms=f"{pms:.3f}", bound_ms=f"{bound:.4f}",
+             bound_by=by, smem_bound_ms=f"{smem:.4f}")
+        _check(err <= F32_TOL, f"{fn.__name__} {tag} n={n}: max|dθ| {err}")
+        _check(agree >= 0.999, f"{fn.__name__} {tag} n={n}: converged "
+                               f"flags agree on {agree}")
+        worst[fn.__name__] = max(worst[fn.__name__], err)
+        return dict(ms=ms, plain_ms=pms, bound_ms=bound, bound_by=by,
+                    library_ms=None, smem_bound_ms=smem)
+
+    res = {}
+    for n in (8, 16, 32):
+        r = row(nl.newton_full, 65536, n, 25, "B65536")
+        if n == 8:
+            res["newton_full"] = r
+    # every lanes tier of the primary and the heavy-tail plans, in the form
+    # the gate gives it; K2's headline row is its largest-B heavy-tail tier
+    heavy = _lanes_tiers(_plan_buckets(heavy_tail_workload(), 24))
+    for tag, tiers in (("primary_tier", _lanes_tiers(_plan_buckets(
+            make_workload_flat(100_000, seed=0), 24))),
+                       ("heavy_tail_tier", heavy)):
+        tier_ms = 0.0
+        for B, n, d, form in tiers:
+            fn = nl.newton_full if form == "warp" else nl.newton_block
+            r = row(fn, B, n, d, tag)
+            tier_ms += r["ms"]
+            if fn is nl.newton_block and B >= res.get(
+                    "newton_block", {}).get("B", 0):
+                res["newton_block"] = dict(r, B=B)
+        _say("kernels", **{f"{tag}s_ms": f"{tier_ms:.4f}"})
+    _gate_crossover(row, heavy)
+    for n, B in ((64, 16384), (512, 2048), (2048, 64)):
+        row(nl.newton_block, B, n, 25, f"B{B}")
+    # every other register tiling of both kernels (T = ⌈tiles/32⌉ = 2, 3,
+    # 4, 5 at dim 33, 44, 56, 64; the rows above have T = 1), in each form
+    for d in (33, 44, 56, 64):
+        for fn, B, n, form in ((nl.newton_full, 8192, 32, "warp"),
+                               (nl.newton_block, 4096, 128, "block"),
+                               (nl.newton_block, 64, 2048, "stream")):
+            _check(nl.lanes_form(n, d) == form,
+                   f"lanes_form({n}, {d}) is not {form}")
+            row(fn, B, n, d, f"dim{d}", reps=2)
+    # the old launch shape: a bucket of 128 entities
+    for n in (8, 16, 32):
+        X, y, w, off, cnt = (torch.from_numpy(a).to(dev)
+                             for a in lr_problem(128, n, 25, seed=n))
+        th0 = torch.zeros(128, 25, device=dev)
+        ms128, dev128 = _launch_shape_ms(
+            lambda: nl.newton_full(th0, X, y, w, off, cnt, **kw))
+        _say("kernels", kernel="newton_full", shape="B128", n=n, dim=25,
+             ms=f"{ms128:.4f}", device_ms=f"{dev128:.4f}")
+    for name, err in worst.items():
+        res[name]["max_abs_err"] = err
+    return res
+
+
+def _gate_crossover(row, tiers):
+    """K1 against K2 on each of `tiers`' tiers from n = 64 up where both
+    forms fit the opt-in, on the same inputs in this call, with the warps
+    per SM each form's shared memory leaves: the measurement behind
+    lanes_form's WARP_FORM_MIN_WARPS. The warp form's budget is lifted to
+    the opt-in for these calls alone."""
+    from gdmix_tpu_torch.ops import newton_lanes as nl
+
+    def warps(form, n, d):
+        per_block = nl.form_smem_bytes(form, n, d) + nl.BLOCK_RESERVED_BYTES
+        return 4 * (nl.SM_SMEM_BYTES // per_block)
+
+    budget = nl.WARP_FORM_BLOCK_BYTES
+    for B, n, d, form in tiers:
+        if (form == "stream" or n < 64
+                or nl.form_smem_bytes("warp", n, d) > nl.SMEM_OPTIN_BYTES):
+            continue
+        block_ms = row(nl.newton_block, B, n, d, "gate_block")["ms"]
+        nl.WARP_FORM_BLOCK_BYTES = nl.SMEM_OPTIN_BYTES
+        try:
+            warp_ms = row(nl.newton_full, B, n, d, "gate_warp")["ms"]
+        finally:
+            nl.WARP_FORM_BLOCK_BYTES = budget
+        _say("kernels", gate_crossover=f"B{B}_n{n}_dim{d}", gate=form,
+             warp_ms=f"{warp_ms:.4f}", block_ms=f"{block_ms:.4f}",
+             warp_form_warps_per_sm=warps("warp", n, d),
+             block_form_warps_per_sm=warps("block", n, d))
+
+
+def _support_120_k3_shapes():
+    """{(B, dim): buckets} of the support_120 fit's plan whose solve reaches
+    K3 (the primal rung past the lanes path's dim 64): the shapes the fit
+    launches K3 at."""
+    from collections import Counter
+    return Counter((B, dim) for B, _, dim, rung
+                   in _plan_buckets(support_120_workload(), 120)
+                   if rung == "newton" and dim > 64)
+
+
+def _lanes_tiers(plan):
+    """[(B, n_cap, dim, form)] of a plan's buckets on the lanes path (the
+    primal Newton at dim ≤ 64), with the form lanes_form gives each."""
+    from gdmix_tpu_torch.ops import newton_lanes as nl
+    return [(B, n, dim, nl.lanes_form(n, dim)) for B, n, dim, rung in plan
+            if rung == "newton" and dim <= nl.MAX_DIM]
+
+
+def heavy_tail_workload():
+    """The JAX bench's heavy-tail RE workload (bench.py:693-694): 20,000
+    entities, pareto 1.2 sample counts 2..2048, seed 1; its tiers reach
+    every form of the lanes path."""
+    return make_workload_flat(20_000, seed=1, count_hi=2048, pareto_a=1.2)
 
 
 def _medians_ms(fns, reps, rounds=SOLVE_ROUNDS):
@@ -968,97 +1094,188 @@ def _converged_share(model):
     return conv / max(total, 1)
 
 
+def _f64_check(fg, idx, gm, schema, tmp, tag):
+    """max|Δθ| between `gm`'s fit of the entities `idx` of `fg` on the card
+    and a float64 fit of them on the CPU (batch-major Cholesky, no kernel),
+    over the well-posed ones; fails past F32_TOL."""
+    from gdmix_tpu_torch.data.bucketing import select_entities
+    small = select_entities(fg, idx)
+    cm, _ = stage_model(24, os.path.join(tmp, f"{tag}_cpu"), dtype="float64",
+                        device="cpu")
+    tg, tc = gm.fit_flat(small, {}, schema), cm.fit_flat(small, {}, schema)
+    eids = np.asarray(small.entity_ids)[_well_posed_rows(small)]
+    dmax = max(float(np.abs(tg[e].theta - tc[e].theta).max()) for e in eids)
+    _say("fit", workload=tag, reference="float64 cpu", entities=len(small),
+         compared=len(eids), max_abs_dtheta=f"{dmax:.3e}")
+    _check(dmax <= F32_TOL, f"{tag} fit vs float64 reference: {dmax}")
+
+
 def phase_fit(card):
+    """The RE fits at full width: the primary workload, support_120 and the
+    bench's heavy tail, each cold; the primary warm, and warm again under
+    the profiler for its device-busy share. Each of K1 and K2 launches once
+    per lanes tier of its form in the plan (the primary's four tiers all
+    take K1; the heavy tail's tiers from n = 256 take K2, streamed at
+    n = 2,048), and nothing reads the host inside a Newton solve: PyTorch's
+    sync debug mode counts no read inside the lanes solves (_sync_counted,
+    itself probed with one read first)."""
     import torch
-    from gdmix_tpu_torch.ops import linsolve, newton_lanes as nl
-    counters = (nl.newton_full, nl.newton_fgd, linsolve.spd_solve_batched)
+    from collections import Counter
+    from gdmix_tpu_torch.ops import linsolve, newton, newton_lanes as nl
+    counters = (nl.newton_full, nl.newton_block, linsolve.spd_solve_batched)
+    lanes = nl.newton_lr_batch_lanes
+    # the counter itself sees a read: one `.all()` read back
+    probe = _sync_counted(lambda t: bool(t.all()))
+    probe(torch.ones(4, dtype=torch.bool, device=DEV))
+    _check(sum(probe.reads.values()) == 1, f"host-read probe: {probe.reads}")
+    newton.newton_lr_batch_lanes = _sync_counted(lanes)
+    try:
+        return _fits(card, counters, lanes, newton.newton_lr_batch_lanes)
+    finally:
+        newton.newton_lr_batch_lanes = lanes
+
+
+def _sync_counted(fn):
+    """`fn` run under PyTorch's sync debug mode ("warn"): the wrapper counts
+    in `.reads` each device→host synchronisation PyTorch makes inside a
+    call (a `.all()` or `.item()` read back, a copy to the host), by the
+    Python line that made it; on a CPU-only PyTorch it counts nothing."""
+    import warnings
+    from collections import Counter
+    import torch
+    debug = torch.cuda.is_available()
+
+    def counted(*args, **kwargs):
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            if debug:
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                if debug:
+                    torch.cuda.set_sync_debug_mode("default")
+        for w in seen:
+            if "called a synchronizing" in str(w.message):
+                counted.reads[f"{os.path.relpath(w.filename, ROOT)}:"
+                              f"{w.lineno}"] += 1
+        return out
+
+    counted.reads = Counter()
+    return counted
+
+
+def _fits(card, counters, lanes, counted):
+    """phase_fit's fits, with the lanes solve `counted` (_sync_counted)."""
+    import torch
+    from collections import Counter
     with tempfile.TemporaryDirectory(prefix="gdx_smoke_fit_") as tmp:
-        fg = make_workload_flat(100_000, seed=0)
-        model, schema = stage_model(24, os.path.join(tmp, "primary"))
-        wide = support_120_workload()
-        wmodel, wschema = stage_model(120, os.path.join(tmp, "wide"))
+        work = {"primary": (make_workload_flat(100_000, seed=0), 24),
+                "support_120": (support_120_workload(), 120),
+                "heavy_tail": (heavy_tail_workload(), 24)}
+        models = {tag: stage_model(d, os.path.join(tmp, tag))
+                  for tag, (_, d) in work.items()}
+        tiers = {tag: Counter(form for *_, form in _lanes_tiers(
+            _plan_buckets(fg, d))) for tag, (fg, d) in work.items()}
+        runs, tables = {}, {}
         torch.cuda.reset_peak_memory_stats()
-        for c in counters:
-            c.launches = 0
         # ---- the main path: one cold fit of each workload ----
-        t0 = time.perf_counter()
-        table = model.fit_flat(fg, {}, schema)
-        torch.cuda.synchronize()
-        cold_s = time.perf_counter() - t0
-        primary_launches = {c.__name__: c.launches for c in counters}
-        t0 = time.perf_counter()
-        wtable = wmodel.fit_flat(wide, {}, wschema)
-        torch.cuda.synchronize()
-        wide_s = time.perf_counter() - t0
-        launches = {c.__name__: c.launches for c in counters}
+        for tag, (fg, _) in work.items():
+            model, schema = models[tag]
+            for c in counters:
+                c.launches = 0
+            lanes.host_syncs = 0
+            counted.reads.clear()
+            t0 = time.perf_counter()
+            tables[tag] = model.fit_flat(fg, {}, schema)
+            torch.cuda.synchronize()
+            runs[tag] = dict(cold_s=time.perf_counter() - t0,
+                             launches={c.__name__: c.launches
+                                       for c in counters},
+                             host_syncs=lanes.host_syncs,
+                             host_reads=dict(counted.reads))
         # ----
-        share = _converged_share(model)
-        wshare = _converged_share(wmodel)
+        launches = {c.__name__: sum(r["launches"][c.__name__]
+                                    for r in runs.values())
+                    for c in counters}
+        fg, _ = work["primary"]
+        model, schema = models["primary"]
         t0 = time.perf_counter()
         model.fit_flat(fg, {}, schema)
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
-        E = len(fg)
-        _say("fit", workload="primary", entities=E,
-             converged=f"{share:.6f}", cold_s=f"{cold_s:.3f}",
-             warm_s=f"{warm_s:.3f}",
-             models_per_s=f"{E / warm_s:.1f}",
-             phases={k: round(v, 3) for k, v in model.last_fit_phases.items()},
-             launches=primary_launches,
-             peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
-             card=repr(card))
-        _say("fit", workload="support_120", entities=len(wide),
-             converged=f"{wshare:.6f}", cold_s=f"{wide_s:.3f}",
-             phases={k: round(v, 3)
-                     for k, v in wmodel.last_fit_phases.items()},
-             launches=launches)
-        _check(share >= 0.999, f"primary converged share {share}")
-        _check(wshare >= 0.999, f"support_120 converged share {wshare}")
-        _check(primary_launches["newton_full"] > 0
-               and primary_launches["newton_fgd"] > 0,
-               f"primary fit skipped a kernel: {primary_launches}")
+        warm_phases = dict(model.last_fit_phases)
+        prof_s, busy_ms = _profiled(lambda: model.fit_flat(fg, {}, schema))
+        for tag, r in runs.items():
+            m = models[tag][0]
+            E = len(work[tag][0])
+            share = _converged_share(m)
+            extra = {}
+            if tag == "primary":
+                extra = dict(warm_s=f"{warm_s:.3f}",
+                             models_per_s=f"{E / warm_s:.1f}",
+                             warm_phases={k: round(v, 3)
+                                          for k, v in warm_phases.items()},
+                             profiled_s=f"{prof_s:.3f}",
+                             device_busy_ms=f"{busy_ms:.1f}",
+                             idle_share=f"{1 - busy_ms / 1e3 / prof_s:.4f}",
+                             peak_gib="{:.2f}".format(
+                                 torch.cuda.max_memory_allocated() / 2**30))
+            _say("fit", workload=tag, entities=E, converged=f"{share:.6f}",
+                 cold_s=f"{r['cold_s']:.3f}",
+                 phases={k: round(v, 3) for k, v in m.last_fit_phases.items()},
+                 rungs=m.last_fit_rungs, lanes_tiers=dict(tiers[tag]),
+                 launches=r["launches"], host_syncs=r["host_syncs"],
+                 host_reads=r["host_reads"], card=repr(card), **extra)
+            _check(share >= 0.999, f"{tag} converged share {share}")
+            _check(len(tables[tag]) == E, f"{tag}: model count")
+            _check(bool(np.isfinite(tables[tag].coef_vals).all()
+                        and np.isfinite(tables[tag].icpt).all()),
+                   f"{tag}: non-finite model")
+            # one launch per lanes tier of each form, and no host read
+            # inside a Newton solve: neither the plain loop's (host_syncs;
+            # the wrappers raise on a card rather than take it) nor any
+            # other that PyTorch makes (host_reads)
+            want = {"newton_full": tiers[tag]["warp"],
+                    "newton_block": tiers[tag]["block"]
+                    + tiers[tag]["stream"]}
+            got = {k: r["launches"][k] for k in want}
+            _check(got == want, f"{tag}: lanes launches {got}, plan {want}")
+            _check(r["host_syncs"] == 0 and not r["host_reads"],
+                   f"{tag}: {r['host_syncs']} + {r['host_reads']} host reads "
+                   f"in Newton solves")
+        _check(sum(runs["primary"]["launches"][k]
+                   for k in ("newton_full", "newton_block")) <= 4,
+               f"primary fit: {runs['primary']['launches']}")
+        _check(runs["support_120"]["launches"]["spd_solve_batched"] > 0,
+               f"support_120 never launched K3: {runs['support_120']}")
         _check(all(v > 0 for v in launches.values()),
                f"a kernel of the path never launched: {launches}")
-        _check(len(table) == E and len(wtable) == len(wide),
-               "model count")
-        _check(bool(np.isfinite(table.coef_vals).all()
-                    and np.isfinite(table.icpt).all()), "non-finite model")
 
         # the exported model reloads intact
         path = os.path.join(tmp, "part-00000.avro")
-        model._save_model(path, table)
+        model._save_model(path, tables["primary"])
         back = model._load_weights(path)
-        _check(len(back) == E, "avro reload count")
+        _check(len(back) == len(fg), "avro reload count")
 
-        # a small cut against the float64 CPU solve (batch-major Cholesky,
-        # no kernel): coefficients of well-sampled entities agree
-        from gdmix_tpu_torch.data.bucketing import select_entities
-        small = select_entities(fg, np.arange(4096))
-        gm, _ = stage_model(24, os.path.join(tmp, "gpu"))
-        cm, _ = stage_model(24, os.path.join(tmp, "cpu"), dtype="float64",
-                            device="cpu")
-        tg, tc = gm.fit_flat(small, {}, schema), cm.fit_flat(small, {},
-                                                             schema)
-        # well-posed entities: 16+ records with both classes (one class
-        # sends the unregularized intercept off to infinity, where the two
-        # precisions stop at different points of a flat objective)
-        counts = np.asarray(small.counts)
-        pos = np.add.reduceat(small.columns["response"],
-                              np.cumsum(counts) - counts)
-        rows = np.flatnonzero((counts >= 16) & (pos > 0) & (pos < counts))
-        dmax = 0.0
-        for eid in np.asarray(small.entity_ids)[rows]:
-            dmax = max(dmax, float(np.abs(tg[eid].theta
-                                          - tc[eid].theta).max()))
-        _say("fit", reference="float64 cpu", entities=len(small),
-             compared=len(rows), max_abs_dtheta=f"{dmax:.3e}")
-        _check(dmax <= F32_TOL, f"fit vs float64 reference: {dmax}")
+        # small cuts against the float64 CPU solve: the primary's first
+        # 4,096 entities (K1) and heavy-tail entities of the K2 tiers
+        gm, _ = stage_model(24, os.path.join(tmp, "primary_gpu"))
+        _f64_check(fg, np.arange(min(4096, len(fg))), gm, schema, tmp,
+                   "primary")
+        heavy, _ = work["heavy_tail"]
+        counts = np.asarray(heavy.counts)
+        idx = np.concatenate([np.flatnonzero(counts > 1024)[:32],
+                              np.flatnonzero((counts > 64)
+                                             & (counts <= 1024))[:96]])
+        hm, _ = stage_model(24, os.path.join(tmp, "heavy_gpu"))
+        _f64_check(heavy, np.sort(idx), hm, schema, tmp, "heavy_tail")
     return launches
 
 
 def _re_counters():
     from gdmix_tpu_torch.ops import linsolve, newton_lanes as nl
-    return (nl.newton_full, nl.newton_fgd, linsolve.spd_solve_batched,
+    return (nl.newton_full, nl.newton_block, linsolve.spd_solve_batched,
             linsolve.spd_solve_batched_mrhs)
 
 
@@ -1771,7 +1988,7 @@ def phase_pipeline(card, tmp):
     cfg = os.path.join(tmp, "movielens.yaml")
     with open(cfg, "w") as f:
         yaml.safe_dump(movielens_config(ml, out), f, sort_keys=False)
-    counters = _fe_counters() + (nl.newton_full, nl.newton_fgd)
+    counters = _fe_counters() + (nl.newton_full, nl.newton_block)
     for c in counters:
         c.launches = 0
     # ---- the main path ----
@@ -1856,7 +2073,7 @@ def phase_fe_cli(ml, tmp):
 KERNELS = (
     ("newton_full", "gdmix_tpu_torch/csrc/newton_lanes.cu",
      "gdmix_tpu/ops/pallas/newton_lanes.py:175"),
-    ("newton_fgd", "gdmix_tpu_torch/csrc/newton_lanes.cu",
+    ("newton_block", "gdmix_tpu_torch/csrc/newton_lanes.cu",
      "gdmix_tpu/ops/pallas/newton_lanes.py:137"),
     ("spd_solve_batched", "gdmix_tpu_torch/csrc/ldlt_solve.cu",
      "gdmix_tpu/ops/pallas/linsolve.py:27"),

@@ -179,9 +179,6 @@ def _sample_caps(counts: np.ndarray, min_bucket_rows: int) -> List[int]:
     return caps
 
 
-LANE_BLOCK = 128   # fused lanes kernel block width (newton_lanes.LANES)
-
-
 # Modeled cost of promoting one row into a bigger tier (padded compute +
 # iteration coupling). The JAX package's constant, copied so that both
 # packages plan the same buckets from the same counts: it has not been
@@ -240,25 +237,11 @@ def plan_lane_buckets(counts: np.ndarray, caps,
             i += 1
         merged.append((cap_i, np.sort(members)))
         i += 1
-    # 2) pow-2 batch-padding decomposition, which pays only where a
-    # dispatch is cheap: split a tier's batch into LANE_BLOCK-aligned pieces
-    # when the padded lanes saved are worth more than the added dispatches.
-    out: List = []
-    for n_cap, members in merged:
-        b = len(members)
-        pow2_pad = _next_pow2(max(b, 1)) - b
-        nblocks = (b + LANE_BLOCK - 1) // LANE_BLOCK
-        rem = b - (nblocks - 1) * LANE_BLOCK
-        dec_pad = _next_pow2(max(rem, 1)) - rem
-        saved_rows = (pow2_pad - dec_pad) * n_cap
-        if (nblocks > 1
-                and saved_rows * PACK_PROMOTED_ROW_COST_S
-                > (nblocks - 1) * dispatch_latency_s):
-            for s in range(0, b, LANE_BLOCK):
-                out.append((n_cap, members[s:s + LANE_BLOCK]))
-        else:
-            out.append((n_cap, members))
-    return out
+    # no step 2 (the JAX package's split of a tier into 128-entity pieces,
+    # its device's lane width): the card launches a tier whole, one kernel
+    # per tier of a form (ops/newton_lanes.py), and a padded entity costs
+    # its warp one gradient test
+    return merged
 
 
 def bucketize_flat(fg: FlatGroups,

@@ -16,11 +16,10 @@ import numpy as np
 
 logger = logging.getLogger(__name__)
 
-# The C++ sources are the JAX package's, read by path (that package is
-# never imported); the libraries build into the checkout's build/ tree.
-_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-_SRC_DIR = os.path.join(_ROOT, "gdmix_tpu", "native")
+# The C++ sources are this package's own copies of the JAX package's,
+# beside this file; the libraries build into the checkout's build/ tree.
+_SRC_DIR = os.path.dirname(os.path.abspath(__file__))
+_ROOT = os.path.dirname(os.path.dirname(_SRC_DIR))
 _DIR = os.path.join(_ROOT, "build", "gdmix_tpu_torch", "native")
 _SO = os.path.join(_DIR, "libgdmix_io.so")
 _SRC = os.path.join(_SRC_DIR, "tfrecord_io.cc")

@@ -3,6 +3,11 @@
 against the JAX package on the same numpy inputs.
 The port runs its plain PyTorch versions here (CPU tensors); the JAX Pallas
 kernels run in interpret mode, as the JAX package's own tests run them."""
+import os
+import re
+import shutil
+import subprocess
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -133,7 +138,7 @@ def test_newton_fgd_plain_matches_pallas_interpret(n, dim, unreg):
     f, g, delta = call(jnp.asarray(Xl), jnp.asarray(y.T), jnp.asarray(w.T),
                        jnp.asarray(off.T), jnp.asarray(cnt[None, :]),
                        jnp.asarray(thl))
-    got_f, got_g, got_d = newton_lanes.newton_fgd(
+    got_f, got_g, got_d = newton_lanes.newton_fgd_plain(
         *_torch(X, y, w, off, cnt, th), lam=0.8, unreg_bias=unreg)
     np.testing.assert_allclose(got_f.numpy(), np.asarray(f)[0], rtol=1e-5,
                                atol=1e-6)
@@ -144,8 +149,8 @@ def test_newton_fgd_plain_matches_pallas_interpret(n, dim, unreg):
 
 
 def test_lanes_dispatch_fgd_path_matches_jax():
-    """n·d8 > 1024 routes newton_lr_batch_lanes through the per-iteration
-    form (plain fgd on the CPU); same result as the JAX lanes path."""
+    """n·d8 > 1024, where the JAX lanes path takes its per-iteration form:
+    newton_lr_batch_lanes (the plain loop on the CPU) gives its result."""
     B, n, dim = 24, 64, 25
     X, y, w, off, cnt = _problem(B, n, dim, seed=5, dtype=np.float32)
     th0 = np.zeros((B, dim), np.float32)
@@ -159,6 +164,250 @@ def test_lanes_dispatch_fgd_path_matches_jax():
                                   np.asarray(want.converged))
     np.testing.assert_allclose(got.theta.numpy(), np.asarray(want.theta),
                                rtol=0, atol=5e-3)
+
+
+@pytest.mark.parametrize("B,n,dim,unreg", [(20, 128, 25, True),
+                                           (16, 256, 12, False)])
+def test_newton_block_plain_matches_pallas_interpret(B, n, dim, unreg):
+    """The K2 wrapper (a whole solve now; its plain version on the CPU)
+    against the JAX lanes path, which runs its per-iteration kernel in
+    interpret mode at these shapes (n a multiple of that kernel's row
+    block: see the next test)."""
+    X, y, w, off, cnt = _problem(B, n, dim, seed=n + dim, dtype=np.float32)
+    th0 = np.zeros((B, dim), np.float32)
+    kw = dict(maxiter=60, ftol=1e-12, pgtol=1e-5)
+    want = jax_lanes(*(jnp.asarray(a) for a in (th0, X, y, w, off, cnt)),
+                     l2_reg_weight=0.9, unreg_bias=unreg, interpret=True,
+                     **kw)
+    th, conv, iters = newton_lanes.newton_block(
+        *_torch(th0, X, y, w, off, cnt), lam=0.9, unreg_bias=unreg, **kw)
+    np.testing.assert_array_equal(conv.numpy(), np.asarray(want.converged))
+    ok = _well_posed(X, w, cnt) & conv.numpy()
+    assert np.abs(th.numpy() - np.asarray(want.theta))[ok].max() <= 5e-3
+    assert iters.dtype == torch.int32
+
+
+def test_newton_block_plain_uses_every_row_past_a_power_of_two():
+    """At n = 300 the JAX lanes path's per-iteration kernel sums only the
+    first 256 rows into f, g and H (`_fgd_call`: n_blocks = n // nb; ROADMAP
+    C.8); the port takes every row: in float64 its solve lands on the JAX
+    batch-major solver's optimum, which reads all rows."""
+    B, n, dim = 6, 300, 9
+    X, y, w, off, cnt = _problem(B, n, dim, seed=17)
+    cnt[:] = n
+    w[:] = 1.0
+    mask = np.ones(dim)
+    mask[0] = 0.0
+    th0 = np.zeros((B, dim))
+    want = jax_newton(*(jnp.asarray(a) for a in (th0, X, y, w, off, cnt)),
+                      l2_reg_weight=0.9, l2_mask=jnp.asarray(mask),
+                      maxiter=100, ftol=1e-16, pgtol=1e-10)
+    th, conv, _ = newton_lanes.newton_block(
+        *_torch(th0, X, y, w, off, cnt), lam=0.9, unreg_bias=True,
+        maxiter=100, ftol=1e-16, pgtol=1e-10)
+    assert conv.all()
+    np.testing.assert_allclose(th.numpy(), np.asarray(want.theta), rtol=0,
+                               atol=1e-8)
+
+
+def test_plain_loop_counts_its_host_reads():
+    """The plain loop reads `done` on the host once per iteration and once
+    per line-search trial, and counts each read; on a card the kernels
+    read nothing back inside the solve."""
+    X, y, w, off, cnt = _problem(8, 8, 5, seed=2, dtype=np.float32)
+    th0 = np.zeros((8, 5), np.float32)
+    before = newton_lanes.newton_lr_batch_lanes.host_syncs
+    res = newton_lanes.newton_lr_batch_lanes(
+        *_torch(th0, X, y, w, off, cnt), l2_reg_weight=1.0, unreg_bias=True,
+        maxiter=50, ftol=1e-12, pgtol=1e-5)
+    reads = newton_lanes.newton_lr_batch_lanes.host_syncs - before
+    k = int(res.num_iterations.max())
+    assert res.converged.all() and k >= 2
+    # one read per iteration and at least one trial's per iteration, plus
+    # the read that ends the loop
+    assert reads >= 2 * k + 1
+
+
+_GATE_N = sorted({1, 2, 7, 8, 9, 16, 31, 32, 33, 63, 64, 65, 96, 97, 127,
+                  128, 129, 185, 186, 255, 256, 257, 300, 511, 512, 513,
+                  1024, 1500, 1600, 2047, 2048, 4096, 10000})
+
+
+def test_lanes_form_fits_each_forms_budget():
+    """Every (n, dim) the gate sends to a form fits that form's
+    shared-memory budget (the warp form's leaves WARP_FORM_MIN_WARPS warps
+    resident on an SM, a resident block fits the opt-in), the forms follow
+    each other as n grows, the primary tiers take the warp form and, at
+    dim 25, the warp form ends between n = 128 and 256, where the card's
+    times of the two forms cross."""
+    nl = newton_lanes
+    for dim in range(1, nl.MAX_DIM + 1):
+        seen = []
+        for n in _GATE_N:
+            form = nl.lanes_form(n, dim)
+            need = nl.form_smem_bytes(form, n, dim)
+            if form == "warp":
+                assert need <= nl.WARP_FORM_BLOCK_BYTES, (n, dim)
+                per_sm = nl.SM_SMEM_BYTES // (need + nl.BLOCK_RESERVED_BYTES)
+                assert 4 * per_sm >= nl.WARP_FORM_MIN_WARPS, (n, dim)
+            else:
+                assert nl.form_smem_bytes("warp", n, dim) \
+                    > nl.WARP_FORM_BLOCK_BYTES, (n, dim)
+                assert need <= nl.SMEM_OPTIN_BYTES, (n, dim, form)
+            if form == "stream":
+                assert nl.form_smem_bytes("block", n, dim) \
+                    > nl.SMEM_OPTIN_BYTES, (n, dim)
+            seen.append(nl.FORMS.index(form))
+        assert seen == sorted(seen), dim
+        assert seen[0] == 0 and seen[-1] == 2, dim
+    assert [nl.lanes_form(n, 25) for n in (8, 16, 32, 64, 128, 256,
+                                           2048)] == [
+        "warp", "warp", "warp", "warp", "warp", "block", "stream"]
+
+
+@pytest.mark.parametrize("n,dim", [(8, 0), (8, 65), (0, 5), (64, 200)])
+def test_lanes_form_refuses_shapes_past_the_lanes_path(n, dim):
+    with pytest.raises(ValueError, match="lanes path"):
+        newton_lanes.lanes_form(n, dim)
+
+
+def test_cuda_wrappers_refuse_shapes_they_do_not_take(monkeypatch):
+    """On a card a wrapper handed a shape its kernel does not take raises:
+    it never falls back to the plain version, and builds nothing."""
+    from gdmix_tpu_torch.ops import _cuda
+    nl = newton_lanes
+    monkeypatch.setattr(_cuda, "require_cuda", lambda *a, **k: None)
+
+    def no_build(name):
+        raise AssertionError(f"built {name}")
+
+    monkeypatch.setattr(_cuda, "load", no_build)
+    monkeypatch.setattr(nl, "newton_full_plain", no_build)
+    m = lambda *shape: torch.zeros(*shape, device="meta")
+    kw = dict(lam=1.0, unreg_bias=True, maxiter=5, ftol=1e-12, pgtol=1e-5)
+    args = lambda B, n, d: (m(B, d), m(B, n, d), m(B, n), m(B, n), m(B, n),
+                            m(B))
+    launches = (nl.newton_full.launches, nl.newton_block.launches)
+    with pytest.raises(ValueError, match="use newton_block"):
+        nl.newton_full(*args(4, 256, 25), **kw)       # the block form's
+    for fn in (nl.newton_full, nl.newton_block):
+        with pytest.raises(ValueError, match="lanes path: dim 65"):
+            fn(*args(4, 8, 65), **kw)
+        bad = list(args(4, 8, 5))
+        bad[5] = m(3)                                  # counts of 3, not 4
+        with pytest.raises(ValueError, match="shapes"):
+            fn(*bad, **kw)
+    assert (nl.newton_full.launches, nl.newton_block.launches) == launches
+
+
+_EMU_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "cuda_emu")
+_KERNEL_SRC = os.path.join(os.path.dirname(_EMU_DIR), "..",
+                           "gdmix_tpu_torch", "csrc", "newton_lanes.cu")
+
+
+def test_lanes_host_code_waits_on_nothing():
+    """The kernels' host code makes no synchronising runtime call, which
+    PyTorch's sync debug mode (the smoke's host-read count) cannot see: a
+    launch returns at once and nothing inside a solve waits on the card."""
+    with open(_KERNEL_SRC) as f:
+        src = f.read()
+    for call in ("cudaDeviceSynchronize", "cudaStreamSynchronize",
+                 "cudaEventSynchronize", "cudaMemcpy"):
+        assert call not in src, call
+
+
+@pytest.fixture(scope="module")
+def newton_emulator(tmp_path_factory):
+    """csrc/newton_lanes.cu built for the CPU with g++ against the stub CUDA
+    runtime of tests/cuda_emu (one std::thread per CUDA thread): the
+    kernels' own source, run here where there is no nvcc and no card."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ not found: the kernel's CPU emulation needs it")
+    out = tmp_path_factory.mktemp("newton_emu")
+    with open(_KERNEL_SRC) as f:
+        src = f.read()
+    decl = "extern __shared__ __align__(16) float smem[];"
+    assert decl in src
+    src = re.sub(r"<<<[^>]*>>>", "", src.replace(decl,
+                                                "float* smem = g_smem;"))
+    with open(out / "newton_lanes_emu.inc", "w") as f:
+        f.write(src)
+    subprocess.run([gxx, "-std=c++17", "-O1", "-pthread", "-I", _EMU_DIR,
+                    "-I", str(out),
+                    os.path.join(_EMU_DIR, "newton_lanes_harness.cpp"),
+                    "-o", str(out / "harness")],
+                   check=True, capture_output=True, timeout=300)
+    return out
+
+
+def _emulate(emu, form, arrays, *, lam, unreg, maxiter=100, ftol=1e-12,
+             pgtol=1e-5):
+    th0, X, y, w, off, cnt = arrays
+    B, n, d = X.shape
+    for name, a in zip(("th0", "X", "y", "w", "off", "cnt"), arrays):
+        np.ascontiguousarray(a, np.float32).tofile(emu / f"{name}.f32")
+    subprocess.run([str(emu / "harness"), "solve", str(form), str(B), str(n),
+                    str(d), repr(lam), str(int(unreg)), str(maxiter),
+                    repr(ftol), repr(pgtol)],
+                   cwd=emu, check=True, capture_output=True, timeout=300)
+    return (np.fromfile(emu / "th.f32", np.float32).reshape(B, d),
+            np.fromfile(emu / "conv.u8", np.uint8).astype(bool),
+            np.fromfile(emu / "iters.i32", np.int32))
+
+
+# (form, B, n, dim, unregularised intercept, padded)
+_EMU_CASES = [(0, 9, 8, 25, True, True), (0, 5, 16, 7, False, False),
+              (0, 4, 8, 64, True, False), (0, 9, 32, 25, True, True),
+              (1, 3, 64, 25, True, True), (1, 3, 40, 33, False, False),
+              (2, 3, 300, 25, True, True), (2, 2, 520, 9, False, False)]
+
+
+@pytest.mark.parametrize("form,B,n,dim,unreg,padded", _EMU_CASES)
+def test_kernel_source_emulated_matches_plain(newton_emulator, form, B, n,
+                                              dim, unreg, padded):
+    """The CUDA source of K1 (form 0, four entities a block, the last
+    block part-filled at B = 9 and 5) and K2 (1 resident, 2 streamed, past
+    one chunk of rows at n = 300 and 520), run on the CPU: it reaches the
+    plain version's models (f32 bound of the lanes path) with the same converged
+    flags; padded entities (count 0, weight 0) stop at the gradient test
+    with 0 iterations, and a warm start is honoured."""
+    X, y, w, off, cnt = _problem(B, n, dim, seed=7 * B + n + dim,
+                                 dtype=np.float32)
+    th0 = (np.random.RandomState(n).randn(B, dim) * 0.2).astype(np.float32)
+    if padded:
+        X[-2:] = 0.0
+        w[-2:] = 0.0
+        cnt[-2:] = 0.0
+        th0[-2:] = 0.0
+    th, conv, iters = _emulate(newton_emulator, form,
+                               (th0, X, y, w, off, cnt), lam=0.8,
+                               unreg=unreg)
+    want, wconv, witers = newton_lanes.newton_full_plain(
+        *_torch(th0, X, y, w, off, cnt), lam=0.8, unreg_bias=unreg,
+        maxiter=100, ftol=1e-12, pgtol=1e-5)
+    np.testing.assert_array_equal(conv, wconv.numpy())
+    ok = (_well_posed(X, w, cnt) | (cnt == 0)) & conv
+    assert ok.sum() >= B - 2
+    assert np.abs(th - want.numpy())[ok].max() <= 5e-3
+    assert np.abs(iters - witers.numpy()).max() <= 1
+    if padded:
+        assert (iters[-2:] == 0).all() and (th[-2:] == 0).all()
+
+
+@pytest.mark.parametrize("n,dim", [(1, 1), (8, 25), (64, 25), (300, 64),
+                                   (2048, 33)])
+def test_kernel_layout_is_the_gates(newton_emulator, n, dim):
+    """The shared-memory layout the kernels allocate is the one the gate
+    (`lanes_form`) budgets, for each form."""
+    out = subprocess.run([str(newton_emulator / "harness"), "layout", str(n),
+                          str(dim)], check=True, capture_output=True,
+                         text=True, timeout=60).stdout.split()
+    assert [int(v) for v in out] == [
+        newton_lanes._group_floats(n, dim, 1, False),
+        newton_lanes._group_floats(n, dim, 4, False),
+        newton_lanes._group_floats(n, dim, 4, True)]
 
 
 def test_densify_bucket_accumulates_duplicates():

@@ -158,12 +158,36 @@ EDITS = {
          '''    # modeled promoted-row cost. Merging is transitive (a twice-promoted
     # tier pays the final cap).
 '''),
+        # no 128-entity pieces: the card launches a tier whole, and a padded
+        # entity costs its warp one gradient test
+        ("LANE_BLOCK = 128   # fused lanes kernel block width "
+         "(newton_lanes.LANES)\n\n\n", ""),
         ('''    # 2) pow-2 batch-padding decomposition — the r3 experiment's part (b),
     # rejected relay-conditionally (+8 dispatches x 25 ms) but a win where
     # dispatch is cheap: split a tier's batch into LANE_BLOCK-aligned pieces
+    # when the padded lanes saved are worth more than the added dispatches.
+    out: List = []
+    for n_cap, members in merged:
+        b = len(members)
+        pow2_pad = _next_pow2(max(b, 1)) - b
+        nblocks = (b + LANE_BLOCK - 1) // LANE_BLOCK
+        rem = b - (nblocks - 1) * LANE_BLOCK
+        dec_pad = _next_pow2(max(rem, 1)) - rem
+        saved_rows = (pow2_pad - dec_pad) * n_cap
+        if (nblocks > 1
+                and saved_rows * PACK_PROMOTED_ROW_COST_S
+                > (nblocks - 1) * dispatch_latency_s):
+            for s in range(0, b, LANE_BLOCK):
+                out.append((n_cap, members[s:s + LANE_BLOCK]))
+        else:
+            out.append((n_cap, members))
+    return out
 ''',
-         '''    # 2) pow-2 batch-padding decomposition, which pays only where a
-    # dispatch is cheap: split a tier's batch into LANE_BLOCK-aligned pieces
+         '''    # no step 2 (the JAX package's split of a tier into 128-entity pieces,
+    # its device's lane width): the card launches a tier whole, one kernel
+    # per tier of a form (ops/newton_lanes.py), and a padded entity costs
+    # its warp one gradient test
+    return merged
 '''),
     ],
     # the same for the comments of FixedLRParams
@@ -194,16 +218,15 @@ EDITS = {
          '''"float32" = bf16x3 (~f32-accurate;
     # the one-hot operand is exact in bf16).'''),
     ],
-    # the C++ sources are read from the JAX package's tree by path; the
+    # the C++ sources are the port's own copies (NATIVE_SOURCES); the
     # libraries build, atomically, into build/gdmix_tpu_torch/native
     "native/__init__.py": [
         ('_DIR = os.path.dirname(os.path.abspath(__file__))\n',
-         "# The C++ sources are the JAX package's, read by path (that package"
-         " is\n# never imported); the libraries build into the checkout's "
-         "build/ tree.\n"
-         "_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(\n"
-         "    os.path.abspath(__file__))))\n"
-         '_SRC_DIR = os.path.join(_ROOT, "gdmix_tpu", "native")\n'
+         "# The C++ sources are this package's own copies of the JAX "
+         "package's,\n# beside this file; the libraries build into the "
+         "checkout's build/ tree.\n"
+         "_SRC_DIR = os.path.dirname(os.path.abspath(__file__))\n"
+         "_ROOT = os.path.dirname(os.path.dirname(_SRC_DIR))\n"
          '_DIR = os.path.join(_ROOT, "build", "gdmix_tpu_torch", "native")\n'),
         ('os.path.join(_DIR, "tfrecord_io.cc")',
          'os.path.join(_SRC_DIR, "tfrecord_io.cc")'),
@@ -322,6 +345,58 @@ def test_host_copy_equals_original(rel):
     assert got == want, rel
 
 
+# the C++ sources the port builds (gdmix_tpu_torch/native/__init__.py), its
+# own copies of the JAX package's, byte for byte apart from listed edits
+NATIVE_SOURCES = ["native/tfrecord_io.cc", "native/avro_io.cc",
+                  "native/bucketize_ops.cc"]
+NATIVE_EDITS = {}
+
+
+@pytest.mark.parametrize("rel", NATIVE_SOURCES)
+def test_native_source_copy_equals_original(rel):
+    with open(os.path.join(ROOT, "gdmix_tpu", rel), "rb") as f:
+        want = f.read()
+    for old, new in NATIVE_EDITS.get(rel, []):
+        assert old in want, (rel, old)
+        want = want.replace(old, new)
+    with open(os.path.join(PORT, rel), "rb") as f:
+        assert f.read() == want, rel
+
+
+def _names_jax_tree(s):
+    return re.search(r"(^|[/\\])gdmix_tpu([/\\]|$)", s) is not None
+
+
+def test_port_builds_only_from_its_own_sources():
+    """No string of the port's code (docstrings aside) and no #include of
+    its CUDA sources names the gdmix_tpu/ directory, and every source the
+    port compiles lies inside the port."""
+    bad = []
+    for path in _port_files():
+        with open(path) as f:
+            tree = ast.parse(f.read(), filename=path)
+        docs = {id(n.body[0].value) for n in ast.walk(tree)
+                if isinstance(n, (ast.Module, ast.FunctionDef,
+                                  ast.AsyncFunctionDef, ast.ClassDef))
+                and n.body and isinstance(n.body[0], ast.Expr)
+                and isinstance(n.body[0].value, ast.Constant)}
+        bad += [(os.path.relpath(path, ROOT), n.value) for n in ast.walk(tree)
+                if isinstance(n, ast.Constant) and isinstance(n.value, str)
+                and id(n) not in docs and _names_jax_tree(n.value)]
+    csrc = os.path.join(PORT, "csrc")
+    for name in sorted(os.listdir(csrc)):
+        with open(os.path.join(csrc, name)) as f:
+            bad += [(name, line) for line in f
+                    if line.startswith("#include") and "gdmix_tpu" in line]
+    assert not bad, bad
+    from gdmix_tpu_torch import native
+    from gdmix_tpu_torch.ops import _cuda
+    for src in (native._SRC, native._AVRO_SRC, native._BKT_SRC):
+        assert os.path.dirname(src) == os.path.join(PORT, "native"), src
+        assert os.path.exists(src), src
+    assert _cuda.CSRC == csrc
+
+
 # functions copied verbatim into a ported module: (module, function), apart
 # from the listed edits of their docstrings (the JAX package's timings on
 # its own device, which the port does not state)
@@ -398,8 +473,9 @@ def test_cuda_wrappers_raise_without_a_card():
         lambda: nl.newton_full(m(B, d), m(B, n, d), m(B, n), m(B, n),
                                m(B, n), m(B), lam=1.0, unreg_bias=True,
                                maxiter=5, ftol=1e-12, pgtol=1e-5),
-        lambda: nl.newton_fgd(m(B, n, d), m(B, n), m(B, n), m(B, n), m(B),
-                              m(B, d), lam=1.0, unreg_bias=True),
+        lambda: nl.newton_block(m(B, d), m(B, n, d), m(B, n), m(B, n),
+                                m(B, n), m(B), lam=1.0, unreg_bias=True,
+                                maxiter=5, ftol=1e-12, pgtol=1e-5),
         lambda: fe.fe_loss_grad_fused(m(d + 1), mi(n, 3), m(n, 3), m(n),
                                       m(n), m(n), d),
         lambda: fe.fe_loss_grad_fused(m(d), mi(n, 3), m(n, 3), m(n), m(n),
@@ -417,15 +493,15 @@ def test_cuda_wrappers_raise_without_a_card():
         with pytest.raises(ValueError, match="expected CUDA tensors"):
             call()
     for fn in (linsolve.spd_solve_batched, linsolve.spd_solve_batched_mrhs,
-               nl.newton_full, nl.newton_fgd, fe.fe_loss_grad_fused,
+               nl.newton_full, nl.newton_block, fe.fe_loss_grad_fused,
                fe.fe_gather_entries, fe.fe_scatter_entries,
                fh.fe_hybrid_hot, ws.windowed_scatter_add):
         assert fn.launches == 0
     try:
         _cuda._nvcc()
     except RuntimeError:
-        for name in ("ldlt_solve", "fe_loss_grad", "fe_hybrid",
-                     "windowed_scatter"):
+        for name in ("ldlt_solve", "newton_lanes", "fe_loss_grad",
+                     "fe_hybrid", "windowed_scatter"):
             with pytest.raises(RuntimeError, match="nvcc not found"):
                 _cuda.load(name)
 

@@ -298,3 +298,126 @@ def test_unported_rungs_raise(tmp_path, over, item):
     with pytest.raises(NotImplementedError, match=item):
         model.train(os.path.join(train_dir, "active"), None, md_file,
                     model.checkpoint_path, _ctx(tmp_path), schema)
+
+
+# ---- the bucket plan: one launch per tier ----------------------------------
+
+def test_primary_plan_is_one_bucket_per_tier():
+    """The smoke's primary workload (100,000 entities, seed 0): the port's
+    plan keeps each sample-count tier whole — 4 buckets, one launch each —
+    where the JAX package's plan at the same dispatch latency cuts three of
+    the tiers into 128-entity pieces (305 buckets)."""
+    import chip_smoke
+    from gdmix_tpu.data.bucketing import plan_lane_buckets as jax_plan
+    from gdmix_tpu_torch.data import bucketing as tb
+    counts = np.asarray(chip_smoke.make_workload_flat(100_000, seed=0).counts)
+    caps = tb._sample_caps(counts, 8)
+    plan = tb.plan_lane_buckets(counts, caps, dispatch_latency_s=1e-3)
+    assert [(c, len(m)) for c, m in plan] == [
+        (8, 61178), (16, 18234), (32, 11253), (64, 9335)]
+    np.testing.assert_array_equal(
+        np.sort(np.concatenate([m for _, m in plan])), np.arange(len(counts)))
+    assert len(jax_plan(counts, caps, dispatch_latency_s=1e-3)) == 305
+
+
+def _records(E, seed, max_nnz=4, D=40):
+    """Per-record data of E entities with 1–69 records each, in shuffled
+    entity order (the port's PerRecordData)."""
+    from gdmix_tpu_torch.io.input_pipeline import PerRecordData
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(1, 70, E)
+    N = int(counts.sum())
+    ent = np.repeat(rng.permutation(E), counts)
+    nnz = rng.integers(1, max_nnz + 1, N).astype(np.int32)
+    values = rng.standard_normal((N, max_nnz))
+    values[np.arange(max_nnz)[None, :] >= nnz[:, None]] = 0.0
+    cols = {"uid": rng.integers(0, 1 << 40, N),
+            "response": rng.integers(0, 2, N).astype(np.float64),
+            "weight": rng.random(N) + 0.5, "offset": rng.standard_normal(N),
+            "entity": np.asarray([f"e{v}" for v in ent], dtype=object)}
+    return PerRecordData(columns=cols,
+                         indices=rng.integers(0, D, (N, max_nnz)),
+                         values=values, nnz=nnz, num_samples=N)
+
+
+def test_object_and_columnar_paths_plan_alike():
+    """bucketize (entity objects) and iter_bucketize_flat (columnar) give
+    the same buckets, one per tier, on data whose largest tiers the JAX
+    package's plan would cut into 128-entity pieces."""
+    from types import SimpleNamespace
+    from gdmix_tpu.data.bucketing import plan_lane_buckets as jax_plan
+    from gdmix_tpu_torch.data import bucketing as tb
+    from gdmix_tpu_torch.data.partitioner import (PartitionerConfig,
+                                                  group_by_entity, group_flat)
+    data = _records(1500, seed=4)
+    cfg = PartitionerConfig(partition_entity="entity", num_partitions=1,
+                            uid_column_name="uid")
+    gids = np.zeros(data.num_samples, np.int64)
+    groups = [g for _, _, g in group_by_entity(data, cfg, None, gids)]
+    sp = SimpleNamespace(label_column_name="response",
+                         weight_column_name="weight", uid_column_name="uid")
+    slow = tb.bucketize(groups, sp, "offset")
+    fast = list(tb.iter_bucketize_flat(group_flat(data, cfg, gids,
+                                                  active_only=True),
+                                       sp, "offset"))
+    counts = np.array([g.sample_count for g in groups])
+    caps = tb._sample_caps(counts, 8)
+    assert [b.n_cap for b in slow] == [b.n_cap for b in fast] == list(caps)
+    assert len(jax_plan(counts, caps, dispatch_latency_s=1e-3)) > len(caps)
+    for a, b in zip(slow, fast):
+        assert a.entity_ids == b.entity_ids
+        for f in ("indices", "values", "offsets", "labels", "weights", "uids",
+                  "sample_count", "unique_global_indices", "u_count",
+                  "theta0"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f),
+                                          err_msg=f)
+
+
+def _by_entity(table):
+    """{entity id: (coefficient ids, values, intercept)} of a ModelTable."""
+    return {e: (table.coef_ids[table.offs[i]:table.offs[i + 1]],
+                table.coef_vals[table.offs[i]:table.offs[i + 1]],
+                table.icpt[i]) for i, e in enumerate(table.ids)}
+
+
+def test_fit_flat_f64_matches_jax_where_the_old_plan_split_a_tier(tmp_path):
+    """fit_flat in float64 on the CPU, port against JAX (its host plane), on
+    a workload whose n = 16 tier (143 entities) the JAX package's plan cuts
+    into two buckets and the port's keeps whole: the same models."""
+    import chip_smoke
+    from gdmix_tpu.data.bucketing import FlatGroups as JaxFlatGroups
+    from gdmix_tpu.data.bucketing import plan_lane_buckets as jax_plan
+    from gdmix_tpu.models.random_effect_lr import \
+        RandomEffectLRModel as JaxRE
+    from gdmix_tpu.params import Params as JaxParams
+    from gdmix_tpu.params import REParams as JaxREParams
+    from gdmix_tpu_torch.data import bucketing as tb
+    fg = chip_smoke.make_workload_flat(800, seed=5)
+    counts = np.asarray(fg.counts)
+    caps = tb._sample_caps(counts, 8)
+    assert len(jax_plan(counts, caps, dispatch_latency_s=1e-3)) == 5
+    assert len(tb.plan_lane_buckets(counts, caps,
+                                    dispatch_latency_s=1e-3)) == 4
+    stop = dict(lbfgs_tolerance=1e-14, lbfgs_pgtol=1e-10)
+    port, schema = chip_smoke.stage_model(24, str(tmp_path / "port"),
+                                          dtype="float64", device="cpu",
+                                          **stop)
+    got = port.fit_flat(fg, {}, schema)
+    fields = dict(port.model_params.__dict__, re_mode="host")
+    jax_schema = JaxParams(**{k: v for k, v in schema.__dict__.items()
+                              if k in JaxParams.__dataclass_fields__})
+    jax_model = JaxRE(JaxREParams(**{k: v for k, v in fields.items()
+                                     if k in JaxREParams.__dataclass_fields__}),
+                      jax_schema)
+    want = jax_model.fit_flat(JaxFlatGroups(
+        entity_ids=fg.entity_ids, counts=fg.counts, columns=fg.columns,
+        indices=fg.indices, values=fg.values, rec_nnz=fg.rec_nnz), {},
+        jax_schema)
+    g, w = _by_entity(got), _by_entity(want)
+    assert set(g) == set(w) and len(g) == len(fg)
+    for e, (ids, vals, icpt) in w.items():
+        np.testing.assert_array_equal(g[e][0], ids)
+        np.testing.assert_allclose(g[e][1], vals, rtol=0, atol=1e-6)
+        assert abs(g[e][2] - icpt) <= 1e-6
+    conv, total = port.last_fit_converged
+    assert conv == total == len(fg)
