@@ -32,7 +32,12 @@ Phases, each printing one result line; any failure exits non-zero:
                 medians of 5 turns), the privatised form at the largest D
                 it takes, the device-memory form at D = 100,000 Zipf and
                 D = 1,000,000 uniform, cuts at K = 5 and 12, without an
-                intercept and with weight-0 rows, and float64.
+                intercept and with weight-0 rows, and float64; the flat
+                entry scatter (K10/K11, on the fused kernel's table) at
+                uniform and Zipf ids at D = 10,000 in float32 and float64,
+                at the largest privatised D, at D = 100,000 Zipf and
+                D = 1,000,000 uniform, each against its plain version in
+                float64 and timed beside index_add_.
   4. fit      — RandomEffectLRModel.fit_flat at full width: the primary
                 random-effect workload (100k entities, 24 features, pareto
                 sample counts 2..64), a moderate-support cut
@@ -64,7 +69,10 @@ Phases, each printing one result line; any failure exits non-zero:
                 plain-version fit, K12
                 (A = 16,384, A = 65,536 through the tiered table, float64,
                 and uniform compact ids) and K13
-                (gradient and row layouts) against their plain versions;
+                (gradient and row layouts, through their work plans; two
+                calls equal) against their plain versions, and K13 on a
+                layout with a split, an owned, a padding, a value-0 and an
+                unreached window into a table allocated onto NaN;
                 uniform ids at D = 1M, where the split declines.
   6. pipeline — `python -m gdmix_tpu_torch.workflow.main --mode in_memory
                 --num_sweeps 2` (run in this process, so the launch counts
@@ -920,6 +928,57 @@ def _fe_edge_rows():
     return worst
 
 
+def _entry_contributions(b, x):
+    """The flat pair's entry contributions ce = v·r of a batch at x (the
+    logistic residuals): K10's input on the pallas_flat path."""
+    import torch
+    from gdmix_tpu_torch.ops import fe_loss_grad as fe
+    n, k = b.indices.shape
+    idx, val = b.indices.reshape(-1), b.values.reshape(-1)
+    z = torch.sum(fe.fe_gather_entries_plain(x[:-1], idx, val).reshape(n, k),
+                  1) + b.offsets + x[-1]
+    return (b.values * (b.weights * (torch.sigmoid(z) - b.labels))[:, None]
+            ).reshape(-1)
+
+
+def _k10_row(tag, idx, ce, d):
+    """K10/K11 against its plain version on the card, which runs in float64
+    on the same contributions (under Zipf ids ~10⁷ float32 additions meet in
+    id 0, and the error reported should be the kernel's): rel ≤
+    FE_GRAD_RTOL in float32, FE_F64_RTOL in float64; the kernel adds with
+    atomics in another order than `index_add_`. Times: CUDA events over
+    back-to-back calls, device time by torch.profiler, the plain version and
+    `index_add_` in the working type; the bound reads ids and
+    contributions once and writes the table once, one add an entry."""
+    import torch
+    from gdmix_tpu_torch.ops import fe_loss_grad as fe
+    item = ce.element_size()
+    k = lambda: fe.fe_scatter_entries(idx, ce, d)
+    p = lambda: fe.fe_scatter_entries_plain(idx, ce, d)
+    lib = lambda: torch.zeros(d, dtype=ce.dtype, device=DEV).index_add_(
+        0, idx, ce)
+    got, want = k(), fe.fe_scatter_entries_plain(idx, ce.double(), d)
+    torch.cuda.synchronize()
+    err, rel = float((got.double() - want).abs().max()), _rel(got.double(),
+                                                              want)
+    tol = FE_F64_RTOL if item == 8 else FE_GRAD_RTOL
+    _check(got.dtype == ce.dtype and rel <= tol,
+           f"fe_scatter_entries {tag}: rel {rel}")
+    ms, pms, lms = _time_ms(k, 20), _time_ms(p, 5), _time_ms(lib, 5)
+    dev_ms = _top_kernels(k, reps=10)[0]
+    E = idx.shape[0]
+    bound, by = _bound((4 + item) * E + item * d, E, item)
+    form = ("privatised" if fe.privatised_form(d, item) == fe.FORM_BLOCK
+            else "device_memory")
+    _say("kernels", kernel="fe_scatter_entries", cut=tag, E=E, D=d,
+         dtype=str(ce.dtype).split(".")[1], form=form,
+         max_abs_err=f"{err:.3e}", rel=f"{rel:.2e}", ms=f"{ms:.4f}",
+         device_ms=f"{dev_ms:.4f}", plain_ms=f"{pms:.3f}",
+         library_ms=f"{lms:.4f}", bound_ms=f"{bound:.4f}", bound_by=by)
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=pms, library_ms=lms,
+                bound_ms=bound, bound_by=by, max_abs_err=err)
+
+
 def phase_fe_kernels():
     """The three FE kernels against their plain versions at full width,
     uniform and Zipf(1.2) ids, logistic and linear; the fused kernel in
@@ -1011,42 +1070,36 @@ def phase_fe_kernels():
             w0[FE_N // 3:FE_N // 3 + 100_000] = 0.0
             worst(_fe_fused_row("weight_0_rows", args[:4] + (w0,) + args[5:],
                                 reps=5)[1])
-        # the flat pair's kernels alone, on the logistic entry residuals
+        # the flat pair's kernels alone, on the logistic entry residuals:
+        # the gather reads ids, values and θ and writes [E], one flop an
+        # entry; the scatter (K10) in _k10_row
         idx, val = b.indices.reshape(-1), b.values.reshape(-1)
-        z = torch.sum(fe.fe_gather_entries_plain(x[:-1], idx, val).reshape(
-            FE_N, FE_K), 1) + b.offsets + x[-1]
-        ce = (b.values * (b.weights * (torch.sigmoid(z) - b.labels))[:, None]
-              ).reshape(-1)
+        ce = _entry_contributions(b, x)
         E = FE_N * FE_K
-        # the gather reads ids, values and θ and writes [E]; the scatter
-        # reads ids and contributions and writes [D]; one flop an entry.
-        # The scatter's yardstick is index_add_ on the same inputs
-        for name, kf, pf, lib, nbytes in (
-                ("fe_gather_entries",
-                 lambda: fe.fe_gather_entries(x[:-1], idx, val),
-                 lambda: fe.fe_gather_entries_plain(x[:-1], idx, val),
-                 None, 4 * (3 * E + FE_D)),
-                ("fe_scatter_entries",
-                 lambda: fe.fe_scatter_entries(idx, ce, FE_D),
-                 lambda: fe.fe_scatter_entries_plain(idx, ce, FE_D),
-                 lambda: torch.zeros(FE_D, device=DEV).index_add_(0, idx,
-                                                                  ce),
-                 4 * (2 * E + FE_D))):
-            out_k, out_p = kf(), pf()
-            err, rel = float((out_k - out_p).abs().max()), _rel(out_k, out_p)
-            _check(rel <= FE_GRAD_RTOL, f"{name} {ids}: rel {rel}")
-            ms, pms = _time_ms(kf, 10), _time_ms(pf, 5)
-            lms = None if lib is None else _time_ms(lib, 5)
-            bound, by = _bound(nbytes, E)
-            _say("kernels", kernel=name, ids=ids, E=E,
-                 max_abs_err=f"{err:.3e}", rel=f"{rel:.2e}", ms=f"{ms:.3f}",
-                 plain_ms=f"{pms:.3f}", library_ms=lms,
-                 bound_ms=f"{bound:.4f}", bound_by=by)
-            res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
-            if ids == "uniform":
-                res[name].update(ms=ms, plain_ms=pms, library_ms=lms,
-                                 bound_ms=bound, bound_by=by)
-        del b, args, z, ce, idx, val
+        kf = lambda: fe.fe_gather_entries(x[:-1], idx, val)
+        pf = lambda: fe.fe_gather_entries_plain(x[:-1], idx, val)
+        out_k, out_p = kf(), pf()
+        err, rel = float((out_k - out_p).abs().max()), _rel(out_k, out_p)
+        _check(rel <= FE_GRAD_RTOL, f"fe_gather_entries {ids}: rel {rel}")
+        ms, pms = _time_ms(kf, 10), _time_ms(pf, 5)
+        bound, by = _bound(4 * (3 * E + FE_D), E)
+        _say("kernels", kernel="fe_gather_entries", ids=ids, E=E,
+             max_abs_err=f"{err:.3e}", rel=f"{rel:.2e}", ms=f"{ms:.3f}",
+             plain_ms=f"{pms:.3f}", library_ms=None,
+             bound_ms=f"{bound:.4f}", bound_by=by)
+        gat = res["fe_gather_entries"]
+        gat["max_abs_err"] = max(gat["max_abs_err"], err)
+        if ids == "uniform":
+            gat.update(ms=ms, plain_ms=pms, library_ms=None, bound_ms=bound,
+                       bound_by=by)
+        row = _k10_row(ids, idx, ce, FE_D)
+        sca = res["fe_scatter_entries"]
+        sca["max_abs_err"] = max(sca["max_abs_err"], row["max_abs_err"])
+        sca.setdefault("forms", {})[f"{ids}_ms"] = row["ms"]
+        if ids == "uniform":
+            sca.update({k_: row[k_] for k_ in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+        del b, args, ce, idx, val, out_k, out_p
     # other widths of the table: the largest D the privatised form takes,
     # and the device-memory form at D = 100,000 Zipf and D = 1,000,000
     # uniform
@@ -1061,6 +1114,12 @@ def phase_fe_kernels():
             xd, bd.indices, bd.values, bd.labels, bd.weights, bd.offsets, d))
         worst(err)
         fused["forms"][f"{tag}_ms"] = ms
+        # K10 at the same widths: its forms follow the same chooser
+        row = _k10_row(tag, bd.indices.reshape(-1),
+                       _entry_contributions(bd, xd), d)
+        sca = res["fe_scatter_entries"]
+        sca["max_abs_err"] = max(sca["max_abs_err"], row["max_abs_err"])
+        sca["forms"][f"{tag}_ms"] = row["ms"]
         del bd
     # float64: the kernels must not quietly run in float32; the privatised
     # form at D = 10,000 and at the largest D it takes in float64, and the
@@ -1077,6 +1136,15 @@ def phase_fe_kernels():
         _fe_fused_row(tag, args, reps=5)
         _fe_fused_row(f"{tag}_device_form", args, reps=5, device=True)
         if d == FE_D:
+            # K11, the float64 scatter, at uniform and Zipf(1.2) ids
+            for ids in ("uniform", "zipf"):
+                bk = b if ids == "uniform" else fe_problem(
+                    ids, seed=2, n=n64, dtype=torch.float64, d=d)
+                row = _k10_row(f"{ids}_float64", bk.indices.reshape(-1),
+                               _entry_contributions(bk, x), d)
+                sca = res["fe_scatter_entries"]
+                sca["forms"][f"{ids}_float64_ms"] = row["ms"]
+                del bk
             lp, gp = fe.fe_loss_grad_plain(*args)
             lv, gv = fe.fe_loss_grad_flat(*args)
             l_rel = abs(float(lv - lp)) / abs(float(lp))
@@ -1718,35 +1786,100 @@ def _k12_row(tag, args):
                 library_ms=None, max_abs_err=float((gk - gp).abs().max())), rp
 
 
-def _k13_row(tag, idxl, contrib, win, nw):
+def _k13_row(tag, idxl, contrib, win, nw, plan):
     """K13 against its plain version and `index_add_` into the table (the
-    yardstick, with the per-entry targets made beforehand)."""
+    yardstick, with the per-entry targets made beforehand); two calls in a
+    row must be equal (the split windows' counters are back at 0, and a
+    stream sorted within each window sums in one order). The bound reads
+    the tiles the plan reads (it leaves out those whose values are all 0:
+    their contributions are 0 in every call), their tile ids, and writes
+    the table."""
     import torch
     from gdmix_tpu_torch.ops import windowed_scatter as ws
     from gdmix_tpu_torch.ops.logistic import HYBRID_SCATTER_WINDOW as W
     tile_rows = idxl.shape[0] // win.shape[0]
-    k = lambda: ws.windowed_scatter_add(idxl, contrib, win, nw, W, tile_rows)
+    k = lambda: ws.windowed_scatter_add(idxl, contrib, win, nw, W, tile_rows,
+                                        plan)
     p = lambda: ws.windowed_scatter_add_plain(idxl, contrib, win, nw, W,
                                               tile_rows)
     target = (win.long().repeat_interleave(tile_rows * 16) * W
               + idxl.reshape(-1).long())
     flat = contrib.reshape(-1)
     lib = lambda: torch.zeros(nw * W, device=DEV).index_add_(0, target, flat)
-    tk, tp = k(), p()
+    tk, tk2, tp = k().clone(), k(), p()
     torch.cuda.synchronize()
     err, rel = float((tk - tp).abs().max()), _rel(tk, tp)
-    _check(rel <= FE_GRAD_RTOL, f"windowed_scatter_add {tag}: rel {rel}")
-    ms, pms, lms = _time_ms(k, 20), _time_ms(p, 5), _time_ms(lib, 5)
+    _check(rel <= FE_GRAD_RTOL and bool(torch.equal(tk, tk2)),
+           f"windowed_scatter_add {tag}: rel {rel}, two calls equal "
+           f"{bool(torch.equal(tk, tk2))}")
+    ms, pms, lms = _time_ms(k, 50), _time_ms(p, 5), _time_ms(lib, 5)
+    dev_ms = _top_kernels(k, reps=20)[0]
     M, n_tiles = flat.shape[0], win.shape[0]
-    # index and contribution per entry and the tile windows in, the table
-    # out; one add an entry
-    bound, by = _bound(8 * M + 4 * n_tiles + 4 * nw * W, M)
+    n_read = plan.tiles_read
+    m_read = n_read * tile_rows * 16
+    bound, by = _bound(8 * m_read + 4 * n_read + 4 * nw * W, m_read)
+    bound_all = _bound(8 * M + 4 * n_tiles + 4 * nw * W, M)[0]
     _say("kernels", kernel="windowed_scatter_add", layout=tag, M=M,
-         tiles=n_tiles, windows=nw, max_abs_err=f"{err:.3e}",
-         rel=f"{rel:.2e}", ms=f"{ms:.3f}", plain_ms=f"{pms:.3f}",
-         library_ms=f"{lms:.3f}", bound_ms=f"{bound:.4f}", bound_by=by)
-    return dict(ms=ms, plain_ms=pms, bound_ms=bound, bound_by=by,
-                library_ms=lms, max_abs_err=err)
+         M_read=m_read, tiles=n_tiles, tiles_read=n_read, windows=nw,
+         items=plan.items.shape[0], split_items=plan.scratch.shape[0],
+         tile_cap=plan.tile_cap, max_abs_err=f"{err:.3e}", rel=f"{rel:.2e}",
+         ms=f"{ms:.4f}", device_ms=f"{dev_ms:.4f}", plain_ms=f"{pms:.3f}",
+         library_ms=f"{lms:.3f}", bound_ms=f"{bound:.4f}", bound_by=by,
+         bound_all_tiles_ms=f"{bound_all:.4f}")
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=pms, bound_ms=bound,
+                bound_by=by, library_ms=lms, max_abs_err=err)
+
+
+def _k13_edge_row():
+    """K13 on a layout with every kind of window: one split over several
+    items, owned ones, one that collects the cold padding, one whose
+    entries all have value 0 and one no entry reaches (a tile of padding
+    each, both left out of the plan). The table comes from torch.empty,
+    here onto memory just filled with NaN: every window must be written,
+    the slots no entry reaches exactly 0; two calls equal; the counters
+    back at 0."""
+    import torch
+    from gdmix_tpu_torch.ops import windowed_scatter as ws
+    from gdmix_tpu_torch.ops.logistic import (HYBRID_SCATTER_TILE_ROWS as TR,
+                                              HYBRID_SCATTER_WINDOW as W,
+                                              _windowed_layout)
+    rng = np.random.RandomState(8)
+    nw = 7
+    parts = [rng.randint(1, W, 300), W + rng.randint(0, W, 60_000),
+             2 * W + rng.randint(0, W, 500), 4 * W + rng.randint(0, W, 3000),
+             5 * W + rng.randint(0, W // 2, 9000), [6 * W + 7]]
+    key = np.concatenate(parts + [np.zeros(5000, int)]).astype(np.int32)
+    val = rng.randn(key.shape[0]).astype(np.float32)
+    val[-5000:] = 0.0                          # the cold arrays' padding
+    val[(key >= 4 * W) & (key < 5 * W)] = 0.0  # a window of value-0 entries
+    t = lambda a: torch.as_tensor(a, device=DEV)
+    idxl, _, _, v, win = _windowed_layout(t(key), t(key), t(key), t(val),
+                                          nw * W, W, TR)
+    plan = ws.windowed_plan(win, v, nw, W, blocks=16)
+    contrib = v * t(rng.randn(*v.shape).astype(np.float32))
+    want = ws.windowed_scatter_add_plain(idxl, contrib, win, nw, W, TR)
+    torch.empty(nw * W, device=DEV).fill_(float("nan"))   # freed: reused
+    got = ws.windowed_scatter_add(idxl, contrib, win, nw, W, TR, plan).clone()
+    again = ws.windowed_scatter_add(idxl, contrib, win, nw, W, TR, plan)
+    torch.cuda.synchronize()
+    reached = torch.zeros(nw * W, dtype=torch.bool, device=DEV)
+    live = v.reshape(-1) != 0
+    reached[(win.long().repeat_interleave(TR * 16) * W
+             + idxl.reshape(-1).long())[live]] = True
+    items = plan.items.cpu().numpy()
+    split = int((items[:, 3] >= 0).sum())
+    rel = _rel(got, want)
+    ok = dict(finite=bool(torch.isfinite(got).all()),
+              untouched_zero=bool((got[~reached] == 0).all()),
+              equal_twice=bool(torch.equal(got, again)),
+              counters_zero=int(plan.counters.abs().sum()) == 0,
+              split=split > 0, rel=rel <= FE_GRAD_RTOL)
+    _say("kernels", kernel="windowed_scatter_add", layout="edges",
+         windows=nw, tiles=win.shape[0], tiles_read=plan.tiles_read,
+         items=items.shape[0], split_items=split, rel=f"{rel:.2e}",
+         **{k_: v_ for k_, v_ in ok.items() if k_ != "rel"})
+    _check(all(ok.values()), f"windowed_scatter_add edges: {ok}")
+    return float((got - want).abs().max())
 
 
 def phase_wide_d(card):
@@ -1942,11 +2075,18 @@ def phase_wide_d(card):
         w = x[:-1]
         ce = (aux.gs_val * r[aux.gs_row.long()]).float()
         wv = (w[aux.zs_idx.long()] * aux.zs_val).float()
-        rows["windowed_scatter_add"] = _k13_row(
-            "gradient", aux.gs_idxl, ce, aux.gs_win, (D + W - 1) // W)
-        zrow = _k13_row("rows", aux.zs_rowl, wv, aux.zs_win, aux.zs_nwin)
-        rows["windowed_scatter_add"]["max_abs_err"] = max(
-            rows["windowed_scatter_add"]["max_abs_err"], zrow["max_abs_err"])
+        rows["windowed_scatter_add"] = k13 = _k13_row(
+            "gradient", aux.gs_idxl, ce, aux.gs_win, (D + W - 1) // W,
+            aux.gs_plan)
+        zrow = _k13_row("rows", aux.zs_rowl, wv, aux.zs_win, aux.zs_nwin,
+                        aux.zs_plan)
+        k13["max_abs_err"] = max(k13["max_abs_err"], zrow["max_abs_err"],
+                                 _k13_edge_row())
+        k13["forms"] = {"gradient_device_ms": k13.pop("device_ms"),
+                        "rows_ms": zrow["ms"],
+                        "rows_device_ms": zrow["device_ms"],
+                        "rows_bound_ms": zrow["bound_ms"],
+                        "rows_library_ms": zrow["library_ms"]}
         del aux, aux_ph, b, ce, wv, r
 
         # uniform ids: no hot set, the builder declines, the fused kernel

@@ -10,6 +10,10 @@
 // strip below uses. Entries of value 0 and records of weight 0 are inert:
 // their ids are never used as an address. Float and double.
 //
+// The gradient table of the pass (GradTable: init, add, flush) stands apart
+// from the record loop, so the flat entry scatter of fe_loss_grad.cu (K10,
+// g[idx[e]] += ce[e]) adds through the same forms, strips and cache.
+//
 // Bound: device memory. A record is read once (K ids and values, y, w, off;
 // 140 bytes at K = 16 in float32) and, for K12, r written once; θ and g stay
 // on the SM. What the design has to keep off the critical path is the N·K
@@ -44,14 +48,15 @@
 //    needed, and the strips are summed into the table once per block. K12's
 //    compact ids are rank-ordered, so its strips are the ids below
 //    kStrip. K5's raw ids carry no rank: each block first counts a
-//    sample of its entries in a hashed table (learn_hot_ids) and gives a
-//    strip to every id above 1/256 of the sample; an entry then costs one
-//    more shared load to ask whether its id has a strip. Which ids are
+//    sample of its entries in a hashed table (learn_hot_ids; K10 alike)
+//    and gives a strip to every id above 1/256 of the sample; an entry
+//    then costs one more shared load to ask whether its id has a strip.
+//    Which ids are
 //    chosen affects the time only, never the sums.
 //  * Loss and Σr are double sums, reduced over the block, one double atomic
 //    per block.
-// The headers of the two .cu files give the alternatives that were measured
-// against each of these choices, and their times.
+// The headers of fe_loss_grad.cu and fe_hybrid.cu give the alternatives
+// that were measured against each of these choices, and their times.
 #pragma once
 
 #include <cstdint>
@@ -177,26 +182,19 @@ struct Pass {
   double* sums;        // [2]: loss, Σr; zero on entry
 };
 
-// Dynamic shared memory of one form: the table [s], the strips
-// [kStrip, 32], for K5 the hashed table of its sampled ids, and for K5's
-// device-memory form the cache's ids and sums.
-template <typename T, bool kHybrid, int kForm>
-size_t smem_bytes(int s) {
-  return sizeof(T) * ((size_t)s + 32 * (size_t)kStrip) +
-         (kHybrid ? 0 : sizeof(int32_t) * (2 * kBuckets + kStrip)) +
-         (kHybrid || kForm != kDevice ? 0
-                                      : (sizeof(int32_t) + sizeof(T)) * kCache);
-}
-
-// K5: which ids get a strip. The block counts a sample of its entries by
-// id & (kBuckets − 1), keeping one candidate id a bucket and counting only
-// that id; ids at or above 1/64 of the sample are placed first, then those
-// at or above 1/256, up to kStrip. On return key[b] is the id with a strip
-// in bucket b (or −1), slot[b] its strip, hot_id[i] the id of strip i;
-// returns the number of strips in use. All threads must call.
+// Which ids get a strip (K5 and K10, whose raw ids carry no rank). The
+// block counts a sample of kSample entries of the id array, from position
+// blockIdx.x·kSample on (wrapping), by id & (kBuckets − 1), keeping one
+// candidate id a bucket and counting only that id; entries of value 0 are
+// not counted. Ids at or above 1/64 of the sample are placed first, then
+// those at or above 1/256, up to kStrip. On return key[b] is the id with a
+// strip in bucket b (or −1), slot[b] its strip, hot_id[i] the id of strip
+// i; returns the number of strips in use. All threads must call.
 template <typename T>
-__device__ __forceinline__ int learn_hot_ids(const Pass<T>& p, int32_t* key,
-                                             int32_t* slot, int32_t* hot_id) {
+__device__ __forceinline__ int learn_hot_ids(const int32_t* ids,
+                                             const T* vals, int64_t total,
+                                             int32_t* key, int32_t* slot,
+                                             int32_t* hot_id) {
   __shared__ int n_hot;
   for (int b = threadIdx.x; b < kBuckets; b += kThreads) {
     key[b] = -1;
@@ -204,14 +202,13 @@ __device__ __forceinline__ int learn_hot_ids(const Pass<T>& p, int32_t* key,
   }
   if (threadIdx.x == 0) n_hot = 0;
   __syncthreads();
-  const int64_t total = p.n * p.k;
   const int64_t first = total > 0 ? ((int64_t)blockIdx.x * kSample) % total
                                   : 0;
   for (int pass = 0; pass < 2; ++pass) {
     for (int64_t i = threadIdx.x; i < kSample && i < total; i += kThreads) {
       const int64_t e = first + i < total ? first + i : first + i - total;
-      if (p.val[e] == T(0)) continue;
-      const int32_t a = p.idx[e];
+      if (vals[e] == T(0)) continue;
+      const int32_t a = ids[e];
       const int b = a & (kBuckets - 1);
       if (pass == 0) key[b] = a;       // any one of the bucket's ids
       else if (key[b] == a) atomicAdd(slot + b, 1);
@@ -238,39 +235,67 @@ __device__ __forceinline__ int learn_hot_ids(const Pass<T>& p, int32_t* key,
   return n_hot < kStrip ? n_hot : kStrip;
 }
 
-template <typename T, bool kVec, bool kHybrid, int kForm>
-__global__ void __launch_bounds__(kThreads)
-fe_pass_kernel(const Pass<T> p) {
-  constexpr int L = kVec ? kVecLanes : 1;             // lanes per record
-  constexpr int E = kVec ? kVecMaxK / kVecLanes : 1;  // entries per lane
-  constexpr int R = 32 / L;                           // records per warp
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* g_s = reinterpret_cast<T*>(smem_raw);            // [s]
-  T* strip = g_s + p.s;                               // [kStrip, 32]
-  int32_t* key = reinterpret_cast<int32_t*>(strip + 32 * kStrip);
-  int32_t* slot = key + kBuckets;
-  int32_t* hot_id = slot + kBuckets;
-  // K5's device-memory form: slot h caches the gradient of the first id a
-  // with a % kCache == h that the block meets (−1: free)
-  constexpr bool kCached = !kHybrid && kForm == kDevice;
-  int32_t* c_id = hot_id + kStrip;
-  T* c_sum = reinterpret_cast<T*>(c_id + kCache);
-  for (int a = threadIdx.x; a < p.s + 32 * kStrip; a += kThreads)
-    g_s[a] = T(0);
-  if constexpr (kCached) {
-    for (int h = threadIdx.x; h < kCache; h += kThreads) {
-      c_id[h] = -1;
-      c_sum[h] = T(0);
-    }
+// The gradient table one block adds into, in the forms of the Design
+// above; where each id's sum lives is fixed at compile time by kForm and
+// kRanked. kRanked (K12): ids are rank-ordered, the strips are the ids
+// below kStrip, and the block table is tiered at s. Otherwise (K5, K10) the
+// strips go to sampled ids, and the device form keeps the hashed cache.
+//   init  — carve the dynamic shared memory, zero it, choose the strips;
+//   add   — one addition of c to id a, by the caller's lane of its warp;
+//   flush — the strips, the cache and the block table into device memory.
+// init and flush hold block barriers: every thread of the block calls them.
+template <typename T, int kForm, bool kRanked>
+struct GradTable {
+  static constexpr bool kCached = !kRanked && kForm == kDevice;
+  T* g;             // [d] device memory, zero on entry
+  T* g_s;           // [s] the block's table
+  T* strip;         // [kStrip, 32]
+  int32_t* key;     // [kBuckets] the sampled ids' hashed table (!kRanked)
+  int32_t* slot;    // [kBuckets]
+  int32_t* hot_id;  // [kStrip]
+  int32_t* c_id;    // [kCache] the cache (kCached): slot h's id, −1 free
+  T* c_sum;         // [kCache]
+  int s;            // ids below s live in g_s (kBlock)
+  int hs;           // strips in use
+
+  // Dynamic shared memory of one form: the table [s], the strips
+  // [kStrip, 32], for sampled strips their hashed table, and for the
+  // cached form the cache's ids and sums.
+  static size_t smem_bytes(int s) {
+    return sizeof(T) * ((size_t)s + 32 * (size_t)kStrip) +
+           (kRanked ? 0 : sizeof(int32_t) * (2 * kBuckets + kStrip)) +
+           (kCached ? (sizeof(int32_t) + sizeof(T)) * kCache : 0);
   }
-  // the strips in use: K12's most frequent compact ids, or K5's sampled ones
-  int hs = kStrip < p.d ? kStrip : p.d;
-  if constexpr (!kHybrid) hs = learn_hot_ids(p, key, slot, hot_id);
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int sub = lane % L;
+
+  // ids / vals / total: the entries the strips are sampled from (not read
+  // when kRanked); d the table's size.
+  __device__ __forceinline__ void init(unsigned char* smem, T* g_dev,
+                                       int s_, int d, const int32_t* ids,
+                                       const T* vals, int64_t total) {
+    g = g_dev;
+    s = s_;
+    g_s = reinterpret_cast<T*>(smem);
+    strip = g_s + s;
+    key = reinterpret_cast<int32_t*>(strip + 32 * kStrip);
+    slot = key + kBuckets;
+    hot_id = slot + kBuckets;
+    c_id = hot_id + kStrip;
+    c_sum = reinterpret_cast<T*>(c_id + kCache);
+    for (int a = threadIdx.x; a < s + 32 * kStrip; a += kThreads)
+      g_s[a] = T(0);
+    if constexpr (kCached) {
+      for (int h = threadIdx.x; h < kCache; h += kThreads) {
+        c_id[h] = -1;
+        c_sum[h] = T(0);
+      }
+    }
+    if constexpr (kRanked) hs = kStrip < d ? kStrip : d;
+    else hs = learn_hot_ids(ids, vals, total, key, slot, hot_id);
+    __syncthreads();
+  }
+
   // into the table, wherever this form keeps slot a
-  auto table_add = [&](int32_t a, T c) {
+  __device__ __forceinline__ void table_add(int32_t a, T c) {
     if constexpr (kForm == kDevice) {
       if constexpr (kCached) {
         // first come, first kept: under skewed ids the frequent ones come
@@ -286,14 +311,15 @@ fe_pass_kernel(const Pass<T> p) {
           return;
         }
       }
-      atomicAdd(p.g + a, c);
+      atomicAdd(g + a, c);
     } else {
-      if (!kHybrid || a < p.s) atomicAdd(g_s + a, c);
-      else atomicAdd(p.g + a, c);
+      if (!kRanked || a < s) atomicAdd(g_s + a, c);
+      else atomicAdd(g + a, c);
     }
-  };
-  auto add = [&](int32_t a, T c) {
-    if constexpr (kHybrid) {
+  }
+
+  __device__ __forceinline__ void add(int32_t a, T c, int lane) {
+    if constexpr (kRanked) {
       if (a < hs) {
         atomicAdd(strip + a * 32 + lane, c);
         return;
@@ -308,7 +334,49 @@ fe_pass_kernel(const Pass<T> p) {
       }
     }
     table_add(a, c);
-  };
+  }
+
+  __device__ __forceinline__ void flush(int lane) {
+    __syncthreads();
+    // a warp per strip in use: its 32 slots into the id's place
+    for (int i = threadIdx.x >> 5; i < hs; i += kThreads / 32) {
+      T t = strip[i * 32 + lane];
+      for (int o = 16; o > 0; o >>= 1) t += __shfl_down_sync(kFull, t, o);
+      if (lane == 0 && t != T(0)) table_add(kRanked ? i : hot_id[i], t);
+    }
+    if constexpr (kCached) {
+      __syncthreads();
+      for (int h = threadIdx.x; h < kCache; h += kThreads) {
+        const T t = c_sum[h];
+        if (t != T(0)) atomicAdd(g + c_id[h], t);
+      }
+    }
+    if constexpr (kForm == kBlock) {
+      __syncthreads();
+      // each block starts its flush at another slot (a multiple of 32, so
+      // a warp still covers whole lines)
+      const int start = (int)((int64_t)blockIdx.x * s / gridDim.x) & ~31;
+      for (int i = threadIdx.x; i < s; i += kThreads) {
+        int a = i + start;
+        if (a >= s) a -= s;
+        const T t = g_s[a];
+        if (t != T(0)) atomicAdd(g + a, t);
+      }
+    }
+  }
+};
+
+template <typename T, bool kVec, bool kHybrid, int kForm>
+__global__ void __launch_bounds__(kThreads)
+fe_pass_kernel(const Pass<T> p) {
+  constexpr int L = kVec ? kVecLanes : 1;             // lanes per record
+  constexpr int E = kVec ? kVecMaxK / kVecLanes : 1;  // entries per lane
+  constexpr int R = 32 / L;                           // records per warp
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  GradTable<T, kForm, kHybrid> tab;
+  tab.init(smem_raw, p.g, p.s, p.d, p.idx, p.val, p.n * p.k);
+  const int lane = threadIdx.x & 31;
+  const int sub = lane % L;
   // whether an entry counts: a non-zero value and, for kHybrid, an id that
   // is not the dump slot
   auto counts = [&](int32_t a, T v) -> bool {
@@ -371,44 +439,19 @@ fe_pass_kernel(const Pass<T> p) {
       if (r != T(0)) {
 #pragma unroll
         for (int e = 0; e < E; ++e)
-          if (v[e] != T(0)) add(id[e], v[e] * r);
+          if (v[e] != T(0)) tab.add(id[e], v[e] * r, lane);
       }
     } else if (r != T(0)) {
       for (int j = 0; j < p.k; ++j) {
         const T vj = rv[j];
         if (vj != T(0)) {
           const int32_t a = ri[j];
-          if (counts(a, vj)) add(a, vj * r);
+          if (counts(a, vj)) tab.add(a, vj * r, lane);
         }
       }
     }
   }
-  __syncthreads();
-  // a warp per strip in use: its 32 slots into the id's place
-  for (int i = threadIdx.x >> 5; i < hs; i += kThreads / 32) {
-    T t = strip[i * 32 + lane];
-    for (int o = 16; o > 0; o >>= 1) t += __shfl_down_sync(kFull, t, o);
-    if (lane == 0 && t != T(0)) table_add(kHybrid ? i : hot_id[i], t);
-  }
-  if constexpr (kCached) {
-    __syncthreads();
-    for (int h = threadIdx.x; h < kCache; h += kThreads) {
-      const T t = c_sum[h];
-      if (t != T(0)) atomicAdd(p.g + c_id[h], t);
-    }
-  }
-  if constexpr (kForm == kBlock) {
-    __syncthreads();
-    // each block starts its flush at another slot (a multiple of 32, so a
-    // warp still covers whole lines)
-    const int start = (int)((int64_t)blockIdx.x * p.s / gridDim.x) & ~31;
-    for (int i = threadIdx.x; i < p.s; i += kThreads) {
-      int a = i + start;
-      if (a >= p.s) a -= p.s;
-      const T t = g_s[a];
-      if (t != T(0)) atomicAdd(p.g + a, t);
-    }
-  }
+  tab.flush(lane);
   loss = block_sum(loss);
   rsum = block_sum(rsum);
   if (threadIdx.x == 0) {
@@ -417,12 +460,14 @@ fe_pass_kernel(const Pass<T> p) {
   }
 }
 
-// Launches one instantiation on a persistent grid; with blocks_per_sm not
-// null, only reports the occupancy the grid would be sized from.
-template <typename T, bool kVec, bool kHybrid, int kForm>
-int launch_form(const Pass<T>& p, cudaStream_t stream, int* blocks_per_sm) {
-  auto kernel = fe_pass_kernel<T, kVec, kHybrid, kForm>;
-  const size_t smem = smem_bytes<T, kHybrid, kForm>(p.s);
+// Launches `kernel` on a persistent grid of kThreads-thread blocks: as
+// many as the SMs hold at `smem` bytes of dynamic shared memory each, or
+// `need` if fewer. With blocks_per_sm not null nothing is launched: the
+// occupancy the grid would be sized from is written there.
+template <typename Kernel, typename... Args>
+int launch_persistent(Kernel kernel, size_t smem, int64_t need,
+                      cudaStream_t stream, int* blocks_per_sm,
+                      Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -437,12 +482,20 @@ int launch_form(const Pass<T>& p, cudaStream_t stream, int* blocks_per_sm) {
     *blocks_per_sm = per_sm;
     return 0;
   }
-  constexpr int kRecords = kThreads / (kVec ? kVecLanes : 1);
-  const int64_t need = (p.n + kRecords - 1) / kRecords;
   int64_t blocks = (int64_t)(per_sm > 0 ? per_sm : 1) * sms;
   if (need < blocks) blocks = need > 0 ? need : 1;
-  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(p);
+  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
+}
+
+// Launches one instantiation of the pass on a persistent grid.
+template <typename T, bool kVec, bool kHybrid, int kForm>
+int launch_form(const Pass<T>& p, cudaStream_t stream, int* blocks_per_sm) {
+  constexpr int kRecords = kThreads / (kVec ? kVecLanes : 1);
+  return launch_persistent(
+      fe_pass_kernel<T, kVec, kHybrid, kForm>,
+      GradTable<T, kForm, kHybrid>::smem_bytes(p.s),
+      (p.n + kRecords - 1) / kRecords, stream, blocks_per_sm, p);
 }
 
 // vec: 1 for the vector path (the caller has checked the alignment).

@@ -58,8 +58,18 @@
 // block-private. An atomic through distributed shared memory costs more
 // than one in L2, so that form was not kept.
 //
-// The gather and the scatter of the flat pair are grid-stride loops over the
-// entry axis; the scatter's additions are device atomics.
+// The gather of the flat pair is a grid-stride loop over the entry axis.
+// The scatter (K10/K11: g[idx[e]] += ce[e] over E entries, unsorted ids)
+// is K5's gradient without its records: a persistent grid of 1,024-thread
+// blocks adds through fe_common.cuh's GradTable, block-private while
+// privatised_form says the table fits and in device memory behind the
+// hashed cache past that, with strips for the ids the block's sample finds
+// frequent, and one flush a block from a staggered slot. A thread reads
+// four entries by 16-byte loads (int4 ids, float4 or two double2
+// contributions) where both arrays are 16-byte aligned, and the E % 4 last
+// entries one at a time; entries of contribution 0 are inert. Bound: the
+// reads, (4 + sizeof(T)) bytes an entry, and the table written once (at
+// E = 79,953,920, D = 10,000 in float32: 640 MB, 0.191 ms at 3.35 TB/s).
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -68,10 +78,10 @@
 
 namespace {
 
-constexpr int kThreads = 256;   // the flat pair's block
+constexpr int kGatherThreads = 256;   // the gather's block
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kGatherThreads)
 gather_entries_kernel(const int32_t* __restrict__ idx,
                       const T* __restrict__ val, const T* __restrict__ theta,
                       int64_t e, T* __restrict__ out) {
@@ -83,21 +93,42 @@ gather_entries_kernel(const int32_t* __restrict__ idx,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// K10/K11. vec: four entries a thread by 16-byte loads, then the E % 4
+// last ones by the scalar loop.
+template <typename T, bool kVec, int kForm>
+__global__ void __launch_bounds__(gdx_fe::kThreads)
 scatter_entries_kernel(const int32_t* __restrict__ idx,
-                       const T* __restrict__ ce, int64_t e,
+                       const T* __restrict__ ce, int64_t e, int d,
                        T* __restrict__ g) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < e;
-       i += stride) {
-    const T c = ce[i];
-    if (c != T(0)) atomicAdd(g + idx[i], c);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  gdx_fe::GradTable<T, kForm, false> tab;
+  tab.init(smem_raw, g, kForm == gdx_fe::kBlock ? d : 0, d, idx, ce, e);
+  const int lane = threadIdx.x & 31;
+  const int64_t first = (int64_t)blockIdx.x * gdx_fe::kThreads + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * gdx_fe::kThreads;
+  int64_t done = 0;
+  if constexpr (kVec) {
+    const int64_t quads = e >> 2;
+    for (int64_t q = first; q < quads; q += stride) {
+      int32_t a[4];
+      T c[4];
+      gdx_fe::load4(idx + 4 * q, a);
+      gdx_fe::load4(ce + 4 * q, c);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (c[u] != T(0)) tab.add(a[u], c[u], lane);
+    }
+    done = quads << 2;
   }
+  for (int64_t i = done + first; i < e; i += stride) {
+    const T c = ce[i];
+    if (c != T(0)) tab.add(idx[i], c, lane);
+  }
+  tab.flush(lane);
 }
 
 int grid_for(int64_t items, int max_blocks) {
-  const int64_t need = (items + kThreads - 1) / kThreads;
+  const int64_t need = (items + kGatherThreads - 1) / kGatherThreads;
   return (int)(need < max_blocks ? (need > 0 ? need : 1) : max_blocks);
 }
 
@@ -117,17 +148,38 @@ int fused(const int32_t* idx, const T* val, const T* y, const T* w,
 template <typename T>
 int gather(const int32_t* idx, const T* val, const T* theta, int64_t e,
            T* out, int max_blocks, void* stream) {
-  gather_entries_kernel<T><<<grid_for(e, max_blocks), kThreads, 0,
+  gather_entries_kernel<T><<<grid_for(e, max_blocks), kGatherThreads, 0,
                              (cudaStream_t)stream>>>(idx, val, theta, e, out);
   return (int)cudaGetLastError();
 }
 
+template <typename T, bool kVec, int kForm>
+int scatter_form(const int32_t* idx, const T* ce, int64_t e, int d, T* g,
+                 cudaStream_t stream, int* blocks_per_sm) {
+  constexpr int64_t per_block = gdx_fe::kThreads * (kVec ? 4 : 1);
+  return gdx_fe::launch_persistent(
+      scatter_entries_kernel<T, kVec, kForm>,
+      gdx_fe::GradTable<T, kForm, false>::smem_bytes(
+          kForm == gdx_fe::kBlock ? d : 0),
+      (e + per_block - 1) / per_block, stream, blocks_per_sm, idx, ce, e, d,
+      g);
+}
+
 template <typename T>
-int scatter(const int32_t* idx, const T* ce, int64_t e, T* g, int max_blocks,
-            void* stream) {
-  scatter_entries_kernel<T><<<grid_for(e, max_blocks), kThreads, 0,
-                              (cudaStream_t)stream>>>(idx, ce, e, g);
-  return (int)cudaGetLastError();
+int scatter(const int32_t* idx, const T* ce, int64_t e, int d, int form,
+            int vec, T* g, void* stream, int* blocks_per_sm) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (form == gdx_fe::kBlock)
+    return vec ? scatter_form<T, true, gdx_fe::kBlock>(idx, ce, e, d, g, st,
+                                                       blocks_per_sm)
+               : scatter_form<T, false, gdx_fe::kBlock>(idx, ce, e, d, g, st,
+                                                        blocks_per_sm);
+  if (form == gdx_fe::kDevice)
+    return vec ? scatter_form<T, true, gdx_fe::kDevice>(idx, ce, e, d, g, st,
+                                                        blocks_per_sm)
+               : scatter_form<T, false, gdx_fe::kDevice>(idx, ce, e, d, g,
+                                                         st, blocks_per_sm);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -170,14 +222,21 @@ int gdx_fe_gather_f64(const int32_t* idx, const double* val,
   return gather<double>(idx, val, theta, e, out, max_blocks, stream);
 }
 
+// g [d] must be zero on entry. form as for the fused kernel (1: a
+// block-private table of d·sizeof(T) bytes, 0: device memory behind the
+// cache); vec: 1 for 16-byte loads (idx and ce 16-byte aligned). With
+// blocks_per_sm not null nothing is launched: the form's resident blocks per
+// SM are written there.
 int gdx_fe_scatter_f32(const int32_t* idx, const float* ce, int64_t e,
-                       float* g, int max_blocks, void* stream) {
-  return scatter<float>(idx, ce, e, g, max_blocks, stream);
+                       int d, int form, int vec, float* g, void* stream,
+                       int* blocks_per_sm) {
+  return scatter<float>(idx, ce, e, d, form, vec, g, stream, blocks_per_sm);
 }
 
 int gdx_fe_scatter_f64(const int32_t* idx, const double* ce, int64_t e,
-                       double* g, int max_blocks, void* stream) {
-  return scatter<double>(idx, ce, e, g, max_blocks, stream);
+                       int d, int form, int vec, double* g, void* stream,
+                       int* blocks_per_sm) {
+  return scatter<double>(idx, ce, e, d, form, vec, g, stream, blocks_per_sm);
 }
 
 // The number of ids that get a lane-private strip, and the buckets of the

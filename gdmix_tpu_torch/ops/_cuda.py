@@ -13,6 +13,7 @@ synchronize would not report it.
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import hashlib
 import os
@@ -126,10 +127,16 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
+@functools.lru_cache(maxsize=None)
+def _capability(device: torch.device):
+    return torch.cuda.get_device_capability(device)
+
+
 def require_cuda(what: str, *tensors: torch.Tensor,
                  dtypes=(torch.float32,)) -> None:
     """Raise unless every tensor is a contiguous CUDA tensor of an accepted
-    type on a Hopper card (the kernels are built for sm_90a only)."""
+    type on a Hopper card (the kernels are built for sm_90a only; a card's
+    capability is read once)."""
     for t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"{what}: expected CUDA tensors, got {t.device}")
@@ -137,7 +144,7 @@ def require_cuda(what: str, *tensors: torch.Tensor,
             raise TypeError(f"{what}: dtype {t.dtype} not in {dtypes}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: tensors must be contiguous")
-    major, minor = torch.cuda.get_device_capability(tensors[0].device)
+    major, minor = _capability(tensors[0].device)
     if (major, minor) != (9, 0):
         raise RuntimeError(f"{what}: kernels are built for sm_90a; this card "
                            f"is sm_{major}{minor}")
@@ -148,4 +155,6 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    """The current stream of t's card, as the kernels take it (the raw
+    handle: no Stream object is made per launch)."""
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(t.device.index))

@@ -9,10 +9,10 @@ plain PyTorch version beside it (`fixed_effect_value_and_grad` with λ = 0,
 or the gather / `index_add_` pair). Each wrapper counts its launches in
 `.launches`.
 
-The fused kernel keeps a block-private gradient in shared memory while the
-table fits the opt-in, and past it adds into device memory behind a
-shared-memory cache of recurring ids; `privatised_form` chooses by shape, as
-the SPD solves choose their workspace.
+The fused kernel and the entry scatter keep a block-private gradient in
+shared memory while the table fits the opt-in, and past it add into device
+memory behind a shared-memory cache of recurring ids; `privatised_form`
+chooses by shape, as the SPD solves choose their workspace.
 
 All three return the DATA term only: the caller adds the L2 term once, as
 the JAX package's `_objective_fun` does around its kernels.
@@ -42,10 +42,10 @@ FORM_DEVICE, FORM_BLOCK = 0, 1
 
 
 def privatised_form(num_features: int, element_size: int) -> int:
-    """Where the fused kernel keeps the gradient while it adds: FORM_BLOCK,
-    a private copy in each block's shared memory, while the table fits the
-    opt-in beside the strips and the hashed table; FORM_DEVICE, device
-    memory, past that."""
+    """Where the fused kernel and the entry scatter keep the gradient
+    while they add: FORM_BLOCK, a private copy in each block's shared
+    memory, while the table fits the opt-in beside the strips and the
+    hashed table; FORM_DEVICE, device memory, past that."""
     extra = (fe_pass.strip_bytes(element_size)
              + 4 * (2 * HOT_BUCKETS + fe_pass.STRIP_IDS))
     fits = (num_features * element_size + extra + fe_pass.SMEM_RESERVE
@@ -71,7 +71,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "fused": [_P] * 6 + [ctypes.c_int64] + [_I] * 6 + [_P] * 4,
     "gather": [_P] * 3 + [ctypes.c_int64, _P, _I, _P],
-    "scatter": [_P] * 2 + [ctypes.c_int64, _P, _I, _P],
+    "scatter": [_P] * 2 + [ctypes.c_int64] + [_I] * 3 + [_P] * 3,
 }
 
 
@@ -210,7 +210,11 @@ def fe_scatter_entries_plain(idx, ce, num_features):
 
 def fe_scatter_entries(idx: torch.Tensor, ce: torch.Tensor,
                        num_features: int) -> torch.Tensor:
-    """g[idx[e]] += ce[e] over the flat entry axis → g [num_features]."""
+    """g[idx[e]] += ce[e] over the flat entry axis → g [num_features].
+    Entries with ce 0 are inert (their ids are never used as an address);
+    the ids of the others must lie in [0, num_features). On a card the
+    kernel adds through the fused kernel's table, in the form
+    `privatised_form` picks for num_features."""
     if ce.device.type == "cpu":
         return fe_scatter_entries_plain(idx, ce, num_features)
     what = "fe_scatter_entries"
@@ -221,8 +225,10 @@ def fe_scatter_entries(idx: torch.Tensor, ce: torch.Tensor,
     g = torch.zeros(num_features, dtype=ce.dtype, device=ce.device)
     lib, fn = _fn("scatter", ce.dtype)
     with torch.cuda.device(ce.device):
-        err = fn(_cuda.ptr(idx), _cuda.ptr(ce), idx.shape[0], _cuda.ptr(g),
-                 _max_blocks(ce.device), _cuda.stream_of(ce))
+        err = fn(_cuda.ptr(idx), _cuda.ptr(ce), idx.shape[0], num_features,
+                 privatised_form(num_features, ce.element_size()),
+                 int(idx.data_ptr() % 16 == 0 and ce.data_ptr() % 16 == 0),
+                 _cuda.ptr(g), _cuda.stream_of(ce), None)
     _cuda.check(lib, err, what)
     fe_scatter_entries.launches += 1
     return g

@@ -30,6 +30,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from gdmix_tpu_torch.ops.windowed_scatter import WindowedPlan, windowed_plan
+
 
 class SparseBatch(NamedTuple):
     """A batch of examples with one sparse feature bag, padded to K
@@ -155,6 +157,11 @@ class HybridAux(NamedTuple):
     # the row layout's window count (JAX carries it as the shape of an int8
     # array, which its kernel needs static; here it is the number itself)
     zs_nwin: Optional[int] = None
+    # the windowed-scatter kernel's work plan of each layout (JAX has none):
+    # built once with the layouts on a card, read by every call there; None
+    # on the CPU, whose route reads no plan
+    gs_plan: Optional[WindowedPlan] = None
+    zs_plan: Optional[WindowedPlan] = None
 
 
 # The cost model of the ADAPTIVE hot-set size (hot_features=0), per entry:
@@ -315,9 +322,12 @@ def extend_hybrid_aux_windowed(aux: HybridAux, num_features: int,
                                tile_rows: int = HYBRID_SCATTER_TILE_ROWS
                                ) -> HybridAux:
     """Attach the windowed cold layouts (see HybridAux fields) for the
-    windowed-scatter kernel (gdmix_tpu/ops/logistic.py:548-570). Built once
-    per fit from the flat cold arrays; one small host fetch of per-window
-    counts per layout. `num_rows` must cover every batch row."""
+    windowed-scatter kernel (gdmix_tpu/ops/logistic.py:548-570), and, on a
+    card, the kernel's work plan of each (ops/windowed_scatter.py
+    windowed_plan). Built once per fit from the flat cold arrays; two small
+    host fetches per layout on a card (per-window counts, which tiles hold
+    a non-zero value), one on the CPU. `num_rows` must cover every batch
+    row."""
     window = HYBRID_SCATTER_WINDOW
     g_idxl, _, g_row, g_val, g_win = _windowed_layout(
         aux.cold_idx, aux.cold_idx, aux.cold_row, aux.cold_val,
@@ -325,10 +335,16 @@ def extend_hybrid_aux_windowed(aux: HybridAux, num_features: int,
     z_rowl, z_idx, _, z_val, z_win = _windowed_layout(
         aux.cold_row, aux.cold_idx, aux.cold_row, aux.cold_val,
         num_rows, window, tile_rows)
-    return aux._replace(gs_idxl=g_idxl, gs_val=g_val, gs_row=g_row,
-                        gs_win=g_win, zs_rowl=z_rowl, zs_idx=z_idx,
-                        zs_val=z_val, zs_win=z_win,
-                        zs_nwin=(num_rows + window - 1) // window)
+    z_nwin = (num_rows + window - 1) // window
+    on_card = g_win.device.type == "cuda"
+    return aux._replace(
+        gs_idxl=g_idxl, gs_val=g_val, gs_row=g_row, gs_win=g_win,
+        zs_rowl=z_rowl, zs_idx=z_idx, zs_val=z_val, zs_win=z_win,
+        zs_nwin=z_nwin,
+        gs_plan=windowed_plan(g_win, g_val, (num_features + window - 1)
+                              // window, window) if on_card else None,
+        zs_plan=windowed_plan(z_win, z_val, z_nwin,
+                              window) if on_card else None)
 
 
 def fixed_effect_value_and_grad_hybrid(x: torch.Tensor,
@@ -365,7 +381,8 @@ def fixed_effect_value_and_grad_hybrid(x: torch.Tensor,
         wv = (w[aux.zs_idx.long()] * aux.zs_val.to(dtype)).to(torch.float32)
         z_cold = windowed_scatter_add(
             aux.zs_rowl, wv, aux.zs_win, aux.zs_nwin, W,
-            aux.zs_rowl.shape[0] // aux.zs_win.shape[0])[:n].to(dtype)
+            aux.zs_rowl.shape[0] // aux.zs_win.shape[0],
+            aux.zs_plan)[:n].to(dtype)
     else:
         z_cold = torch.zeros(n, dtype=dtype, device=x.device).index_add_(
             0, aux.cold_row.long(),
@@ -378,8 +395,8 @@ def fixed_effect_value_and_grad_hybrid(x: torch.Tensor,
         ce = (aux.gs_val.to(dtype) * r[aux.gs_row.long()]).to(torch.float32)
         grad_w = windowed_scatter_add(
             aux.gs_idxl, ce, aux.gs_win, (num_features + W - 1) // W, W,
-            aux.gs_idxl.shape[0] // aux.gs_win.shape[0])[:num_features].to(
-            dtype)
+            aux.gs_idxl.shape[0] // aux.gs_win.shape[0],
+            aux.gs_plan)[:num_features].to(dtype)
     else:
         grad_w = torch.zeros(num_features, dtype=dtype,
                              device=x.device).index_add_(

@@ -196,6 +196,62 @@ def test_windowed_scatter_plain_matches_pallas(windowed, layout):
                                atol=1e-6 * np.abs(want).max())
 
 
+# 264: the kernel's grid on an H100 (132 SMs, two blocks each)
+@pytest.mark.parametrize("blocks", [4, 64, 264])
+@pytest.mark.parametrize("layout", ["gradient", "rows"])
+def test_windowed_plan_reads_each_live_tile_once(windowed, layout, blocks):
+    """The K13 kernel's plan (port only: JAX has none): its items read
+    every tile holding a non-zero value exactly once and no other, each a
+    run of at most T tiles of one window; every window has an item; a
+    window's items beyond one share consecutive scratch rows and one
+    counter; items come largest first."""
+    _, d, _, aux = windowed
+    W = tl.HYBRID_SCATTER_WINDOW
+    if layout == "gradient":
+        win, val, nw = aux.gs_win, aux.gs_val, (d + W - 1) // W
+    else:
+        win, val, nw = aux.zs_win, aux.zs_val, aux.zs_nwin
+    plan = ws.windowed_plan(win, val, nw, W, blocks=blocks)
+    items = plan.items.numpy()
+    win = win.numpy()
+    live = (val.reshape(win.shape[0], -1) != 0).any(1).numpy()
+    reads = np.zeros(win.shape[0], int)
+    for begin, end, w, part, first, parts, counter in items:
+        assert 0 <= end - begin <= plan.tile_cap
+        assert (win[begin:end] == w).all()
+        reads[begin:end] += 1
+        if part < 0:
+            assert parts == 1
+        else:
+            assert parts > 1 and first <= part < first + parts
+            assert 0 <= counter < plan.counters.shape[0] - 2
+    np.testing.assert_array_equal(reads, live.astype(int))
+    assert plan.tiles_read == live.sum()
+    assert sorted(set(items[:, 2])) == list(range(nw))
+    for w in range(nw):
+        mine = items[items[:, 2] == w]
+        if len(mine) > 1:
+            assert sorted(mine[:, 3]) == list(range(mine[0, 4],
+                                                    mine[0, 4] + len(mine)))
+            assert len(set(mine[:, 6])) == 1
+    sizes = items[:, 1] - items[:, 0]
+    assert (np.diff(sizes) <= 0).all()
+    assert plan.scratch.shape == ((items[:, 3] >= 0).sum(), W)
+    assert int(plan.counters.abs().sum()) == 0
+
+
+def test_windowed_plan_only_on_a_card(windowed):
+    """Only the kernel reads a plan: the CPU build carries none, and a
+    plan off a card must be told its blocks."""
+    _, d, _, aux = windowed
+    assert aux.gs_plan is None and aux.zs_plan is None
+    with pytest.raises(ValueError, match="blocks"):
+        ws.windowed_plan(aux.gs_win, aux.gs_val,
+                         (d + tl.HYBRID_SCATTER_WINDOW - 1)
+                         // tl.HYBRID_SCATTER_WINDOW,
+                         tl.HYBRID_SCATTER_WINDOW)
+
+
 @pytest.mark.parametrize("linear,has_intercept", [(False, True),
                                                   (True, True),
                                                   (False, False)])
