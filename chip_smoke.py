@@ -78,17 +78,38 @@ Phases, each printing one result line; any failure exits non-zero:
                 --num_sweeps 2` (run in this process, so the launch counts
                 can be read) on the synthetic movieLens data: global →
                 per-user → per-movie; validation AUC must climb.
+     single_node — the file-based pipeline through the CLI's default mode
+                (`workflow.main --config_path X`, no --mode) in this
+                process, on synthetic data at MovieLens-100K's counts (943
+                users, 1,682 movies, 100,000 ratings; per-user in 2
+                partitions): AUC per coordinate, each coordinate's
+                partition / train / evaluate seconds, the launches of K5,
+                K1 and K2; the AUC must climb, the directory contract be
+                there, K5 and K1 launch, and an in-memory run (one sweep)
+                on the same data and config agree within 2e-3 AUC; K1/K2
+                at every lanes tier of the run's per-user and per-movie
+                partition plans and K5 on its global training batch
+                (D = 44) against their plain versions; then both modes
+                again under torch.profiler (device busy, idle).
+     dag      — the same pipeline as the job DAG (`--mode dag`): eight
+                subprocesses on the card, each `python -m
+                gdmix_tpu_torch.…` loading the kernels built above; each
+                job's wall and each train job's kernel launches (its last
+                log line): K5 in the global job, K1 in both RE jobs; each
+                AUC within 2e-3 of the single-node run's.
   7. cli      — `python -m gdmix_tpu_torch.gdmix --action=train` in a fresh
                 process: --stage=random_effect on a small written dataset,
                 --stage=fixed_effect on the movieLens global data.
 Launch counts are zeroed just before each main-path run (4, wide, 5,
-wide_d, 6) and read just after. Then one JSON line of per-kernel results
+wide_d, 6, single_node) and read just after. Then one JSON line of per-kernel results
 and, last, the device line. Exits non-zero without a result when no card is present.
 Imports no JAX.
 """
 from __future__ import annotations
 
+import functools
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -125,6 +146,14 @@ FE_LOSS_RTOL, FE_GRAD_RTOL, FE_F64_RTOL = 1e-5, 1e-4, 1e-12
 # 1e-12 or ‖g‖∞ ≤ 1e-5 from float32 gradients summed in other orders
 FE_FIT_RTOL = 1e-6
 FE_N, FE_D, FE_K = 4_997_120, 10_000, 16    # bench.py:536-537, :521
+# the file-based pipeline against the in-memory one, and the DAG against
+# the file-based pipeline: the JAX package's own bound between its two modes
+# (tests/test_in_memory_pipeline.py:29), the same math through two plumbings
+MODES_AUC_ATOL = 2e-3
+# MovieLens-100K's counts (the reference's movieLens example), synthetic:
+# the real files are not in the repository
+ML100K = dict(num_users=943, num_movies=1682, num_ratings=100_000, seed=7)
+COORDINATES = ("global", "per-user", "per-movie")
 DEV = "cuda:0"
 
 
@@ -461,6 +490,7 @@ def _plan_buckets(fg, d):
 SMEM_BYTES_PER_CLOCK = 128
 
 
+@functools.lru_cache(maxsize=None)
 def _max_sm_clock_hz():
     """The card's maximum SM clock, as nvidia-smi reports it."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -489,6 +519,57 @@ def _lanes_smem_wavefronts(form, n, d, iters):
     return len(iters) * (stage + zg) + float(iters.sum()) * per_iter
 
 
+def _lanes_row(fn, B, n, d, tag, reps=5):
+    """K1 or K2 (`fn`) at one launch shape against its plain version on the
+    card, on lr_problem's entities: max|Δθ| ≤ F32_TOL where both converge,
+    converged flags agreeing on ≥ 0.999 of the entities; timed, with its
+    bound and the shared-memory traffic it needs beside it."""
+    import torch
+    from gdmix_tpu_torch.ops import newton_lanes as nl
+    dev = torch.device(DEV)
+    kw = dict(lam=1.0, unreg_bias=True, maxiter=100, ftol=1e-12, pgtol=1e-5)
+    smem_rate = (SMEM_BYTES_PER_CLOCK * _max_sm_clock_hz()
+                 * torch.cuda.get_device_properties(0).multi_processor_count)
+    X, y, w, off, cnt = (torch.from_numpy(a).to(dev)
+                         for a in lr_problem(B, n, d, seed=n + d))
+    B = X.shape[0]
+    th0 = torch.zeros(B, d, device=dev)
+    k = lambda: fn(th0, X, y, w, off, cnt, **kw)
+    p = lambda: nl.newton_full_plain(th0, X, y, w, off, cnt, **kw)
+    (thk, ck, ik), (thp, cp, _) = k(), p()
+    torch.cuda.synchronize()
+    both = ck & cp
+    err = float((thk - thp).abs()[both].max())
+    agree = float((ck == cp).float().mean())
+    form = "warp" if fn is nl.newton_full else (
+        "stream" if nl.lanes_form(n, d) == "stream" else "block")
+    ms = _time_ms(k, reps)
+    pms = _time_ms(p, 1)
+    iters = ik.cpu().numpy()
+    # bytes: X, y, w, offsets, counts, θ0 in; θ, flags, counts out.
+    # flops per iteration and entity: the symmetric Hessian
+    # (n·d·(d+1)), its SPD solve, gradient, margins and line search
+    # (~6·n·d), over the iterations this run's entities took
+    bound, by = _bound(
+        4 * (B * n * d + 3 * B * n + B + 2 * B * d) + 5 * B,
+        float(iters.sum()) * (n * d * (d + 1) + _spd_solve_flops(d, 1)
+                              + 6 * n * d))
+    smem = (_lanes_smem_wavefronts(form, n, d, iters)
+            * SMEM_BYTES_PER_CLOCK / smem_rate * 1e3)
+    _say("kernels", kernel=fn.__name__, shape=tag, form=form, B=B, n=n,
+         dim=d, max_abs_dtheta=f"{err:.3e}",
+         converged_agree=f"{agree:.6f}",
+         converged=f"{float(ck.float().mean()):.6f}",
+         iters_mean=f"{iters.mean():.3f}", iters_max=int(iters.max()),
+         ms=f"{ms:.4f}", plain_ms=f"{pms:.3f}", bound_ms=f"{bound:.4f}",
+         bound_by=by, smem_bound_ms=f"{smem:.4f}")
+    _check(err <= F32_TOL, f"{fn.__name__} {tag} n={n}: max|dθ| {err}")
+    _check(agree >= 0.999, f"{fn.__name__} {tag} n={n}: converged "
+                           f"flags agree on {agree}")
+    return dict(ms=ms, plain_ms=pms, bound_ms=bound, bound_by=by,
+                library_ms=None, smem_bound_ms=smem, max_abs_err=err)
+
+
 def _lanes_rows():
     """K1 (newton_full) and K2 (newton_block), each a whole solve in one
     launch, against their plain version on the card: max|Δθ| ≤ F32_TOL where
@@ -507,50 +588,12 @@ def _lanes_rows():
     from gdmix_tpu_torch.ops import newton_lanes as nl
     dev = torch.device(DEV)
     kw = dict(lam=1.0, unreg_bias=True, maxiter=100, ftol=1e-12, pgtol=1e-5)
-    smem_rate = (SMEM_BYTES_PER_CLOCK * _max_sm_clock_hz()
-                 * torch.cuda.get_device_properties(0).multi_processor_count)
     worst = {"newton_full": 0.0, "newton_block": 0.0}
 
     def row(fn, B, n, d, tag, reps=5):
-        X, y, w, off, cnt = (torch.from_numpy(a).to(dev)
-                             for a in lr_problem(B, n, d, seed=n + d))
-        B = X.shape[0]
-        th0 = torch.zeros(B, d, device=dev)
-        k = lambda: fn(th0, X, y, w, off, cnt, **kw)
-        p = lambda: nl.newton_full_plain(th0, X, y, w, off, cnt, **kw)
-        (thk, ck, ik), (thp, cp, _) = k(), p()
-        torch.cuda.synchronize()
-        both = ck & cp
-        err = float((thk - thp).abs()[both].max())
-        agree = float((ck == cp).float().mean())
-        form = "warp" if fn is nl.newton_full else (
-            "stream" if nl.lanes_form(n, d) == "stream" else "block")
-        ms = _time_ms(k, reps)
-        pms = _time_ms(p, 1)
-        iters = ik.cpu().numpy()
-        # bytes: X, y, w, offsets, counts, θ0 in; θ, flags, counts out.
-        # flops per iteration and entity: the symmetric Hessian
-        # (n·d·(d+1)), its SPD solve, gradient, margins and line search
-        # (~6·n·d), over the iterations this run's entities took
-        bound, by = _bound(
-            4 * (B * n * d + 3 * B * n + B + 2 * B * d) + 5 * B,
-            float(iters.sum()) * (n * d * (d + 1) + _spd_solve_flops(d, 1)
-                                  + 6 * n * d))
-        smem = (_lanes_smem_wavefronts(form, n, d, iters)
-                * SMEM_BYTES_PER_CLOCK / smem_rate * 1e3)
-        _say("kernels", kernel=fn.__name__, shape=tag, form=form, B=B, n=n,
-             dim=d, max_abs_dtheta=f"{err:.3e}",
-             converged_agree=f"{agree:.6f}",
-             converged=f"{float(ck.float().mean()):.6f}",
-             iters_mean=f"{iters.mean():.3f}", iters_max=int(iters.max()),
-             ms=f"{ms:.4f}", plain_ms=f"{pms:.3f}", bound_ms=f"{bound:.4f}",
-             bound_by=by, smem_bound_ms=f"{smem:.4f}")
-        _check(err <= F32_TOL, f"{fn.__name__} {tag} n={n}: max|dθ| {err}")
-        _check(agree >= 0.999, f"{fn.__name__} {tag} n={n}: converged "
-                               f"flags agree on {agree}")
-        worst[fn.__name__] = max(worst[fn.__name__], err)
-        return dict(ms=ms, plain_ms=pms, bound_ms=bound, bound_by=by,
-                    library_ms=None, smem_bound_ms=smem)
+        r = _lanes_row(fn, B, n, d, tag, reps)
+        worst[fn.__name__] = max(worst[fn.__name__], r["max_abs_err"])
+        return r
 
     res = {}
     for n in (8, 16, 32):
@@ -2158,6 +2201,220 @@ def phase_pipeline(card, tmp):
     return ml
 
 
+class _Records(logging.Handler):
+    """The records a logger emits inside the `with` block."""
+
+    def __init__(self, name):
+        super().__init__()
+        self.logger, self.records = logging.getLogger(name), []
+
+    def emit(self, record):
+        self.records.append(record)
+
+    def __enter__(self):
+        self.logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
+
+
+def _ml100k_config(ml, tmp, name):
+    """The movieLens workflow with per-user in 2 partitions (tests/
+    test_e2e_pipeline.py:53-54), writing to <tmp>/<name>: the yaml's path."""
+    cfg = movielens_config(ml, os.path.join(tmp, name))
+    cfg["random_effect_config"]["per-user"]["num_partitions"] = 2
+    path = os.path.join(tmp, f"{name}.yaml")
+    import yaml
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f, sort_keys=False)
+    return path
+
+
+def _ml100k_kernel_rows(ml, out):
+    """The kernels at the shapes the single-node run gave them, against
+    their plain versions: K1/K2 (`_lanes_row`, F32_TOL) at every lanes tier
+    of each per-user and per-movie partition's plan, read from the run's
+    partitioned records through iter_bucketize_flat, in the form lanes_form
+    gives each tier; K5 (`_fe_fused_row`, FE_LOSS_RTOL/FE_GRAD_RTOL) on the
+    global coordinate's training batch (D = 44) at a seeded θ. Returns
+    {kernel: max |error|}."""
+    import glob
+    import torch
+    from gdmix_tpu_torch.io.input_pipeline import (
+        load_per_entity_grouped_flat, read_per_record)
+    from gdmix_tpu_torch.io.metadata import DatasetMetadata
+    from gdmix_tpu_torch.ops import newton_lanes as nl
+    worst = {"newton_full": 0.0, "newton_block": 0.0}
+    plans, tiers = {}, {}   # tiers: each launch shape once
+    for coord, bag, entity in (("per-user", "per_user", "user_id"),
+                               ("per-movie", "per_movie", "movie_id")):
+        part = os.path.join(out, coord, "partition")
+        md = DatasetMetadata.from_file(
+            os.path.join(part, "metadata", "tensor_metadata.json"))
+        dirs = sorted(glob.glob(os.path.join(part, "trainingData", "active",
+                                             "partitionId=*")))
+        _check(bool(dirs), f"{coord}: no partitioned training data")
+        for pdir in dirs:
+            fg = load_per_entity_grouped_flat(pdir, md, entity, bag)
+            _check(fg is not None, f"{pdir}: no columnar records")
+            plan = _plan_buckets(fg, md.num_features(bag))
+            key = f"{coord}/{os.path.basename(pdir)}"
+            plans[key] = [f"B{B}_n{n}_d{d}_{rung}" for B, n, d, rung in plan]
+            for t in _lanes_tiers(plan):
+                tiers.setdefault(t, coord)
+    _say("single_node", tier_plans=plans)
+    for (B, n, d, form), coord in tiers.items():
+        fn = nl.newton_full if form == "warp" else nl.newton_block
+        r = _lanes_row(fn, B, n, d, f"ml100k_{coord}_tier")
+        worst[fn.__name__] = max(worst[fn.__name__], r["max_abs_err"])
+    bag = os.path.join(ml, "global")
+    md = DatasetMetadata.from_file(os.path.join(bag, "metadata",
+                                                "tensor_metadata.json"))
+    data = read_per_record(os.path.join(bag, "trainingData"), md, "global")
+    d = md.num_features("global")
+    dev = torch.device(DEV)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                               device=dev)
+    x = f32(np.random.RandomState(d).randn(d + 1) * 0.1)
+    _, worst["fe_loss_grad_fused"], _ = _fe_fused_row("ml100k_global", (
+        x, torch.as_tensor(data.indices, dtype=torch.int32, device=dev),
+        f32(data.values), f32(data.column("response")),
+        f32(data.column("weight", 1.0)), f32(data.column("offset", 0.0)),
+        d))
+    return worst
+
+
+def phase_single_node(card, tmp):
+    """The file-based pipeline in this process through the CLI's default
+    mode, at MovieLens-100K's counts; then the in-memory pipeline, one
+    sweep, on the same data and config; and the kernels at the shapes
+    the single-node run gave them (`_ml100k_kernel_rows`). Returns (data
+    root, AUCs, {kernel: max |error|} of those checks)."""
+    import torch
+    from gdmix_tpu_torch.data import movielens
+    from gdmix_tpu_torch.io import fs
+    from gdmix_tpu_torch.ops import fe_loss_grad as fe, newton_lanes as nl
+    from gdmix_tpu_torch.workflow.main import main as workflow_main
+    phase_t0 = t0 = time.perf_counter()
+    ml = movielens.prepare_gdmix_data(os.path.join(tmp, "ml100k"),
+                                      movielens.generate_synthetic(**ML100K))
+    prep_s = time.perf_counter() - t0
+    cfg = _ml100k_config(ml, tmp, "single_node")
+    out = os.path.join(tmp, "single_node")
+    counters = (fe.fe_loss_grad_fused, nl.newton_full, nl.newton_block)
+    for c in counters:
+        c.launches = 0
+    # ---- the main path ----
+    with _Records("gdmix_tpu_torch.workflow.single_node") as log:
+        t0 = time.perf_counter()
+        metrics = workflow_main(["--config_path", cfg])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = {c.__name__: c.launches for c in counters}
+    # ----
+    stages = {r.coordinate: {k: f"{v:.3f}" for k, v in
+                             r.stage_seconds.items()}
+              for r in log.records if hasattr(r, "stage_seconds")}
+    _say("single_node", auc={k: round(v, 6) for k, v in metrics.items()},
+         wall_s=f"{wall:.3f}", stage_s=stages, data_prep_s=f"{prep_s:.3f}",
+         launches=counts, card=repr(card))
+    ladder = [metrics.get(c) for c in COORDINATES]
+    _check(None not in ladder and ladder[0] < ladder[1] < ladder[2],
+           f"single_node: AUC does not climb global → per-user → "
+           f"per-movie: {metrics}")
+    _check(set(stages) == set(COORDINATES),
+           f"single_node: stage times of {sorted(stages)}")
+    contract = [os.path.join(out, p) for p in (
+        "global/models/part-00000.avro", "per-user/partition/partitionList.txt",
+        "per-movie/metric/evalSummary.json")]
+    missing = [p for p in contract if not os.path.isfile(p)]
+    missing += [f"{c}/{s}" for c in COORDINATES
+                for s in ("train_scores", "validation_scores")
+                if not fs.find_files(os.path.join(out, c, s), ".avro")]
+    _check(not missing, f"single_node: the directory contract lacks "
+                        f"{missing}")
+    _check(counts["fe_loss_grad_fused"] > 0 and counts["newton_full"] > 0,
+           f"single_node skipped a kernel: {counts}")
+    errs = _ml100k_kernel_rows(ml, out)
+
+    t0 = time.perf_counter()
+    mem = workflow_main(["--config_path",
+                         _ml100k_config(ml, tmp, "in_memory"),
+                         "--mode", "in_memory"])
+    torch.cuda.synchronize()
+    mem_wall = time.perf_counter() - t0
+    gap = {c: abs(mem[c] - metrics[c]) for c in COORDINATES}
+    _say("single_node", against="in_memory, 1 sweep",
+         auc={k: round(v, 6) for k, v in mem.items()},
+         wall_s=f"{mem_wall:.3f}",
+         max_auc_gap=f"{max(gap.values()):.2e}")
+    _check(max(gap.values()) < MODES_AUC_ATOL,
+           f"single_node against in_memory: AUC gaps {gap}")
+    # the device's busy time in each mode: both runs again, warm, under
+    # torch.profiler
+    for mode in ("single_node", "in_memory"):
+        cfg = _ml100k_config(ml, tmp, f"{mode}_profiled")
+        prof_s, busy_ms = _profiled(lambda: workflow_main(
+            ["--config_path", cfg, "--mode", mode]))
+        _say("single_node", profiled=mode, wall_s=f"{prof_s:.3f}",
+             device_busy_ms=f"{busy_ms:.3f}",
+             idle=f"{1 - busy_ms / 1e3 / prof_s:.4f}")
+    _say("single_node", phase_s=f"{time.perf_counter() - phase_t0:.3f}")
+    return ml, metrics, errs
+
+
+def phase_dag(card, tmp, ml, single):
+    """The same pipeline as the job DAG: eight subprocesses on the card,
+    each a `python -m gdmix_tpu_torch.…` that loads the kernels
+    phase_build built. Each train job logs its own kernel launches (the
+    trainer CLI's last line), read from the job's output."""
+    from gdmix_tpu_torch.workflow.main import main as workflow_main
+    cfg = _ml100k_config(ml, tmp, "dag")
+    # the jobs import the package of this checkout, from wherever the
+    # smoke was started
+    keep = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = os.pathsep.join(p for p in (ROOT, keep) if p)
+    try:
+        with _Records("gdmix_tpu_torch.workflow.distributed") as log:
+            t0 = time.perf_counter()
+            result = workflow_main(["--config_path", cfg, "--mode", "dag"])
+            wall = time.perf_counter() - t0
+    finally:
+        if keep is None:
+            del os.environ["PYTHONPATH"]
+        else:
+            os.environ["PYTHONPATH"] = keep
+    done = [r for r in log.records if hasattr(r, "job")]
+    jobs = {r.job: f"{r.seconds:.3f}" for r in done}
+    launches = {}
+    for r in done:
+        if "kernel launches: " in r.output:
+            line = r.output.rsplit("kernel launches: ", 1)[1].splitlines()[0]
+            launches[r.job] = {k: v for k, v in json.loads(line).items()
+                               if v}
+    aucs = {}
+    for c in COORDINATES:
+        with open(os.path.join(tmp, "dag", c, "metric",
+                               "evalSummary.json")) as f:
+            aucs[c] = json.load(f)["auc"]
+    gap = {c: abs(aucs[c] - single[c]) for c in COORDINATES}
+    _say("dag", jobs=len(result["jobs"]), job_s=jobs, wall_s=f"{wall:.3f}",
+         launches=launches, auc={k: round(v, 6) for k, v in aucs.items()},
+         max_auc_gap=f"{max(gap.values()):.2e}", card=repr(card))
+    _check(len(result["jobs"]) == 8 and len(jobs) == 8,
+           f"dag: {len(result['jobs'])} jobs complete of 8")
+    want = {"global-tf-train": "fe_loss_grad_fused",
+            "per-user-tf-train": "newton_full",
+            "per-movie-tf-train": "newton_full"}
+    _check(all(launches.get(j, {}).get(k, 0) > 0 for j, k in want.items()),
+           f"dag: a train job skipped its kernel: {launches}")
+    _check(max(gap.values()) < MODES_AUC_ATOL,
+           f"dag against single_node: AUC gaps {gap}")
+
+
 def phase_fe_cli(ml, tmp):
     from gdmix_tpu_torch.io.input_pipeline import read_per_record
     from gdmix_tpu_torch.io.metadata import DatasetMetadata
@@ -2252,6 +2509,10 @@ def main():
     launches.update(wide_launches)
     with tempfile.TemporaryDirectory(prefix="gdx_smoke_ml_") as tmp:
         ml = phase_pipeline(card, tmp)
+        ml100k, single, errs = phase_single_node(card, tmp)
+        for name, err in errs.items():
+            res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+        phase_dag(card, tmp, ml100k, single)
         phase_cli()
         phase_fe_cli(ml, tmp)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -5,10 +5,14 @@ both the run's Params and the model's params; unknown flags are ignored by
 each parser. The port trains and scores the fixed effect (logistic or
 linear regression) and random-effect logistic regression on one device: the
 first card, or the CPU with --device=cpu (taken out of argv before the
-params parsers see it).
+params parsers see it). A run ends by logging how many times it launched
+each hand-written kernel (`kernel launches: {...}`, all 0 on the CPU), so
+that a job run in its own process, as the job DAG runs it, shows which
+kernels it went through.
 """
 from __future__ import annotations
 
+import json
 import logging
 import os
 import sys
@@ -21,6 +25,7 @@ from gdmix_tpu_torch.params import Params, from_argv
 logging.basicConfig(
     format="%(asctime)s:%(levelname)s:%(module)s:%(message)s",
     datefmt="%Y/%m/%d %I:%M:%S", level=logging.INFO)
+logger = logging.getLogger(__name__)
 
 
 def _print_help() -> None:
@@ -55,6 +60,18 @@ def _refuse_multi_process_env() -> None:
             "are set)")
 
 
+def kernel_launches() -> dict:
+    """{kernel: launches} of this process, from each wrapper's counter."""
+    from gdmix_tpu_torch.ops import (fe_hybrid, fe_loss_grad, linsolve,
+                                     newton_lanes, windowed_scatter)
+    return {f.__name__: f.launches for f in (
+        newton_lanes.newton_full, newton_lanes.newton_block,
+        linsolve.spd_solve_batched, linsolve.spd_solve_batched_mrhs,
+        fe_loss_grad.fe_loss_grad_fused, fe_loss_grad.fe_gather_entries,
+        fe_loss_grad.fe_scatter_entries, fe_hybrid.fe_hybrid_hot,
+        windowed_scatter.windowed_scatter_add)}
+
+
 def run(argv) -> None:
     if not argv or "--help" in argv or "-h" in argv:
         _print_help()
@@ -69,6 +86,7 @@ def run(argv) -> None:
         driver.run_training(params)
     else:
         raise ValueError(f"Unsupported action {params.action}")
+    logger.info("kernel launches: %s", json.dumps(kernel_launches()))
 
 
 if __name__ == "__main__":

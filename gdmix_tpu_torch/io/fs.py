@@ -47,7 +47,7 @@ __all__ = [
     "FileSystem", "LocalFS", "MemFS", "DirFS", "register_filesystem", "get_fs",
     "open", "exists", "isdir", "isfile", "listdir", "makedirs", "glob",
     "remove", "local_input", "atomic_output", "copy", "is_local",
-    "upload_dir", "download_dir",
+    "upload_dir", "download_dir", "copy_tree", "remove_tree",
 ]
 
 _builtin_open = open
@@ -504,12 +504,32 @@ def download_dir(remote_dir: str, local_dir: str) -> None:
     """Recursively copy a (remote) directory tree to a local one: every
     file, dot-files included, as upload_dir copies them (find_files, the
     score-directory walk, skips hidden files)."""
-    fs_, base = get_fs(remote_dir.rstrip("/"))
+    copy_tree(remote_dir, local_dir)
+
+
+def copy_tree(src_dir: str, dst_dir: str) -> None:
+    """Recursively copy a directory tree between any two filesystems: every
+    file, dot-files included, over whatever `dst_dir` holds (shutil.copytree
+    with dirs_exist_ok, for remote paths too)."""
+    fs_, base = get_fs(src_dir.rstrip("/"))
+    if not fs_.isdir(base):
+        raise FileNotFoundError(src_dir)
     for f in _walk(fs_, base, skip_hidden=False):
-        rel = f[len(base) + 1:]
-        dst = os.path.join(local_dir, *rel.split("/"))
-        os.makedirs(os.path.dirname(dst), exist_ok=True)
+        dst = posixpath.join(dst_dir, f[len(base) + 1:])
+        makedirs(posixpath.dirname(dst), exist_ok=True)
         copy(f, dst)
+
+
+def remove_tree(path: str) -> None:
+    """Remove a directory and everything under it, if it exists: the local
+    tree, or every object under a remote prefix."""
+    fs_, p = get_fs(path)
+    if fs_ is _local:
+        if os.path.isdir(p):
+            shutil.rmtree(p)
+        return
+    for f in list(_walk(fs_, p.rstrip("/"), skip_hidden=False)):
+        fs_.remove(f)
 
 
 def find_files(path: str, suffix: str = "") -> List[str]:

@@ -561,7 +561,9 @@ def encode_avro_column_blocks(schema: dict, columns: Dict[str, np.ndarray],
             pp[i] = mask.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
     rec_bytes = sum(_MAX_FIELD_BYTES[c] for c, _, _, _ in cols)
 
-    def gen():
+    def gen(cols=cols):
+        # ip/dp/pp point into cols' arrays, some of them converted copies:
+        # the generator holds them until its last block is encoded
         out = np.empty(block_records * rec_bytes, np.uint8)
         for start in range(0, n, block_records):
             count = min(block_records, n - start)

@@ -1,12 +1,22 @@
 """Workflow CLI: ``python -m gdmix_tpu_torch.workflow.main --config_path X
---mode in_memory``.
+[--mode M]``.
 
 Port of gdmix_tpu/workflow/main.py (reference gdmixworkflow/main.py:12-66).
-The port runs `in_memory`: the whole coordinate descent in one process with
-the score ledger in memory (workflow/pipeline.py). The other modes raise,
-naming their ROADMAP item: `single_node` (file handoffs between stages) is
-A.5; `distributed`, `dag` and `kubernetes` are A.6/A.9. It runs on the
-first card; `--device cpu` runs the plain kernel versions on the CPU.
+Modes:
+  single_node — the default and the reference semantics: the coordinates
+                run in this process with file handoffs between stages
+                (workflow/single_node.py); --resume restarts a crashed run
+                from its first unfinished coordinate
+  in_memory   — the whole coordinate descent in one process with the score
+                ledger in memory, no stage files (workflow/pipeline.py)
+  dag         — generate the job DAG and EXECUTE it: one subprocess per
+                job on this package's CLIs, dependency-ordered, up to
+                --max_parallel at once (workflow/distributed.py)
+With --compile_dag_to the DAG is written as JSON instead of run. The
+`distributed` and `kubernetes` modes raise: they are ROADMAP A.6. Every
+mode runs on the first card and raises without one; `--device cpu` runs
+the plain kernel versions on the CPU (in dag mode: each train job gets
+--device).
 """
 from __future__ import annotations
 
@@ -21,11 +31,8 @@ logging.basicConfig(
 logger = logging.getLogger(__name__)
 
 _NOT_PORTED = {
-    "single_node": "ROADMAP A.5: --mode single_node (file handoffs between "
-                   "stages)",
-    "distributed": "ROADMAP A.6/A.9: --mode distributed",
-    "dag": "ROADMAP A.6/A.9: --mode dag (the job DAG launcher)",
-    "kubernetes": "ROADMAP A.6/A.9: --mode kubernetes",
+    "distributed": "ROADMAP A.6: --mode distributed",
+    "kubernetes": "ROADMAP A.6: --mode kubernetes (workflow/k8s.py)",
 }
 
 
@@ -49,7 +56,12 @@ def get_parser() -> argparse.ArgumentParser:
                         help="torch device (default: the first card; "
                              "cpu runs the plain kernel versions)")
     parser.add_argument("--compile_dag_to", default=None,
-                        help=argparse.SUPPRESS)
+                        help="emit the job DAG json here instead of running")
+    parser.add_argument("--max_parallel", type=int, default=1,
+                        help="concurrent ready jobs (dag mode)")
+    parser.add_argument("--resume", action="store_true",
+                        help="skip coordinates whose evalSummary.json exists "
+                             "(single_node mode: restart a crashed run)")
     # accepted for reference-config compatibility; unused:
     parser.add_argument("--jar_path", default="", help=argparse.SUPPRESS)
     return parser
@@ -58,13 +70,34 @@ def get_parser() -> argparse.ArgumentParser:
 def main(args=None) -> dict:
     args = get_parser().parse_args(args)
     if args.compile_dag_to:
-        raise NotImplementedError(_NOT_PORTED["dag"])
-    if args.mode != "in_memory":
+        from gdmix_tpu_torch.workflow.distributed import compile_dag
+        compile_dag(args.config_path, args.compile_dag_to,
+                    device=args.device)
+        return {}
+    if args.mode in _NOT_PORTED:
         raise NotImplementedError(_NOT_PORTED[args.mode])
-    from gdmix_tpu_torch.workflow.pipeline import run_gdmix_in_memory
-    metrics = run_gdmix_in_memory(args.config_path,
-                                  num_sweeps=args.num_sweeps,
-                                  re_mode=args.re_mode, device=args.device)
+    if args.mode == "dag":
+        from gdmix_tpu_torch.device import resolve_device
+        from gdmix_tpu_torch.workflow.config import WorkflowConfig
+        from gdmix_tpu_torch.workflow.distributed import (execute_job_dag,
+                                                          generate_job_dag)
+        resolve_device(args.device)   # no card and no request: raise here
+        dag = generate_job_dag(WorkflowConfig.from_file(args.config_path),
+                               device=args.device)
+        order = execute_job_dag(dag, max_parallel=args.max_parallel)
+        logger.info("DAG complete: %s", order)
+        return {"jobs": order}
+    if args.mode == "in_memory":
+        from gdmix_tpu_torch.workflow.pipeline import run_gdmix_in_memory
+        metrics = run_gdmix_in_memory(args.config_path,
+                                      num_sweeps=args.num_sweeps,
+                                      re_mode=args.re_mode,
+                                      device=args.device)
+    else:
+        from gdmix_tpu_torch.workflow.single_node import \
+            run_gdmix_single_node
+        metrics = run_gdmix_single_node(args.config_path, resume=args.resume,
+                                        device=args.device)
     logger.info("workflow metrics: %s", json.dumps(metrics))
     return metrics
 

@@ -78,6 +78,7 @@ MECHANICAL = [
     "native/__init__.py",
     "util/model_utils.py", "data/evaluator.py",
     "workflow/__init__.py", "workflow/config.py",
+    "data/model_splitter.py", "data/best_model.py", "workflow/jobs.py",
 ]
 
 # The deliberate edits, (original, copy) after the prefix rewrite.
@@ -219,8 +220,18 @@ EDITS = {
     # the one-hot operand is exact in bf16).'''),
     ],
     # the C++ sources are the port's own copies (NATIVE_SOURCES); the
-    # libraries build, atomically, into build/gdmix_tpu_torch/native
+    # libraries build, atomically, into build/gdmix_tpu_torch/native. The
+    # avro column encoder's generator holds the converted column copies
+    # its pointers read (the original lets them be freed on return)
     "native/__init__.py": [
+        ('    def gen():\n'
+         '        out = np.empty(block_records * rec_bytes, np.uint8)\n',
+         '    def gen(cols=cols):\n'
+         "        # ip/dp/pp point into cols' arrays, some of them converted "
+         'copies:\n'
+         '        # the generator holds them until its last block is '
+         'encoded\n'
+         '        out = np.empty(block_records * rec_bytes, np.uint8)\n'),
         ('_DIR = os.path.dirname(os.path.abspath(__file__))\n',
          "# The C++ sources are this package's own copies of the JAX "
          "package's,\n# beside this file; the libraries build into the "
@@ -273,18 +284,72 @@ EDITS = {
          '"-pthread",\n'
          '                  _BKT_SRC], _BKT_SO)\n'),
     ],
+    # the winner's copy goes through the filesystem seam (copy_tree), so
+    # that it reaches a remote destination; shutil.copytree reaches only a
+    # local one
+    "data/best_model.py": [
+        ("import os\nimport shutil\nfrom typing", "import os\nfrom typing"),
+        ('''        if output_best_metrics_path:
+            shutil.copytree(input_metrics_paths[best_id], output_best_metrics_path,
+                            dirs_exist_ok=True)
+        shutil.copytree(input_model_paths[best_id], output_best_model_path,
+                        dirs_exist_ok=True)
+''',
+         '''        # through the filesystem seam, so that a remote winner reaches a
+        # remote destination
+        if output_best_metrics_path:
+            fs.copy_tree(input_metrics_paths[best_id], output_best_metrics_path)
+        fs.copy_tree(input_model_paths[best_id], output_best_model_path)
+'''),
+    ],
     # download_dir copies every file, dot-files included, as upload_dir
-    # does (the original walks through find_files, which skips them); both
-    # walk a remote tree through one _walk
+    # does (the original walks through find_files, which skips them): it is
+    # copy_tree (also best_model's copy of the winner) onto a local
+    # destination, and find_files and copy_tree walk a remote tree through
+    # one _walk. remove_tree (the workflow clearing a coordinate's output
+    # tree) reaches a remote path the same way
     "io/fs.py": [
+        ('    "upload_dir", "download_dir",\n]',
+         '    "upload_dir", "download_dir", "copy_tree", "remove_tree",\n]'),
+        ('def find_files(path: str, suffix: str = "") -> List[str]:\n',
+         '''def copy_tree(src_dir: str, dst_dir: str) -> None:
+    """Recursively copy a directory tree between any two filesystems: every
+    file, dot-files included, over whatever `dst_dir` holds (shutil.copytree
+    with dirs_exist_ok, for remote paths too)."""
+    fs_, base = get_fs(src_dir.rstrip("/"))
+    if not fs_.isdir(base):
+        raise FileNotFoundError(src_dir)
+    for f in _walk(fs_, base, skip_hidden=False):
+        dst = posixpath.join(dst_dir, f[len(base) + 1:])
+        makedirs(posixpath.dirname(dst), exist_ok=True)
+        copy(f, dst)
+
+
+def remove_tree(path: str) -> None:
+    """Remove a directory and everything under it, if it exists: the local
+    tree, or every object under a remote prefix."""
+    fs_, p = get_fs(path)
+    if fs_ is _local:
+        if os.path.isdir(p):
+            shutil.rmtree(p)
+        return
+    for f in list(_walk(fs_, p.rstrip("/"), skip_hidden=False)):
+        fs_.remove(f)
+
+
+def find_files(path: str, suffix: str = "") -> List[str]:
+'''),
         ('    """Recursively copy a (remote) directory tree to a local one."""\n'
          '    base = remote_dir.rstrip("/")\n'
-         '    for f in find_files(base):\n',
+         '    for f in find_files(base):\n'
+         '        rel = f[len(base) + 1:]\n'
+         '        dst = os.path.join(local_dir, *rel.split("/"))\n'
+         '        os.makedirs(os.path.dirname(dst), exist_ok=True)\n'
+         '        copy(f, dst)\n',
          '    """Recursively copy a (remote) directory tree to a local one: every\n'
          '    file, dot-files included, as upload_dir copies them (find_files, the\n'
          '    score-directory walk, skips hidden files)."""\n'
-         '    fs_, base = get_fs(remote_dir.rstrip("/"))\n'
-         '    for f in _walk(fs_, base, skip_hidden=False):\n'),
+         '    copy_tree(remote_dir, local_dir)\n'),
         ('    out = []\n'
          '    stack = [p.rstrip("/")]\n'
          '    while stack:\n'
