@@ -22,9 +22,12 @@ accepts the batch: the hot side through the fe_hybrid_hot kernel and, under
 (`pallas_hybrid` keeps the cold side in PyTorch and the hot side in float32,
 as JAX's). `pallas_flat` runs the flat entry gather/scatter pair; every
 other mode, and a hybrid mode whose builder declined (no hot set, e.g.
-uniform ids), runs the fused kernel. Not ported (each raises
-NotImplementedError naming its ROADMAP item): streaming ingestion (A.9) and
-multi-process data parallelism (A.6).
+uniform ids), runs the fused kernel.
+
+stream_chunk_rows > 0 trains and scores a tfrecord shard out of core: it
+moves to the device chunk by chunk as it decodes (_device_batch_streamed),
+so host memory holds one chunk. Not ported (raises NotImplementedError
+naming its ROADMAP item): multi-process data parallelism (A.6).
 """
 from __future__ import annotations
 
@@ -141,6 +144,9 @@ class FixedEffectLRModel(Model):
         self.static_upload_count = 0
         # the last fit's L-BFGS counts and wall seconds
         self.last_fit: Dict[str, float] = {}
+        # the last streamed ingestion: chunks, rows, bag width, and the
+        # seconds each chunk took to decode and to reach the device
+        self.last_ingest: Dict[str, object] = {}
 
     # ------------------------------------------------------------------ data --
 
@@ -199,11 +205,6 @@ class FixedEffectLRModel(Model):
         n = data.num_samples
         indices, values, offsets, labels, weights, uid = \
             self._host_arrays(data, schema_params)
-        dt = self.dtype
-
-        def put(a, dtype):
-            return torch.as_tensor(np.asarray(a), dtype=dtype,
-                                   device=self.device)
 
         if cache is not None:
             ent = cache.get("batch")
@@ -212,20 +213,11 @@ class FixedEffectLRModel(Model):
                     and np.array_equal(ent["uid"], uid)):
                 batch = SparseBatch(
                     indices=ent["indices"], values=ent["values"],
-                    offsets=put(offsets, dt), labels=ent["labels"],
-                    weights=ent["weights"])
+                    offsets=self._put(offsets, self.dtype),
+                    labels=ent["labels"], weights=ent["weights"])
                 return batch, uid, n
 
-        batch = SparseBatch(
-            indices=put(indices, torch.int32), values=put(values, dt),
-            offsets=put(offsets, dt), labels=put(labels, dt),
-            weights=put(weights, dt))
-        bad = (batch.indices < 0) | (batch.indices >= self.num_features)
-        if bool(bad.any()):
-            raise ValueError(
-                f"{int(bad.sum())} feature ids outside [0, "
-                f"{self.num_features}) (feature bag "
-                f"{self.feature_bag_name!r})")
+        batch = self._upload(indices, values, offsets, labels, weights)
         if cache is not None:
             self.static_upload_count += 1
             cache.pop("hybrid_aux", None)
@@ -234,6 +226,78 @@ class FixedEffectLRModel(Model):
                 indices=batch.indices, values=batch.values,
                 labels=batch.labels, weights=batch.weights)
         return batch, uid, n
+
+    def _put(self, a, dtype) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+
+    def _upload(self, indices, values, offsets, labels, weights
+                ) -> SparseBatch:
+        """Host columns → a SparseBatch on the model's device. A feature id
+        outside [0, num_features) raises (the kernels would read and write
+        out of bounds)."""
+        dt = self.dtype
+        batch = SparseBatch(
+            indices=self._put(indices, torch.int32),
+            values=self._put(values, dt), offsets=self._put(offsets, dt),
+            labels=self._put(labels, dt), weights=self._put(weights, dt))
+        bad = (batch.indices < 0) | (batch.indices >= self.num_features)
+        if bool(bad.any()):
+            raise ValueError(
+                f"{int(bad.sum())} feature ids outside [0, "
+                f"{self.num_features}) (feature bag "
+                f"{self.feature_bag_name!r})")
+        return batch
+
+    def _device_batch_streamed(self, chunks, schema_params
+                               ) -> Tuple[SparseBatch, np.ndarray, int]:
+        """The device SparseBatch + uids from a bounded-memory chunk stream
+        (io/input_pipeline.py iter_per_record_chunks; the single-process
+        half of gdmix_tpu/models/fixed_effect_lr.py:303-440): each chunk
+        goes to the device as soon as it decodes, through _host_arrays and
+        _upload's range check, so host memory holds one chunk while the
+        whole shard ends up on the device. At stream end the bag width is
+        padded to the widest chunk's (at least 8, as the JAX package's;
+        id 0, value 0: inert) and the chunks are concatenated one column at
+        a time. Only the last chunk may be short of a multiple of 8 rows
+        (the chunker yields exact-size chunks)."""
+        cols = {name: [] for name in SparseBatch._fields}
+        uids, decode_s, upload_s = [], [], []
+        n, k_max, saw_short = 0, 8, False
+        stream = iter(chunks)
+        while True:
+            t0 = time.perf_counter()
+            chunk = next(stream, None)
+            if chunk is None:
+                break
+            t1 = time.perf_counter()
+            assert not saw_short, "short chunk before the last one"
+            saw_short = chunk.num_samples % 8 != 0
+            indices, values, offsets, labels, weights, uid = \
+                self._host_arrays(chunk, schema_params)
+            k_max = max(k_max, indices.shape[1])
+            part = self._upload(indices, values, offsets, labels, weights)
+            for name in SparseBatch._fields:
+                cols[name].append(getattr(part, name))
+            del part, chunk, indices, values
+            uids.append(uid)
+            n += len(uid)
+            decode_s.append(t1 - t0)
+            upload_s.append(time.perf_counter() - t1)
+        if not uids:
+            raise ValueError("empty chunk stream")
+
+        def cat(name):
+            parts = cols.pop(name)
+            if parts[0].dim() == 2:
+                parts = [p if p.shape[1] == k_max else
+                         torch.nn.functional.pad(p, (0, k_max - p.shape[1]))
+                         for p in parts]
+            return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+        batch = SparseBatch(*[cat(name) for name in SparseBatch._fields])
+        self.last_ingest = dict(chunks=len(uids), rows=n, k=k_max,
+                                decode_s=decode_s, upload_s=upload_s)
+        return batch, np.concatenate(uids), n
 
     # ------------------------------------------------------------- objective --
 
@@ -377,9 +441,26 @@ class FixedEffectLRModel(Model):
             raise NotImplementedError(
                 "ROADMAP A.6: multi-process fixed-effect training "
                 f"({num_workers} workers)")
-        if self.model_params.stream_chunk_rows > 0:
-            raise NotImplementedError(
-                "ROADMAP A.9: streaming ingestion (stream_chunk_rows)")
+
+    def _stream_rows(self) -> int:
+        """The chunk size of out-of-core ingestion, or 0 to load eagerly:
+        streaming takes tfrecord input without custom_input_fn (the JAX
+        package's condition), in chunks padded to a multiple of 8 rows."""
+        p = self.model_params
+        if p.stream_chunk_rows <= 0:
+            return 0
+        if p.data_format == constants.TFRECORD and not p.custom_input_fn:
+            return pad_to_multiple(p.stream_chunk_rows, 8)
+        logger.warning(
+            "stream_chunk_rows: streaming needs tfrecord input without "
+            "custom_input_fn — loading eagerly instead")
+        return 0
+
+    def _chunks(self, input_path: str, chunk_rows: int):
+        from gdmix_tpu_torch.io.input_pipeline import iter_per_record_chunks
+        return iter_per_record_chunks(input_path, self.metadata,
+                                      self.feature_bag_name,
+                                      chunk_rows=chunk_rows)
 
     def train(self, training_data_dir, validation_data_dir, metadata_file,
               checkpoint_path, execution_context, schema_params):
@@ -398,13 +479,22 @@ class FixedEffectLRModel(Model):
         prev = self._load_model(catch_exception=True)
         if prev is not None and len(prev) == self._dim:
             logger.info("Found a previous model, loaded as the initial point")
-        train_data = load_per_record(
-            training_data_dir, self.metadata, self.feature_bag_name,
-            num_shards=1, shard_index=0,
-            data_format=self.model_params.data_format,
-            feature_file=self.feature_file,
-            custom_input_fn=self.model_params.custom_input_fn)
-        self.fit_data(train_data, schema_params, warm_start=prev)
+        chunk_rows = self._stream_rows()
+        if chunk_rows:
+            batch, train_uid, n_train = self._device_batch_streamed(
+                self._chunks(training_data_dir, chunk_rows), schema_params)
+            logger.info("streamed ingestion: %d records on %s in %d chunks "
+                        "of %d rows", n_train, self.device,
+                        self.last_ingest["chunks"], chunk_rows)
+            self._fit_batch(batch, train_uid, n_train, warm_start=prev)
+        else:
+            train_data = load_per_record(
+                training_data_dir, self.metadata, self.feature_bag_name,
+                num_shards=1, shard_index=0,
+                data_format=self.model_params.data_format,
+                feature_file=self.feature_file,
+                custom_input_fn=self.model_params.custom_input_fn)
+            self.fit_data(train_data, schema_params, warm_start=prev)
         batch, train_uid, n_train = self._train_batch_cache
 
         want_variance = self.variance_mode is not None
@@ -569,6 +659,28 @@ class FixedEffectLRModel(Model):
         self._refuse_unported(num_workers)
         self.model_coefficients = np.asarray(self._load_model(),
                                              dtype=np.float64)
+        chunk_rows = self._stream_rows()
+        if chunk_rows:
+            # out-of-core inference: host memory holds one chunk of data
+            # plus the O(N) scores (gdmix_tpu/models/fixed_effect_lr.py:
+            # 983-1020)
+            outs = []
+            for chunk in self._chunks(input_data_path, chunk_rows):
+                b, uid, n = self._device_batch(chunk, schema_params)
+                outs.append(self._score_arrays(b, uid, n, schema_params))
+            if not outs:
+                logger.info("No records in %s, skipping.", input_data_path)
+                return
+            arrays = {k: np.concatenate([o[k] for o in outs])
+                      for k in outs[0]}
+            out = os.path.join(output_dir, f"part-{task_index:05d}.avro")
+            scores_io.write_scores(
+                out, schema_params, arrays["uid"], arrays["total"],
+                scores_per_coordinate=arrays["per_coordinate"],
+                labels=arrays.get("labels"), weights=arrays.get("weights"))
+            logger.info("Wrote %d streamed scores to %s",
+                        len(arrays["uid"]), out)
+            return
         data = load_per_record(
             input_data_path, self.metadata, self.feature_bag_name,
             num_shards=1, shard_index=0,

@@ -22,11 +22,13 @@ avro, variances included.
 Behavior kept from the JAX package: warm start with prior-model/feature
 reconciliation, sparsify-to-support and threshold, validation, active and
 passive scoring where entities without a model pass offsets through,
-intercept-only models, string or numeric entity ids.
+intercept-only models, string or numeric entity ids, out-of-core training
+and scoring in entity-complete chunks (stream_chunk_entities), the
+multi-sweep device cache of the sweep-static bucket columns and the
+warm-sweep downlink skip.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-two-phase Newton, re_mode="sharded", streaming and the multi-sweep device
-cache.
+Not ported (each raises NotImplementedError naming its ROADMAP item or the
+do-not-port list): two-phase Newton and re_mode="sharded".
 """
 from __future__ import annotations
 
@@ -61,8 +63,10 @@ from gdmix_tpu_torch.util.convert import newton_inputs_from_numpy
 logger = logging.getLogger(__name__)
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
-_BUCKET_COLS = ("indices", "values", "offsets", "labels", "weights",
-                "sample_count", "theta0")
+# the bucket columns a sweep does not change (the device cache keeps them)
+# and the two it does
+_STATIC_COLS = ("indices", "values", "labels", "weights", "sample_count")
+_DYNAMIC_COLS = ("offsets", "theta0")
 
 
 _EPSILON = 1.0e-12
@@ -224,6 +228,25 @@ def _lbfgs_solver(u_cap, has_intercept, regularize_bias, lam, maxiter, ftol,
     return solve
 
 
+def _bucket_moved(theta: torch.Tensor, theta0: torch.Tensor) -> torch.Tensor:
+    """One device bool per bucket: did the solve move any coefficient off
+    its warm start? False: every entity stopped at θ0 and the host rebuilds
+    the bucket's models from its own θ0, with no [B, dim] copy back (the
+    warm-sweep downlink skip, gdmix_tpu/models/random_effect_lr.py:200-207).
+    The float32 kernels solve from θ0 in float32, so a float64 model always
+    counts as moved."""
+    return torch.any(theta != theta0.to(theta.dtype))
+
+
+def _moved_flags(solved) -> list:
+    """The moved probe of every bucket of a fit, [(θ, θ0)] → [bool], read
+    back in one host sync."""
+    if not solved:
+        return []
+    return torch.stack([_bucket_moved(th, th0)
+                        for th, th0 in solved]).tolist()
+
+
 def _record_scorer(mkey, mvals, icpt, ent_idx, qkey, values, offsets):
     """Sparse per-record scoring against the CSR model table: each record
     entry's (entity, feature-rank) key is located in the table's sorted
@@ -270,6 +293,12 @@ class RandomEffectLRModel(Model):
         # buckets per solver rung
         self.last_fit_converged = (0, 0)
         self.last_fit_rungs: Dict[str, int] = {}
+        # buckets of the last fit whose models were rebuilt from θ0 (the
+        # downlink skip), and how many times static bucket columns crossed
+        # to the device into a cache (the multi-sweep cache keeps this at
+        # one per bucket)
+        self.last_fit_skipped = 0
+        self.static_upload_count = 0
 
     # ------------------------------------------------------------------ train --
 
@@ -283,25 +312,34 @@ class RandomEffectLRModel(Model):
                                   avro_filename)
 
         model_weights = self._load_weights(model_file, catch_exception=True)
-        if self.model_params.stream_chunk_entities > 0:
-            raise NotImplementedError(
-                "ROADMAP A.9: streaming ingestion (stream_chunk_entities)")
         from gdmix_tpu_torch.io.input_pipeline import \
             load_per_entity_grouped_flat
-        groups = load_per_entity_grouped_flat(
-            training_data_dir, self.metadata,
-            self.model_params.partition_entity, self.feature_bag_name,
-            data_format=self.model_params.data_format)
-        if groups is None:  # non-tfrecord / native-less / ragged presence
-            groups = load_per_entity_grouped(
+        stream = self.model_params.stream_chunk_entities
+        streamed = None
+        if stream > 0 and self.model_params.data_format == constants.TFRECORD:
+            streamed = self._fit_streamed(training_data_dir, model_weights,
+                                          schema_params, stream)
+        if streamed is not None:
+            model_weights = streamed
+        else:
+            if stream > 0:
+                logger.warning(
+                    "stream_chunk_entities: streaming needs the native "
+                    "tfrecord grouped decoder — loading eagerly instead")
+            groups = load_per_entity_grouped_flat(
                 training_data_dir, self.metadata,
                 self.model_params.partition_entity, self.feature_bag_name,
                 data_format=self.model_params.data_format)
-            model_weights = self.fit_groups(groups, model_weights,
-                                            schema_params)
-        else:
-            model_weights = self.fit_flat(groups, model_weights,
-                                          schema_params)
+            if groups is None:  # non-tfrecord / native-less / ragged presence
+                groups = load_per_entity_grouped(
+                    training_data_dir, self.metadata,
+                    self.model_params.partition_entity, self.feature_bag_name,
+                    data_format=self.model_params.data_format)
+                model_weights = self.fit_groups(groups, model_weights,
+                                                schema_params)
+            else:
+                model_weights = self.fit_flat(groups, model_weights,
+                                              schema_params)
         self._save_model(model_file, model_weights)
 
         # Scoring
@@ -316,6 +354,72 @@ class RandomEffectLRModel(Model):
             i = execution_context.get(constants.PASSIVE_TRAINING_DATA_DIR)
             o = execution_context.get(constants.PASSIVE_TRAINING_OUTPUT_FILE)
             i and o and predict(input_path=i, output_file=o)
+
+    def _fit_streamed(self, training_data_dir, model_weights, schema_params,
+                      chunk_entities: int):
+        """Out-of-core RE training (gdmix_tpu/models/random_effect_lr.py:
+        521-584): the partition streams as entity-complete FlatGroups chunks
+        (io/input_pipeline.py iter_per_entity_grouped_flat_chunks), each
+        trained through fit_flat, so host memory holds one chunk plus the
+        output model table.
+
+        Each chunk warm-starts from the prior rows of its own entities.
+        Chunks hold disjoint entities except the partitioner's capped-entity
+        overflow groups (repeated group ids), which keep the eager path's
+        last-wins semantics through deduped_last; prior-only entities carry
+        forward. Returns the merged mapping, or None when the native grouped
+        decoder cannot take the dataset (the caller then loads eagerly)."""
+        from gdmix_tpu_torch.io.input_pipeline import \
+            iter_per_entity_grouped_flat_chunks
+        prior = ModelTable.from_models(model_weights, self.has_intercept)
+        if len(model_weights) and prior is None:
+            return None  # mixed-variance dict prior: eager path handles it
+        tables = []
+        n_chunks = n_conv = n_real = 0
+        rungs: Dict[str, int] = {}
+        for fg in iter_per_entity_grouped_flat_chunks(
+                training_data_dir, self.metadata,
+                self.model_params.partition_entity, self.feature_bag_name,
+                chunk_entities=chunk_entities):
+            if fg is None:
+                return None
+            if len(fg) == 0:
+                continue
+            n_chunks += 1
+            if prior is not None and len(prior):
+                id2row = prior.id2row
+                rows = np.fromiter((id2row.get(e, -1)
+                                    for e in fg.entity_ids), np.int64,
+                                   len(fg.entity_ids))
+                pchunk = prior.select_rows(rows[rows >= 0])
+            else:
+                pchunk = ModelTable.empty(
+                    self.has_intercept,
+                    with_variance=self.variance_mode is not None)
+            out = self.fit_flat(fg, pchunk, schema_params)
+            table = (out if isinstance(out, ModelTable)
+                     else ModelTable.from_models(out, self.has_intercept))
+            if table is None:  # incompatible prior/new layout: go eager
+                return None
+            tables.append(table)
+            n_conv += self.last_fit_converged[0]
+            n_real += self.last_fit_converged[1]
+            for rung, k in self.last_fit_rungs.items():
+                rungs[rung] = rungs.get(rung, 0) + k
+        self.last_fit_converged = (n_conv, n_real)
+        self.last_fit_rungs = rungs
+        if not tables:
+            return (prior if prior is not None and len(prior)
+                    else dict(model_weights))
+        with_var = tables[0].with_variance
+        new = ModelTable.concat(tables, has_intercept=self.has_intercept,
+                                with_variance=with_var).deduped_last()
+        merged = prior.merged_with(new) if prior is not None and len(prior) \
+            else new
+        logger.info("streamed RE fit: %d models over %d chunks "
+                    "(chunk_entities=%d)", len(merged), n_chunks,
+                    chunk_entities)
+        return merged
 
     # ---------------------------------------------------------- bucket solving --
 
@@ -339,10 +443,10 @@ class RandomEffectLRModel(Model):
         List[EntityGroup] or columnar FlatGroups); returns the prior ∪ new
         model mapping (prior-only entities carry forward, reference
         :155-163) as a columnar ModelTable (a plain dict only when the prior
-        mixes variance presence)."""
-        if device_cache is not None:
-            raise NotImplementedError(
-                "ROADMAP A.9: multi-sweep device caches")
+        mixes variance presence).
+
+        `device_cache`: a dict the caller keeps across coordinate-descent
+        sweeps over the same records (_bucket_device_arrays)."""
         from gdmix_tpu_torch.data.bucketing import (FlatGroups,
                                                     iter_bucketize_flat)
         logger.info("Training %d entities", len(groups))
@@ -359,22 +463,34 @@ class RandomEffectLRModel(Model):
         # per-iteration forms synchronize once per iteration)
         pending = []
         rungs: Dict[str, int] = {}
-        for bucket in buckets:
-            arrays = self._bucket_device_arrays(bucket)
+        for i, bucket in enumerate(buckets):
+            arrays = self._bucket_device_arrays(bucket, cache=device_cache,
+                                                cache_key=i)
             rung, solve = self._select_solver(bucket.u_cap,
                                               bucket.indices.shape[0],
                                               bucket.n_cap)
             rungs[rung] = rungs.get(rung, 0) + 1
-            pending.append((bucket, solve(arrays)))
+            # the device θ0 stays for the downlink skip's probe
+            pending.append((bucket, solve(arrays), arrays["theta0"]))
         tt.append(("marshal_dispatch", time.time()))
+        # warm-sweep downlink skip (gdmix_tpu/models/random_effect_lr.py:
+        # 685-701): a bucket whose solve moved no coefficient (every entity
+        # stopped at its warm start) takes its models from the host θ0
+        if self.variance_mode is None and len(model_weights):
+            moved = _moved_flags([(solved[0], th0)
+                                  for _, solved, th0 in pending])
+        else:
+            moved = [True] * len(pending)
+        self.last_fit_skipped = moved.count(False)
         n_conv = n_real = 0
         tables = []
-        for bucket, (theta, variance, converged) in pending:
+        for (bucket, (theta, variance, converged), _), mv in zip(pending,
+                                                                 moved):
             b_real = len(bucket.entity_ids)
             n_conv += int(converged[:b_real].sum())
             n_real += b_real
-            tables.append(self._collect_bucket_table(bucket, theta,
-                                                     variance))
+            tables.append(self._collect_bucket_table(
+                bucket, theta if mv else bucket.theta0, variance))
         self.last_fit_converged = (n_conv, n_real)
         self.last_fit_rungs = rungs
         new = ModelTable.concat(tables, has_intercept=self.has_intercept,
@@ -397,11 +513,43 @@ class RandomEffectLRModel(Model):
                              for nm, dt in self.last_fit_phases.items()))
         return merged
 
-    def _bucket_device_arrays(self, bucket: EntityBucket):
-        """The bucket's solver inputs as tensors on the model's device."""
-        return newton_inputs_from_numpy(
-            {k: getattr(bucket, k) for k in _BUCKET_COLS}, self.device,
-            self.dtype)
+    def _bucket_device_arrays(self, bucket: EntityBucket, cache=None,
+                              cache_key=None):
+        """The bucket's solver inputs as tensors on the model's device.
+
+        `cache`/`cache_key`: multi-sweep device-tensor reuse (the single-
+        device branch of gdmix_tpu/models/random_effect_lr.py:746-852). The
+        pipeline's sweeps retrain identical records, only the offsets and
+        the warm start change, so the sweep-static columns (_STATIC_COLS)
+        stay on the device as the solver's tensors and only `offsets` and
+        `theta0` cross from sweep 2 on. A hit requires the entry under
+        `cache_key` (the bucket's index in the plan) to have the bucket's
+        shape, entity ids and sample counts; the caller owns the stronger
+        invariant that indices, values, labels and weights are unchanged
+        (workflow/pipeline.py changes only the offset column). Each upload
+        into a cache adds one to static_upload_count."""
+        cols = _STATIC_COLS + _DYNAMIC_COLS
+        if cache is not None:
+            ent = cache.get(cache_key)
+            if (ent is not None and ent["shape"] == bucket.indices.shape
+                    and ent["entity_ids"] == list(bucket.entity_ids)
+                    and np.array_equal(ent["sample_count"],
+                                       bucket.sample_count)):
+                arrays = dict(ent["static"])
+                arrays.update(newton_inputs_from_numpy(
+                    {k: getattr(bucket, k) for k in _DYNAMIC_COLS},
+                    self.device, self.dtype))
+                return arrays
+        arrays = newton_inputs_from_numpy(
+            {k: getattr(bucket, k) for k in cols}, self.device, self.dtype)
+        if cache is not None:
+            self.static_upload_count += 1
+            cache[cache_key] = dict(
+                shape=bucket.indices.shape,
+                entity_ids=list(bucket.entity_ids),
+                sample_count=np.array(bucket.sample_count, copy=True),
+                static={k: arrays[k] for k in _STATIC_COLS})
+        return arrays
 
     def _select_solver(self, u_cap: int, B: int, n_cap: int):
         """The solver ladder of the JAX package
@@ -445,12 +593,16 @@ class RandomEffectLRModel(Model):
             float(p.lbfgs_tolerance), float(p.lbfgs_pgtol),
             p.num_of_lbfgs_curvature_pairs, self.variance_mode)
 
-    def _collect_bucket_table(self, bucket: EntityBucket, theta: torch.Tensor,
+    def _collect_bucket_table(self, bucket: EntityBucket, theta,
                               variance) -> ModelTable:
         """The bucket's [B, dim] solution (and variances) as ModelTable
-        columns (one masked gather, no per-entity python)."""
+        columns (one masked gather, no per-entity python). `theta`: the
+        device solution, or the host θ0 of a bucket the solve did not move
+        (float64, as the JAX package rebuilds it; no copy back)."""
         b_real = len(bucket.entity_ids)
-        thetas = theta[:b_real].to("cpu", torch.float64).numpy()
+        thetas = (np.asarray(theta[:b_real], np.float64)
+                  if isinstance(theta, np.ndarray)
+                  else theta[:b_real].to("cpu", torch.float64).numpy())
         off = 1 if self.has_intercept else 0
         tau = self.model_params.sparsity_threshold
         thetas = np.where(np.abs(thetas) <= tau, 0.0, thetas)
@@ -606,11 +758,14 @@ class RandomEffectLRModel(Model):
                                    schema_params)
 
     def score_flat(self, fg, model_weights: Dict[str, SparseModel],
-                   schema_params) -> Dict[str, np.ndarray]:
+                   schema_params, _table=None) -> Dict[str, np.ndarray]:
         """Per-record scoring of a columnar FlatGroups against the sparse
         CSR model table: one id→row lookup per entity, then one
-        binary-search join over every record entry."""
-        table = self._model_table(model_weights)
+        binary-search join over every record entry. `_table`: a prebuilt
+        _model_table, so chunked callers (the streamed inference loop) build
+        the join arrays once, not per chunk."""
+        table = _table if _table is not None \
+            else self._model_table(model_weights)
         E = len(model_weights)
         id2row = table[4]
         rows = np.fromiter((id2row.get(str(e), E) for e in fg.entity_ids),
@@ -623,11 +778,13 @@ class RandomEffectLRModel(Model):
     def _predict_file(self, input_path: str, output_file: str, schema_params,
                       model_weights: Dict[str, SparseModel]) -> None:
         logger.info("Start inference for %s.", input_path)
-        if self.model_params.stream_chunk_entities > 0:
-            raise NotImplementedError(
-                "ROADMAP A.9: streaming ingestion (stream_chunk_entities)")
         from gdmix_tpu_torch.io.input_pipeline import \
             load_per_entity_grouped_flat
+        stream = self.model_params.stream_chunk_entities
+        if stream > 0 and self.model_params.data_format == constants.TFRECORD:
+            if self._predict_streamed(input_path, output_file, schema_params,
+                                      model_weights, stream):
+                return
         fg = load_per_entity_grouped_flat(
             input_path, self.metadata, self.model_params.partition_entity,
             self.feature_bag_name, data_format=self.model_params.data_format)
@@ -650,6 +807,39 @@ class RandomEffectLRModel(Model):
             scores_per_coordinate=arrays["per_coordinate"],
             labels=arrays.get("labels"), weights=arrays.get("weights"))
         logger.info("Inference complete: %s.", input_path)
+
+    def _predict_streamed(self, input_path: str, output_file: str,
+                          schema_params, model_weights, chunk_entities: int
+                          ) -> bool:
+        """Out-of-core inference (gdmix_tpu/models/random_effect_lr.py:
+        1532-1575): entity-complete chunks scored against one CSR join
+        table, so host memory holds one chunk of data plus the O(N) scores.
+        False when the native decoder cannot take the dataset (the caller
+        then scores eagerly)."""
+        from gdmix_tpu_torch.io.input_pipeline import \
+            iter_per_entity_grouped_flat_chunks
+        outs = []
+        table = None
+        for chunk in iter_per_entity_grouped_flat_chunks(
+                input_path, self.metadata, self.model_params.partition_entity,
+                self.feature_bag_name, chunk_entities=chunk_entities):
+            if chunk is None:
+                return False
+            if len(chunk):
+                if table is None:  # the CSR join arrays, built once
+                    table = self._model_table(model_weights)
+                outs.append(self.score_flat(chunk, model_weights,
+                                            schema_params, _table=table))
+        if not outs:
+            logger.info("No entities found in %s, skipping.", input_path)
+            return True
+        arrays = {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+        scores_io.write_scores(
+            output_file, schema_params, arrays["uid"], arrays["total"],
+            scores_per_coordinate=arrays["per_coordinate"],
+            labels=arrays.get("labels"), weights=arrays.get("weights"))
+        logger.info("Inference complete (streamed): %s.", input_path)
+        return True
 
     # --------------------------------------------------------------- save/load --
 

@@ -35,12 +35,14 @@ def model_table_from_numpy(ids, offs, coef_ids, coef_vals, icpt,
 def newton_inputs_from_numpy(bucket_arrays: Mapping[str, np.ndarray],
                              device, dtype) -> dict:
     """A bucket-array dict (indices, values, offsets, labels, weights,
-    sample_count, theta0) as tensors on `device`: indices int64, the rest
-    in `dtype`."""
+    sample_count, theta0, or any of them) as tensors on `device`: indices
+    int64, the rest in `dtype`."""
     out = {k: torch.as_tensor(np.asarray(v), dtype=dtype, device=device)
            for k, v in bucket_arrays.items() if k != "indices"}
-    out["indices"] = torch.as_tensor(np.asarray(bucket_arrays["indices"]),
-                                     dtype=torch.int64, device=device)
+    if "indices" in bucket_arrays:
+        out["indices"] = torch.as_tensor(
+            np.asarray(bucket_arrays["indices"]), dtype=torch.int64,
+            device=device)
     return out
 
 

@@ -201,8 +201,13 @@ class InMemoryPipeline:
                     uid_column_name=params.uid_column_name,
                     offset_column_name=mp.offset_column_name)
                 groups = self._group_active(item["train"], pcfg)
-                item["weights"] = model.fit_groups(groups, item["weights"],
-                                                   params)
+                # the records are the same in every sweep (only the offset
+                # column changes), so from sweep 2 on only offsets and θ0
+                # cross to the device (RandomEffectLRModel.
+                # _bucket_device_arrays)
+                item["weights"] = model.fit_groups(
+                    groups, item["weights"], params,
+                    device_cache=item.setdefault("dev_cache", {}))
 
                 # score ALL training rows (active + passive) for the ledger:
                 # one sparse record join, no re-grouping

@@ -227,13 +227,24 @@ def test_out_of_range_feature_id_raises(tmp_path, bad_id):
 
 
 @pytest.mark.parametrize("over,ctx,item", [
-    (dict(stream_chunk_rows=64), {}, "A.9"),
+    # the A.9 case keeps its id: it now asserts that the option trains
+    pytest.param(dict(stream_chunk_rows=64), {}, None, id="over0-ctx0-A.9"),
     (dict(), {constants.NUM_WORKERS: 2}, "A.6"),
 ])
 def test_unported_options_raise(tmp_path, over, ctx, item):
+    """Multi-process training raises, naming its ROADMAP item. Streaming
+    (item None), once on this list, now trains: in two chunks of 64 rows
+    here, to a converged model of the bag's width."""
     ds = _make_dataset(tmp_path)
     mp, bp = _port_params(ds, **over)
     tm = TorchFE(mp, bp, device="cpu")
+    train = lambda: tm.train(mp.training_data_dir, None, ds["md_file"],
+                             mp.output_model_dir,
+                             {constants.TASK_INDEX: 0, **ctx}, bp)
+    if item is None:
+        train()
+        assert tm.last_ingest["chunks"] == 2 and tm.last_fit["converged"]
+        assert tm.model_coefficients.shape == (tm._dim,)
+        return
     with pytest.raises(NotImplementedError, match=item):
-        tm.train(mp.training_data_dir, None, ds["md_file"],
-                 mp.output_model_dir, {constants.TASK_INDEX: 0, **ctx}, bp)
+        train()

@@ -286,18 +286,29 @@ def test_auto_ladder_takes_dual_and_dense(tmp_path):
 @pytest.mark.parametrize("over,item", [
     (dict(re_mode="sharded"), "A.6"),
     (dict(newton_phase1_iters=2), "two-phase"),
-    (dict(stream_chunk_entities=4), "A.9"),
+    # the A.9 case keeps its id: it now asserts that the option trains
+    pytest.param(dict(stream_chunk_entities=4), None, id="over2-A.9"),
 ])
 def test_unported_rungs_raise(tmp_path, over, item):
     """Every path the port lacks raises, naming its ROADMAP item; no option
-    falls through to another path."""
+    falls through to another path. Streaming (item None), once on this
+    list, now trains: a model for each of the 70 entities."""
     groups, _ = _make_groups(num_entities=70, seed=1)
     md_file, train_dir, feature_file = _write_dataset(tmp_path, groups)
     model, schema = _torch_model(md_file, train_dir, feature_file,
                                  str(tmp_path / "m"), **over)
+    train = lambda: model.train(os.path.join(train_dir, "active"), None,
+                                md_file, model.checkpoint_path,
+                                _ctx(tmp_path), schema)
+    if item is None:
+        train()
+        models = load_sparse_models_from_avro(
+            os.path.join(model.checkpoint_path, "part-00000.avro"),
+            feature_file)
+        assert set(models) == {g.entity_id for g in groups}
+        return
     with pytest.raises(NotImplementedError, match=item):
-        model.train(os.path.join(train_dir, "active"), None, md_file,
-                    model.checkpoint_path, _ctx(tmp_path), schema)
+        train()
 
 
 # ---- the bucket plan: one launch per tier ----------------------------------
