@@ -117,8 +117,24 @@ Phases, each printing one result line; any failure exits non-zero:
                 cache (a cached refit bit-equal to the uncached one, no
                 static upload) and the warm-sweep downlink skip (one host
                 read of the probe).
+  9. detext   — the deep fixed effect (DeText): the JAX bench's deep-tower
+                cell (B = 4,096, L = 16, vocabulary 30,000, wide D =
+                10,000, K = 8; cnn windows 2 and 3, 64 filters, 64 units,
+                128 hidden), one step on the card against the CPU's
+                float64 step (loss for every encoder, gradients for the
+                cnn), the warm step's rate (detext_rows_per_sec) for the
+                cnn, the lstm (2 layers, with cuDNN and without) and the
+                transformer (2 layers, 4 heads); then the detext pipeline
+                (deep tower → per-user → per-movie) through the CLI's
+                default mode at MovieLens-100K's counts, the tower at
+                DeepTowerParams' defaults for 10 epochs: AUC climbing
+                from above 0.55, stage seconds, the tower's fit, a cold
+                predict from its checkpoint equal to the warm scores,
+                K1/K2 at every lanes tier of its RE partitions against
+                their plain versions, and the tower's train under
+                torch.profiler (device busy, idle).
 Launch counts are zeroed just before each main-path run (4, wide, 5,
-wide_d, 6, single_node, stream) and read just after. Then one JSON line of per-kernel results
+wide_d, 6, single_node, stream, detext) and read just after. Then one JSON line of per-kernel results
 and, last, the device line. Exits non-zero without a result when no card is present.
 Imports no JAX.
 """
@@ -2343,21 +2359,19 @@ def _ml100k_config(ml, tmp, name):
     return path
 
 
-def _ml100k_kernel_rows(ml, out):
-    """The kernels at the shapes the single-node run gave them, against
-    their plain versions: K1/K2 (`_lanes_row`, F32_TOL) at every lanes tier
-    of each per-user and per-movie partition's plan, read from the run's
-    partitioned records through iter_bucketize_flat, in the form lanes_form
-    gives each tier; K5 (`_fe_fused_row`, FE_LOSS_RTOL/FE_GRAD_RTOL) on the
-    global coordinate's training batch (D = 44) at a seeded θ. Returns
-    {kernel: max |error|}."""
+def _re_tier_rows(out, phase, tag):
+    """K1/K2 (`_lanes_row`, F32_TOL) at every lanes tier of each per-user
+    and per-movie partition's plan under <out>, read from the run's
+    partitioned records through iter_bucketize_flat, in the form
+    lanes_form gives each tier, against their plain versions. Returns
+    ({kernel: max |error|}, {kernel: tiers checked})."""
     import glob
-    import torch
-    from gdmix_tpu_torch.io.input_pipeline import (
-        load_per_entity_grouped_flat, read_per_record)
+    from gdmix_tpu_torch.io.input_pipeline import \
+        load_per_entity_grouped_flat
     from gdmix_tpu_torch.io.metadata import DatasetMetadata
     from gdmix_tpu_torch.ops import newton_lanes as nl
     worst = {"newton_full": 0.0, "newton_block": 0.0}
+    checked = {"newton_full": 0, "newton_block": 0}
     plans, tiers = {}, {}   # tiers: each launch shape once
     for coord, bag, entity in (("per-user", "per_user", "user_id"),
                                ("per-movie", "per_movie", "movie_id")):
@@ -2375,11 +2389,25 @@ def _ml100k_kernel_rows(ml, out):
             plans[key] = [f"B{B}_n{n}_d{d}_{rung}" for B, n, d, rung in plan]
             for t in _lanes_tiers(plan):
                 tiers.setdefault(t, coord)
-    _say("single_node", tier_plans=plans)
+    _say(phase, tier_plans=plans)
     for (B, n, d, form), coord in tiers.items():
         fn = nl.newton_full if form == "warp" else nl.newton_block
-        r = _lanes_row(fn, B, n, d, f"ml100k_{coord}_tier")
+        r = _lanes_row(fn, B, n, d, f"{tag}_{coord}_tier")
         worst[fn.__name__] = max(worst[fn.__name__], r["max_abs_err"])
+        checked[fn.__name__] += 1
+    return worst, checked
+
+
+def _ml100k_kernel_rows(ml, out):
+    """The kernels at the shapes the single-node run gave them, against
+    their plain versions: K1/K2 at every lanes tier of its RE partitions
+    (`_re_tier_rows`); K5 (`_fe_fused_row`, FE_LOSS_RTOL/FE_GRAD_RTOL) on
+    the global coordinate's training batch (D = 44) at a seeded θ. Returns
+    {kernel: max |error|}."""
+    import torch
+    from gdmix_tpu_torch.io.input_pipeline import read_per_record
+    from gdmix_tpu_torch.io.metadata import DatasetMetadata
+    worst, _ = _re_tier_rows(out, "single_node", "ml100k")
     bag = os.path.join(ml, "global")
     md = DatasetMetadata.from_file(os.path.join(bag, "metadata",
                                                 "tensor_metadata.json"))
@@ -3036,6 +3064,305 @@ def phase_stream(card):
     return errs
 
 
+# ------------------------------------------------------------------ detext --
+
+# the JAX bench's deep-tower cell (bench.py:434-487): B rows of L tokens
+# from a vocabulary of V, a wide bag of K ids in D, cnn windows 2 and 3,
+# 64 filters, 64 units, 128 hidden, Adam at 1e-3
+DETEXT_B, DETEXT_L, DETEXT_V, DETEXT_D, DETEXT_K = 4096, 16, 30_000, 10_000, 8
+# one step on the card (float32, TF32 off) against the CPU's float64 step
+# from the same parameters: float32 sums in other orders, so the loss
+# ≤ 1e-5 relative and each gradient's max|Δ| ≤ 1e-4·max|g|
+DETEXT_LOSS_RTOL, DETEXT_GRAD_RTOL = 1e-5, 1e-4
+DETEXT_STEPS = 20         # warm steps timed one by one; the median
+DETEXT_EPOCHS = 10        # DeepTowerParams' default
+DETEXT_PROFILED_EPOCHS = 2
+# a cold predict from the checkpoint against the warm validation scores:
+# one model, one device, the same chunks; the score files keep float32
+DETEXT_PREDICT_ATOL = 1e-5
+
+
+def _detext_step_row(ftr_ext, layers, cudnn=True):
+    """One Adam step of the bench's deep-tower cell through the port's
+    tower_loss and adam, from parameters drawn on the CPU: the card's loss
+    and gradients against the CPU's float64 step, then the warm step's
+    median time by CUDA events, and a profiled step's device time by
+    kernel. cudnn=False runs the card's part with cuDNN off (PyTorch's own
+    LSTM kernels in place of cuDNN's)."""
+    import torch
+    prev = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = cudnn
+    try:
+        return _detext_step(ftr_ext, layers)
+    finally:
+        torch.backends.cudnn.enabled = prev
+
+
+def _detext_step(ftr_ext, layers):
+    import copy
+    import torch
+    from gdmix_tpu_torch.models import deep_tower as dt
+    tower = dt._TextWideTower(
+        vocab_size=DETEXT_V, num_wide=DETEXT_D, num_units=64,
+        windows=(2, 3), num_filters=64, num_hidden=128, ftr_ext=ftr_ext,
+        num_heads=4, num_layers=layers, max_len=DETEXT_L)
+    tower.load_state_dict(dt.init_state(tower,
+                                        torch.Generator().manual_seed(1)))
+    rng = np.random.RandomState(0)
+    B, L = DETEXT_B, DETEXT_L
+    batch = dict(tokens=rng.randint(0, DETEXT_V, (B, 1, L)),
+                 mask=(rng.rand(B, 1, L) < 0.9).astype(np.float32),
+                 indices=rng.randint(0, DETEXT_D, (B, DETEXT_K)),
+                 values=rng.randn(B, DETEXT_K).astype(np.float32),
+                 labels=(rng.rand(B) < 0.5).astype(np.float32),
+                 weights=np.ones(B, np.float32),
+                 offsets=np.zeros(B, np.float32),
+                 groups=np.zeros(B, np.int64))
+    towers, losses, grads = {}, {}, {}
+    for where, dev, dtype in (("card", DEV, torch.float32),
+                              ("cpu", "cpu", torch.float64),
+                              ("cpu32", "cpu", torch.float32)):
+        t = copy.deepcopy(tower).to(device=dev, dtype=dtype)
+        rows = {k: torch.as_tensor(v, device=dev, dtype=torch.int64
+                                   if v.dtype.kind == "i" else dtype)
+                for k, v in batch.items()}
+        loss = dt.tower_loss(t, rows, False, 0.0)
+        loss.backward()
+        losses[where] = float(loss.detach())
+        grads[where] = {n: p.grad.detach().double().cpu()
+                        for n, p in t.named_parameters()
+                        if p.grad is not None}
+        towers[where] = (t, rows)
+    loss_rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    # each gradient against its own largest entry; where that vanishes
+    # (the attention's key bias: softmax is shift-invariant in each query's
+    # row, so its gradient is 0 and float32 leaves only rounding), against
+    # the largest entry of any gradient
+    gmax = max(float(g.abs().max()) for g in grads["cpu"].values())
+
+    def grad_rel(where):
+        worst = (0.0, "")
+        for n, g in grads["cpu"].items():
+            scale = float(g.abs().max())
+            scale = scale if scale > 1e-9 * gmax else gmax
+            worst = max(worst, (float((grads[where][n] - g).abs().max())
+                                / scale, n))
+        return worst
+    t, rows = towers["card"]
+    opt = dt.adam(t, 1e-3)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        dt.tower_loss(t, rows, False, 0.0).backward()
+        opt.step()
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(DETEXT_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    step_ms = float(np.median(times))
+    busy_ms, top = _top_kernels(step, reps=5, top=6)
+    (card_rel, worst), (cpu32_rel, _) = grad_rel("card"), grad_rel("cpu32")
+    return dict(loss_rel=loss_rel, grad_rel=card_rel, grad_worst=worst,
+                grad_rel_cpu32=cpu32_rel, step_ms=step_ms,
+                step_ms_range=(min(times), max(times)),
+                rows_per_sec=B / (step_ms / 1e3), busy_ms=busy_ms, top=top)
+
+
+def _detext_config(ml, out_dir, epochs):
+    """The movieLens workflow with the deep tower as its global coordinate
+    (DeepTowerParams' defaults: units 64, windows 1,2,3, 50 filters,
+    hidden 100, batch 512, lr 0.002), as the JAX package's
+    tests/test_e2e_detext_pipeline.py wires it."""
+    cfg = movielens_config(ml, out_dir)
+    detext = os.path.join(ml, "detext")
+    gdmix_config = dict(
+        cfg["fixed_effect_config"]["global"]["gdmix_config"],
+        model_type="detext")
+    cfg["fixed_effect_config"] = {"global": {
+        "training_data_dir": os.path.join(detext, "trainingData"),
+        "validation_data_dir": os.path.join(detext, "validationData"),
+        "metadata_file": os.path.join(detext, "metadata",
+                                      "tensor_metadata.json"),
+        "vocab_file": os.path.join(detext, "vocab.txt"),
+        "feature_bag": "wide_ftrs_sp", "num_epochs": epochs,
+        "gdmix_config": gdmix_config}}
+    return cfg
+
+
+def _detext_model(cfg, out_dir, **over):
+    """A DeepTowerModel of the config's global coordinate on the card."""
+    from gdmix_tpu_torch.models.deep_tower import (DeepTowerModel,
+                                                   DeepTowerParams)
+    from gdmix_tpu_torch.params import Params, from_dict
+    conf = dict(cfg["fixed_effect_config"]["global"])
+    base = from_dict(Params, {
+        **conf.pop("gdmix_config"), "stage": "fixed_effect",
+        "training_score_dir": os.path.join(out_dir, "train_scores"),
+        "validation_score_dir": os.path.join(out_dir, "validation_scores")})
+    params = from_dict(DeepTowerParams, {
+        **conf, "output_model_dir": os.path.join(out_dir, "models"), **over})
+    return DeepTowerModel(params, base, device=DEV), base
+
+
+def phase_detext(card, tmp):
+    """The deep fixed effect (DeText) on the card. (a) The bench's
+    deep-tower cell at full width: one step against the CPU's float64
+    step, and the warm step rate of the cnn, lstm and transformer
+    encoders. (b) The detext pipeline (deep tower → per-user → per-movie)
+    through the CLI's default mode on synthetic data at MovieLens-100K's
+    counts: AUC climbing, each coordinate's stage seconds, the tower's
+    fit, a cold predict from its checkpoint against the warm scores, the
+    kernel launches, K1/K2 at every lanes tier of the run's RE partitions
+    against their plain versions; then the tower's train again, for
+    DETEXT_PROFILED_EPOCHS epochs, under torch.profiler (device busy,
+    idle). Returns ({kernel: max |error|}, {kernel: launches})."""
+    import torch
+    import yaml
+    from gdmix_tpu_torch import constants
+    from gdmix_tpu_torch.data import movielens
+    from gdmix_tpu_torch.gdmix import kernel_launches
+    from gdmix_tpu_torch.io.scores import read_scores
+    from gdmix_tpu_torch.workflow.main import main as workflow_main
+    from torch.profiler import ProfilerActivity, profile
+    phase_t0 = time.perf_counter()
+    # the step's loss is held for every encoder, its gradients for the
+    # bench's cell (cnn). The lstm and transformer gradients are printed
+    # beside the CPU's float32 ones: at this width ReLU and the masked
+    # max-pool switch on float32 rounding, so float32 itself sits up to
+    # ~5e-3 from float64 there; and cuDNN's float32 LSTM (the port's LSTM
+    # on the card) computes its forward ~1e-4 from float64, PyTorch's own
+    # LSTM kernels ~3e-7 (the cudnn=False row)
+    for ext, layers, cudnn in (("cnn", 1, True), ("lstm", 2, True),
+                               ("lstm", 2, False), ("transformer", 2, True)):
+        r = _detext_step_row(ext, layers, cudnn)
+        key = "detext_rows_per_sec" + ("" if ext == "cnn" else f"_{ext}")
+        if not cudnn:
+            key += "_no_cudnn"
+        _say("detext", ftr_ext=ext, layers=layers, B=DETEXT_B, L=DETEXT_L,
+             cudnn=cudnn,
+             **{key: f"{r['rows_per_sec']:.1f}"},
+             step_ms=f"{r['step_ms']:.4f}",
+             step_ms_range="{:.4f}-{:.4f}".format(*r["step_ms_range"]),
+             device_busy_ms=f"{r['busy_ms']:.4f}",
+             loss_rel=f"{r['loss_rel']:.2e}",
+             grad_rel=f"{r['grad_rel']:.2e}", grad_worst=r["grad_worst"],
+             grad_rel_cpu32=f"{r['grad_rel_cpu32']:.2e}",
+             top_kernels_ms=r["top"],
+             card=repr(card))
+        _check(r["loss_rel"] <= DETEXT_LOSS_RTOL
+               and (r["grad_rel"] <= DETEXT_GRAD_RTOL or ext != "cnn"),
+               f"detext {ext}: the card's step against the CPU's float64 "
+               f"one: loss {r['loss_rel']:.2e}, gradient "
+               f"{r['grad_rel']:.2e}")
+
+    t0 = time.perf_counter()
+    ml = movielens.prepare_gdmix_data(os.path.join(tmp, "detext100k"),
+                                      movielens.generate_synthetic(**ML100K),
+                                      with_detext=True)
+    prep_s = time.perf_counter() - t0
+    out = os.path.join(tmp, "detext")
+    cfg = _detext_config(ml, out, DETEXT_EPOCHS)
+    path = os.path.join(tmp, "detext.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f, sort_keys=False)
+    for c in _re_counters() + _hybrid_counters():
+        c.launches = 0
+    # ---- the main path ----
+    with _Records("gdmix_tpu_torch.workflow.single_node") as log, \
+            _Records("gdmix_tpu_torch.models.deep_tower") as tower_log:
+        t0 = time.perf_counter()
+        metrics = workflow_main(["--config_path", path])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = kernel_launches()
+    # ----
+    stages = {r.coordinate: {k: f"{v:.3f}" for k, v in
+                             r.stage_seconds.items()}
+              for r in log.records if hasattr(r, "stage_seconds")}
+    fits = [r.deep_tower_fit for r in tower_log.records
+            if hasattr(r, "deep_tower_fit")]
+    _check(len(fits) == 1, f"detext: {len(fits)} tower fits logged")
+    fit = fits[0]
+    _say("detext", auc={k: round(v, 6) for k, v in metrics.items()},
+         wall_s=f"{wall:.3f}", stage_s=stages, data_prep_s=f"{prep_s:.3f}",
+         tower_fit_s=f"{fit['seconds']:.3f}", epochs=len(fit["epochs"]),
+         steps_per_epoch=fit["steps_per_epoch"],
+         best_epoch=fit["best_epoch"],
+         val_auc=[round(e["val_auc"], 5) for e in fit["epochs"]],
+         launches={k: v for k, v in launches.items() if v},
+         card=repr(card))
+    ladder = [metrics.get(c) for c in COORDINATES]
+    _check(None not in ladder and ladder[0] > 0.55
+           and ladder[0] < ladder[1] < ladder[2],
+           f"detext: AUC does not climb global (> 0.55) → per-user → "
+           f"per-movie: {metrics}")
+    _check(set(stages) == set(COORDINATES),
+           f"detext: stage times of {sorted(stages)}")
+    _check(launches["newton_full"] > 0,
+           f"detext: the RE coordinates skipped K1: {launches}")
+
+    # a cold predict from the checkpoint against the warm scores
+    model, base = _detext_model(cfg, os.path.join(out, "global"))
+    pred = os.path.join(tmp, "detext_pred")
+    t0 = time.perf_counter()
+    model.predict(pred, model.validation_data_dir, model.metadata_file,
+                  model.checkpoint_path,
+                  {constants.TASK_INDEX: 0, constants.NUM_WORKERS: 1,
+                   constants.IS_CHIEF: True}, base)
+    predict_s = time.perf_counter() - t0
+    warm = read_scores(os.path.join(out, "global", "validation_scores"),
+                       base)
+    cold = read_scores(pred, base)
+    gap = float(np.max(np.abs(cold["predictionScore"]
+                              - warm["predictionScore"])))
+    _say("detext", cold_predict_s=f"{predict_s:.3f}",
+         rows=len(cold["uid"]), max_abs_gap=f"{gap:.2e}")
+    _check(np.array_equal(cold["uid"], warm["uid"])
+           and gap <= DETEXT_PREDICT_ATOL,
+           f"detext: cold predict against the warm scores: {gap:.2e}")
+
+    errs, checked = _re_tier_rows(out, "detext", "detext")
+    _check(all(launches[k] > 0 for k, n in checked.items() if n),
+           f"detext: a kernel of the run's tiers did not launch: "
+           f"{launches}, tiers {checked}")
+
+    # the tower's train under torch.profiler: the device's idle share over
+    # the whole train() (loading and scoring included) and over its fit
+    model, _ = _detext_model(cfg, os.path.join(tmp, "detext_profiled"),
+                             num_epochs=DETEXT_PROFILED_EPOCHS)
+    ctx = {constants.TASK_INDEX: 0, constants.NUM_WORKERS: 1,
+           constants.IS_CHIEF: True}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.train(model.training_data_dir, model.validation_data_dir,
+                    model.metadata_file, model.checkpoint_path, ctx,
+                    model.base_params)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_s = sum(e.self_device_time_total for e in ev) / 1e6
+    ev.sort(key=lambda e: -e.self_device_time_total)
+    fit_s = model.last_fit["seconds"]
+    _say("detext", profiled_epochs=DETEXT_PROFILED_EPOCHS,
+         train_s=f"{prof_s:.3f}", fit_s=f"{fit_s:.3f}",
+         device_busy_s=f"{busy_s:.4f}", idle=f"{1 - busy_s / prof_s:.4f}",
+         idle_fit=f"{1 - busy_s / fit_s:.4f}",
+         top_kernels_s={e.key[:60]: round(e.self_device_time_total / 1e6, 4)
+                        for e in ev[:8]})
+    _say("detext", phase_s=f"{time.perf_counter() - phase_t0:.3f}")
+    return errs, launches
+
+
 KERNELS = (
     ("newton_full", "gdmix_tpu_torch/csrc/newton_lanes.cu",
      "gdmix_tpu/ops/pallas/newton_lanes.py:175"),
@@ -3085,6 +3412,10 @@ def main():
         phase_cli()
         phase_fe_cli(ml, tmp)
     for name, err in phase_stream(card).items():
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+    with tempfile.TemporaryDirectory(prefix="gdx_smoke_detext_") as tmp:
+        errs, _ = phase_detext(card, tmp)
+    for name, err in errs.items():
         res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

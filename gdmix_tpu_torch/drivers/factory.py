@@ -4,6 +4,7 @@ from __future__ import annotations
 from gdmix_tpu_torch import constants
 from gdmix_tpu_torch.drivers.driver import (Driver, FixedEffectDriver,
                                             RandomEffectDriver)
+from gdmix_tpu_torch.models.deep_tower import DeepTowerModel
 from gdmix_tpu_torch.models.fixed_effect_lr import FixedEffectLRModel
 from gdmix_tpu_torch.models.random_effect_lr import RandomEffectLRModel
 from gdmix_tpu_torch.params import Params
@@ -22,7 +23,9 @@ def get_model(params: Params, argv, device=None):
                              "plain linear regression")
         return RandomEffectLRModel.from_argv(argv, params, device)
     if model_type == constants.DETEXT:
-        raise NotImplementedError("ROADMAP A.8: the deep (detext) model")
+        if stage != constants.FIXED_EFFECT:
+            raise ValueError("deep (detext) models are fixed-effect only")
+        return DeepTowerModel.from_argv(argv, params, device)
     raise ValueError(f"unsupported model_type {model_type}")
 
 

@@ -3,9 +3,9 @@
 The port of gdmix_tpu/gdmix.py (reference gdmix.py:13-40): one argv serves
 both the run's Params and the model's params; unknown flags are ignored by
 each parser. The port trains and scores the fixed effect (logistic or
-linear regression) and random-effect logistic regression on one device: the
-first card, or the CPU with --device=cpu (taken out of argv before the
-params parsers see it). A run ends by logging how many times it launched
+linear regression, or the deep detext tower) and random-effect logistic
+regression on one device: the first card, or the CPU with --device=cpu
+(taken out of argv before the params parsers see it). A run ends by logging how many times it launched
 each hand-written kernel (`kernel launches: {...}`, all 0 on the CPU), so
 that a job run in its own process, as the job DAG runs it, shows which
 kernels it went through.
@@ -31,17 +31,21 @@ logger = logging.getLogger(__name__)
 def _print_help() -> None:
     import dataclasses
 
+    from gdmix_tpu_torch.models.deep_tower import DeepTowerParams
     from gdmix_tpu_torch.params import FixedLRParams, REParams, SchemaParams
     print("usage: python -m gdmix_tpu_torch.gdmix --action=train|inference "
           "--stage=fixed_effect|random_effect "
-          "--model_type=logistic_regression|linear_regression --<flags>\n\n"
+          "--model_type=logistic_regression|linear_regression|detext "
+          "--<flags>\n\n"
           "One argv serves driver, schema, and model params; flags each parser"
           " doesn't know are ignored (reference gdmix.py:13-40 behavior).\n"
           "--device=cpu runs on the CPU (default: the first card).\n")
     for title, cls in (("driver params", Params),
                        ("schema params", SchemaParams),
                        ("fixed-effect LR params", FixedLRParams),
-                       ("random-effect LR params", REParams)):
+                       ("random-effect LR params", REParams),
+                       ("deep fixed-effect (detext) params",
+                        DeepTowerParams)):
         print(f"{title}:")
         for f in dataclasses.fields(cls):
             default = "" if f.default is dataclasses.MISSING \

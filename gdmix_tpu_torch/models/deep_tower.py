@@ -1,0 +1,627 @@
+"""Deep fixed-effect tower: a DeText-style text ranker in PyTorch.
+
+Port of gdmix_tpu/models/deep_tower.py, the fixed-effect coordinate that
+stands where the reference delegates to the external DeText package
+(linkedin/gdmix:gdmix-trainer/src/gdmix/models/detext/
+fixed_effect_detext_model.py; arch per detext-movieLens.yaml: a text CNN
+over doc_query + wide sparse features). It consumes the DeText data layout
+(doc_query string + wide_ftrs_sp bag + uid/weight/label) and emits the
+standard score interface (predictionScore / predictionScorePerCoordinate
+avro) for the random effects downstream.
+
+Covered, as in the JAX package (--ftr_ext, doc fields, losses):
+  * encoders: `cnn` (one Conv1D per window + masked max-pool), `lstm`
+    (stacked LSTM over every position + masked max-pool), `bert` /
+    `transformer` (self-attention blocks trained from scratch + masked mean);
+  * multi-field docs: `doc_text_columns` = comma list; a shared embedding,
+    an encoder per field, the representations concatenated (the attention
+    encoders take one field: ROADMAP C.11);
+  * losses: `classification` (pointwise weighted BCE) and `ranking`
+    (in-batch pairwise logistic within `query_column` groups).
+
+Training is mini-batch Adam on one device, the data uploaded once and each
+batch gathered there; the loss of each step stays on the device until the
+epoch ends. The best epoch by validation AUC is kept and saved as the
+port's own checkpoint: a `state_dict` written by `torch.save` through the
+filesystem seam, with a manifest beside it. Checkpoints of the JAX package
+(orbax) do not load here. The tower has no hand-written kernel: the JAX
+package computes it outside any Pallas kernel, and so the port leaves it to
+PyTorch's operators. Not ported (raises NotImplementedError naming its
+ROADMAP item): multi-process training and scoring (A.6).
+"""
+from __future__ import annotations
+
+import dataclasses
+import io
+import json
+import logging
+import math
+import os
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from gdmix_tpu_torch import constants
+from gdmix_tpu_torch.device import resolve_device
+from gdmix_tpu_torch.io import fs
+from gdmix_tpu_torch.io import scores as scores_io
+from gdmix_tpu_torch.io.input_pipeline import read_per_record
+from gdmix_tpu_torch.io.metadata import DatasetMetadata
+from gdmix_tpu_torch.models.api import Model
+from gdmix_tpu_torch.ops.logistic import stable_bce
+from gdmix_tpu_torch.ops.metrics import auc as auc_metric
+from gdmix_tpu_torch.params import Params, from_argv
+
+logger = logging.getLogger(__name__)
+
+_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+# the masked max-pool's fill (JAX deep_tower.py:130, :138)
+_POOL_FILL = -1e9
+# flax's LayerNorm epsilon (torch's default is 1e-5)
+_LN_EPS = 1e-6
+
+
+@dataclass
+class DeepTowerParams:
+    """Hyperparameters, named after the DeText args used by the reference's
+    detext-movieLens.yaml where they correspond."""
+    metadata_file: str = ""
+    output_model_dir: str = ""
+    training_data_dir: Optional[str] = None
+    validation_data_dir: Optional[str] = None
+    feature_bag: Optional[str] = "wide_ftrs_sp"
+    vocab_file: str = ""
+    doc_text_column: str = "doc_query"
+    doc_text_columns: Optional[str] = None  # comma list; overrides the single
+    max_len: int = 16
+    ftr_ext: str = "cnn"           # cnn | lstm | bert | transformer
+    num_units: int = 64            # embedding dim
+    filter_window_sizes: str = "1,2,3"
+    num_filters: int = 50
+    num_hidden: int = 100
+    num_heads: int = 4             # transformer encoder
+    num_layers: int = 2            # transformer/lstm encoder depth
+    task_type: str = "classification"   # classification | ranking
+    query_column: Optional[str] = None  # ranking group key (e.g. user_id)
+    learning_rate: float = 0.002
+    batch_size: int = 512
+    num_epochs: int = 10
+    l2_reg_weight: float = 0.0
+    offset_column_name: str = "offset"
+    dtype: str = "float32"         # the parameters' and the batches' type
+    seed: int = 0
+    data_format: str = constants.TFRECORD
+
+    def __post_init__(self):
+        if self.ftr_ext not in ("cnn", "lstm", "bert", "transformer"):
+            raise ValueError(f"unknown ftr_ext {self.ftr_ext!r}")
+        if self.task_type not in ("classification", "ranking"):
+            raise ValueError(f"unknown task_type {self.task_type!r}")
+        if self.task_type == "ranking" and not self.query_column:
+            raise ValueError("ranking needs a query_column to group by")
+        if self.dtype not in _DTYPES:
+            raise ValueError(f"dtype must be one of {sorted(_DTYPES)}")
+
+    @property
+    def windows(self) -> List[int]:
+        return [int(x) for x in str(self.filter_window_sizes).split(",")]
+
+    @property
+    def text_columns(self) -> List[str]:
+        if self.doc_text_columns:
+            return [c.strip() for c in str(self.doc_text_columns).split(",")]
+        return [self.doc_text_column]
+
+
+class _LayerNorm(nn.Module):
+    """flax's LayerNorm: variance as E[x²] − E[x]² clipped at 0, eps 1e-6."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.empty(features))
+        self.bias = nn.Parameter(torch.empty(features))
+
+    def forward(self, x):
+        mean = x.mean(-1, keepdim=True)
+        var = torch.clamp_min((x * x).mean(-1, keepdim=True) - mean * mean,
+                              0.0)
+        return (x - mean) * (torch.rsqrt(var + _LN_EPS) * self.scale) \
+            + self.bias
+
+
+class _EncoderLayer(nn.Module):
+    """flax SelfAttention → LayerNorm(x + att) → a 4× ReLU FFN →
+    LayerNorm(x + ff) (JAX deep_tower.py:147-152)."""
+
+    def __init__(self, units: int, heads: int):
+        super().__init__()
+        self.heads = heads
+        self.query = nn.Linear(units, units)
+        self.key = nn.Linear(units, units)
+        self.value = nn.Linear(units, units)
+        self.out = nn.Linear(units, units)
+        self.norm_att = _LayerNorm(units)
+        self.ff_in = nn.Linear(units, 4 * units)
+        self.ff_out = nn.Linear(4 * units, units)
+        self.norm_ff = _LayerNorm(units)
+
+    def forward(self, x, key_ok):
+        b, length, units = x.shape
+        shape = (b, length, self.heads, units // self.heads)
+        q = self.query(x).view(shape) / math.sqrt(shape[-1])
+        k = self.key(x).view(shape)
+        v = self.value(x).view(shape)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
+        # masked keys take the type's least value, not −inf (flax
+        # dot_product_attention_weights): a doc with no tokens attends
+        # uniformly instead of giving NaN
+        logits = logits.masked_fill(~key_ok, torch.finfo(logits.dtype).min)
+        att = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, -1), v)
+        x = self.norm_att(x + self.out(att.reshape(b, length, units)))
+        return self.norm_ff(x + self.ff_out(torch.relu(self.ff_in(x))))
+
+
+class _TextWideTower(nn.Module):
+    """Text encoder (cnn | lstm | transformer) + wide linear tower → MLP →
+    logit, as JAX's _TextWideTower. Multi-field docs share the embedding
+    table; each field gets its own encoder parameters and the
+    representations concatenate. forward takes tokens / token_mask
+    [B, F, L], wide_indices / wide_values [B, K]."""
+
+    def __init__(self, vocab_size: int, num_wide: int, num_units: int,
+                 windows: Tuple[int, ...], num_filters: int, num_hidden: int,
+                 ftr_ext: str = "cnn", num_heads: int = 4, num_layers: int = 2,
+                 num_fields: int = 1, max_len: int = 16):
+        super().__init__()
+        if ftr_ext in ("bert", "transformer") and num_fields > 1:
+            raise ValueError(
+                "ROADMAP C.11: the JAX package cannot build a "
+                f"{ftr_ext} encoder over {num_fields} text columns (its "
+                "position embedding is one parameter per tower)")
+        self.ftr_ext = ftr_ext
+        self.windows = tuple(windows)
+        self.embed = nn.Embedding(vocab_size, num_units)
+        self.wide_w = nn.Parameter(torch.empty(num_wide))
+        if ftr_ext == "cnn":
+            # field f's window i is convs[f·W + i], flax's Conv_{f·W+i}
+            self.convs = nn.ModuleList(
+                nn.Conv1d(num_units, num_filters, w, padding="same")
+                for _ in range(num_fields) for w in self.windows)
+            width = num_filters * len(self.windows)
+        elif ftr_ext == "lstm":
+            self.lstms = nn.ModuleList(
+                nn.LSTM(num_units, num_units, num_layers=num_layers,
+                        batch_first=True) for _ in range(num_fields))
+            for lstm in self.lstms:
+                for k in range(num_layers):
+                    # flax's cell has one bias per gate, on the hidden
+                    # side: the input side's stays 0 and out of training
+                    getattr(lstm, f"bias_ih_l{k}").requires_grad_(False)
+            width = num_units
+        else:
+            self.posemb = nn.Parameter(torch.empty(1, max_len, num_units))
+            self.layers = nn.ModuleList(_EncoderLayer(num_units, num_heads)
+                                        for _ in range(num_layers))
+            width = num_units
+        self.hidden = nn.Linear(num_fields * width + 1, num_hidden)
+        self.logit = nn.Linear(num_hidden, 1)
+
+    def _encode_cnn(self, f, emb, mask):
+        x = emb.transpose(1, 2)                      # [B, units, L]
+        pooled = []
+        for i in range(len(self.windows)):
+            conv = torch.relu(self.convs[f * len(self.windows) + i](x))
+            # ROADMAP C.12, kept for parity: a doc with no tokens pools to
+            # −1e9, as in the JAX package
+            conv = torch.where(mask[:, None, :] > 0, conv, _POOL_FILL)
+            pooled.append(torch.amax(conv, dim=-1))
+        return torch.cat(pooled, dim=-1)
+
+    def _encode_lstm(self, f, emb, mask):
+        # every position runs through the cell, pads too (flax's nn.RNN
+        # without seq_lengths): no packed sequences
+        x, _ = self.lstms[f](emb)
+        # ROADMAP C.12, kept for parity (see _encode_cnn)
+        x = torch.where(mask[..., None] > 0, x, _POOL_FILL)
+        return torch.amax(x, dim=1)
+
+    def _encode_transformer(self, f, emb, mask):
+        x = emb + self.posemb
+        key_ok = (mask > 0)[:, None, None, :]        # [B, 1, 1, L]
+        for layer in self.layers:
+            x = layer(x, key_ok)
+        denom = torch.clamp_min(mask.sum(dim=1, keepdim=True), 1.0)
+        return (x * mask[..., None]).sum(dim=1) / denom   # masked mean
+
+    def forward(self, tokens, token_mask, wide_indices, wide_values):
+        encode = {"cnn": self._encode_cnn, "lstm": self._encode_lstm,
+                  "bert": self._encode_transformer,
+                  "transformer": self._encode_transformer}[self.ftr_ext]
+        reprs = []
+        for f in range(tokens.shape[1]):
+            mask_f = token_mask[:, f]
+            emb = self.embed(tokens[:, f]) * mask_f[..., None]
+            reprs.append(encode(f, emb, mask_f))
+        # wide tower: linear over the sparse bag
+        wide = (self.wide_w[wide_indices] * wide_values).sum(dim=-1,
+                                                             keepdim=True)
+        h = torch.relu(self.hidden(torch.cat(reprs + [wide], dim=-1)))
+        return self.logit(h)[..., 0] + wide[..., 0]
+
+
+def _lecun_normal_(t: torch.Tensor, fan_in: int, gen: torch.Generator):
+    """flax's lecun_normal: a normal truncated at ±2σ, scaled so that the
+    variance is 1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / .87962566103423978
+    return nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
+                                 generator=gen)
+
+
+def init_state(tower: _TextWideTower, gen: torch.Generator
+               ) -> Dict[str, torch.Tensor]:
+    """A fresh state for `tower`, on the CPU, drawn from `gen` with the JAX
+    package's initialisers: embedding N(0, 0.1), wide weights 0, position
+    embedding N(0, 0.02), LeCun-normal kernels over their fan-in (a
+    convolution's is in·width), biases 0, LayerNorm scales 1, and flax's
+    LSTM cell defaults (LeCun-normal input kernels, an orthogonal hidden
+    kernel per gate)."""
+    state = {}
+    for name, p in tower.named_parameters():
+        t = torch.zeros(p.shape, dtype=p.dtype)
+        leaf = name.rsplit(".", 1)[-1]
+        if name == "embed.weight":
+            nn.init.normal_(t, 0.0, 0.1, generator=gen)
+        elif name == "posemb":
+            nn.init.normal_(t, 0.0, 0.02, generator=gen)
+        elif leaf == "scale":
+            t.fill_(1.0)
+        elif leaf.startswith("weight_hh"):
+            for gate in t.chunk(4, dim=0):
+                nn.init.orthogonal_(gate, generator=gen)
+        elif leaf.startswith("weight"):
+            _lecun_normal_(t, int(np.prod(t.shape[1:])), gen)
+        state[name] = t
+    for name, b in tower.named_buffers():
+        state[name] = b.detach().cpu().clone()
+    return state
+
+
+def pairwise_ranking_loss(logits, labels, weights, group_ids):
+    """In-batch pairwise logistic (RankNet) loss over same-group pairs with
+    label_i > label_j — the DeText ranking objective family. Group-less or
+    single-label groups contribute nothing."""
+    diff = logits[:, None] - logits[None, :]
+    pair = ((labels[:, None] > labels[None, :])
+            & (group_ids[:, None] == group_ids[None, :]))
+    w = weights[:, None] * pair
+    per = torch.log1p(torch.exp(-diff))
+    return torch.sum(w * per) / torch.clamp_min(torch.sum(w), 1.0)
+
+
+def tower_loss(tower: _TextWideTower, batch: Dict[str, torch.Tensor],
+               ranking: bool, l2_reg_weight: float) -> torch.Tensor:
+    """The training objective of one batch (JAX deep_tower.py:314-323): the
+    data loss of score + offset, plus l2_reg_weight · Σ‖leaf‖² over every
+    trained parameter (an l2 term in the loss, not Adam's weight decay)."""
+    logits = tower(batch["tokens"], batch["mask"], batch["indices"],
+                   batch["values"]) + batch["offsets"]
+    if ranking:
+        data_loss = pairwise_ranking_loss(logits, batch["labels"],
+                                          batch["weights"], batch["groups"])
+    else:
+        data_loss = torch.mean(batch["weights"]
+                               * stable_bce(logits, batch["labels"]))
+    if not l2_reg_weight:
+        # the term is 0·Σ‖leaf‖²: leaving it out changes no bit of the loss
+        # or of a gradient, and saves a pass over every parameter
+        return data_loss
+    l2 = sum(torch.sum(p * p) for p in tower.parameters() if p.requires_grad)
+    return data_loss + l2_reg_weight * l2
+
+
+def adam(tower: _TextWideTower, lr: float) -> torch.optim.Adam:
+    """optax.adam(lr) (b1 0.9, b2 0.999, eps 1e-8, eps_root 0). On a card
+    the update of every parameter runs as one fused step."""
+    params = [p for p in tower.parameters() if p.requires_grad]
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            fused=all(p.is_cuda for p in params))
+
+
+def _load_vocab(vocab_file: str) -> Dict[str, int]:
+    # fs seam: the vocab may live on a remote scheme, like DeText's vocab on
+    # HDFS (reference detext-movieLens.yaml vocab_file + tf.io.gfile reads)
+    with fs.open(vocab_file, encoding="utf-8") as f:
+        return {line.strip(): i for i, line in enumerate(f) if line.strip()}
+
+
+def _tokenize(texts, vocab: Dict[str, int], max_len: int
+              ) -> Tuple[np.ndarray, np.ndarray]:
+    pad = vocab.get("[PAD]", 0)
+    unk = vocab.get("[UNK]", 1)
+    n = len(texts)
+    tokens = np.full((n, max_len), pad, dtype=np.int32)
+    mask = np.zeros((n, max_len), dtype=np.float32)
+    for i, t in enumerate(texts):
+        if isinstance(t, bytes):
+            t = t.decode("utf-8")
+        words = str(t).split()[:max_len]
+        for j, w in enumerate(words):
+            tokens[i, j] = vocab.get(w, unk)
+            mask[i, j] = 1.0
+    return tokens, mask
+
+
+_ROW_KEYS = ("tokens", "mask", "indices", "values", "labels", "weights",
+             "offsets", "groups")
+
+
+class DeepTowerModel(Model):
+    """Deep fixed-effect coordinate with the standard score interface, on
+    one device: the first card, or the CPU when it is asked for."""
+
+    CKPT_FORMAT_VERSION = 1
+
+    def __init__(self, model_params: DeepTowerParams, base_params: Params,
+                 device=None):
+        self.model_params = model_params
+        self.base_params = base_params
+        self.device = resolve_device(device)
+        self.dtype = _DTYPES[model_params.dtype]
+        self.metadata_file = model_params.metadata_file
+        self.checkpoint_path = model_params.output_model_dir
+        self.training_data_dir = model_params.training_data_dir
+        self.validation_data_dir = model_params.validation_data_dir
+        self.metadata = DatasetMetadata.from_file(self.metadata_file)
+        self.feature_bag = model_params.feature_bag
+        self.num_wide = self.metadata.num_features(self.feature_bag)
+        self.vocab = _load_vocab(model_params.vocab_file)
+        p = model_params
+        # built without values: every use loads a state (_initial_state, a
+        # checkpoint) first
+        with torch.device("meta"):
+            tower = _TextWideTower(
+                vocab_size=len(self.vocab), num_wide=self.num_wide,
+                num_units=p.num_units, windows=tuple(p.windows),
+                num_filters=p.num_filters, num_hidden=p.num_hidden,
+                ftr_ext=p.ftr_ext, num_heads=p.num_heads,
+                num_layers=p.num_layers, num_fields=len(p.text_columns),
+                max_len=p.max_len)
+        self.module = tower.to_empty(device=self.device).to(self.dtype)
+        self.has_params = False
+        # the last train(): per-epoch mean loss and validation AUC, the
+        # best epoch, the fit's seconds
+        self.last_fit: Optional[dict] = None
+
+    # ------------------------------------------------------------------ data --
+
+    def _load_arrays(self, data_dir: str, schema_params):
+        data = read_per_record(data_dir, self.metadata, self.feature_bag)
+        p = self.model_params
+        per_field = [_tokenize(data.columns[c], self.vocab, p.max_len)
+                     for c in p.text_columns]
+        tokens = np.stack([t for t, _ in per_field], axis=1)   # [n, F, L]
+        mask = np.stack([m for _, m in per_field], axis=1)
+        n = data.num_samples
+        md = self.metadata
+        labels = (data.column(schema_params.label_column_name).astype(np.float32)
+                  if md.has_label(schema_params.label_column_name)
+                  else np.zeros(n, np.float32))
+        weights = (data.column(schema_params.weight_column_name).astype(np.float32)
+                   if md.has_feature(schema_params.weight_column_name)
+                   else np.ones(n, np.float32))
+        # coordinate semantics: the offset may come from the dataset schema OR
+        # be injected by the in-memory pipeline's score ledger — column
+        # presence decides, exactly like the LR fixed effect
+        offsets = (data.columns[p.offset_column_name].astype(np.float32)
+                   if p.offset_column_name in data.columns
+                   else np.zeros(n, np.float32))
+        uid = data.column(schema_params.uid_column_name).astype(np.int64)
+        if p.query_column and p.query_column in data.columns:
+            qcol = data.columns[p.query_column]
+            _, groups = np.unique(np.asarray([str(q) for q in qcol]),
+                                  return_inverse=True)
+            groups = groups.astype(np.int32)
+        else:
+            groups = np.zeros(n, np.int32)
+        return dict(tokens=tokens, mask=mask, indices=data.indices,
+                    values=data.values.astype(np.float32), labels=labels,
+                    weights=weights, offsets=offsets, uid=uid, n=n,
+                    groups=groups)
+
+    def _on_device(self, arrays) -> Dict[str, torch.Tensor]:
+        """The per-row arrays as tensors on the model's device, uploaded
+        once: ids as int64, the rest in the model's type."""
+        out = {}
+        for k in _ROW_KEYS:
+            integral = k in ("tokens", "indices", "groups")
+            out[k] = torch.as_tensor(
+                np.asarray(arrays[k]),
+                dtype=torch.int64 if integral else self.dtype,
+                device=self.device)
+        return out
+
+    # ----------------------------------------------------------------- train --
+
+    def _initial_state(self) -> Dict[str, torch.Tensor]:
+        """The state the fit starts from: the JAX package's initialisers
+        (init_state), drawn from a generator seeded with `seed`."""
+        gen = torch.Generator().manual_seed(self.model_params.seed)
+        return init_state(self.module, gen)
+
+    def _refuse_unported(self, num_workers: int) -> None:
+        if num_workers > 1:
+            raise NotImplementedError(
+                "ROADMAP A.6: multi-process deep-tower training and scoring "
+                f"({num_workers} workers)")
+
+    def train(self, training_data_dir, validation_data_dir, metadata_file,
+              checkpoint_path, execution_context, schema_params):
+        p = self.model_params
+        self._refuse_unported(execution_context.get(constants.NUM_WORKERS, 1))
+        logger.info("Kicking off deep-tower training on %s", self.device)
+        train = self._load_arrays(training_data_dir, schema_params)
+        valid = (self._load_arrays(validation_data_dir, schema_params)
+                 if validation_data_dir else None)
+        t0 = time.perf_counter()
+        train_t = self._on_device(train)
+        valid_t = self._on_device(valid) if valid is not None else None
+
+        self.module.load_state_dict(self._initial_state())
+        self.has_params = True
+        opt = adam(self.module, p.learning_rate)
+        ranking = p.task_type == "ranking"
+
+        rng_np = np.random.RandomState(p.seed)
+        n = train["n"]
+        steps_per_epoch = max(1, n // p.batch_size)
+        best_auc, best_state, best_epoch = -1.0, None, p.num_epochs - 1
+        history = []
+        for epoch in range(p.num_epochs):
+            perm = torch.as_tensor(rng_np.permutation(n), device=self.device)
+            losses = []
+            for s in range(steps_per_epoch):
+                idx = perm[s * p.batch_size:(s + 1) * p.batch_size]
+                batch = {k: v[idx] for k, v in train_t.items()}
+                opt.zero_grad(set_to_none=True)
+                loss = tower_loss(self.module, batch, ranking,
+                                  p.l2_reg_weight)
+                loss.backward()
+                opt.step()
+                losses.append(loss.detach())
+            mean_loss = float(torch.stack(losses).mean())
+            if valid_t is None:
+                history.append({"epoch": epoch, "loss": mean_loss})
+                continue
+            vscores = self._score_all(valid_t)
+            vauc = float(auc_metric(vscores + valid_t["offsets"],
+                                    valid_t["labels"]))
+            logger.info("epoch %d loss %.5f val auc %.4f", epoch, mean_loss,
+                        vauc)
+            history.append({"epoch": epoch, "loss": mean_loss,
+                            "val_auc": vauc})
+            if vauc > best_auc:
+                best_auc, best_epoch = vauc, epoch
+                best_state = {k: v.detach().clone()
+                              for k, v in self.module.state_dict().items()}
+        if best_state is not None:
+            self.module.load_state_dict(best_state)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.last_fit = {"epochs": history, "best_epoch": best_epoch,
+                         "steps_per_epoch": steps_per_epoch,
+                         "seconds": time.perf_counter() - t0}
+        logger.info("deep tower: best epoch %d of %d, %d steps an epoch, "
+                    "%.3f s", best_epoch, p.num_epochs, steps_per_epoch,
+                    self.last_fit["seconds"],
+                    extra={"deep_tower_fit": self.last_fit})
+        if execution_context.get(constants.IS_CHIEF, True):
+            self._save_checkpoint()
+
+        # score train + validation with the best epoch's parameters
+        task_index = execution_context.get(constants.TASK_INDEX, 0)
+        self._write_scores(train, train_t, schema_params,
+                           self.base_params.training_score_dir, task_index)
+        if valid is not None:
+            self._write_scores(valid, valid_t, schema_params,
+                               self.base_params.validation_score_dir,
+                               task_index)
+
+    @torch.no_grad()
+    def _score_all(self, rows: Dict[str, torch.Tensor],
+                   chunk: int = 4096) -> torch.Tensor:
+        """Scores (without the offset) of every row, in chunks of `chunk`
+        rows, on the device."""
+        n = rows["tokens"].shape[0]
+        out = [self.module(rows["tokens"][s:s + chunk],
+                           rows["mask"][s:s + chunk],
+                           rows["indices"][s:s + chunk],
+                           rows["values"][s:s + chunk])
+               for s in range(0, n, chunk)]
+        return torch.cat(out) if out else torch.zeros(0, dtype=self.dtype,
+                                                      device=self.device)
+
+    def _write_scores(self, arrays, rows, schema_params, output_dir,
+                      task_index):
+        if not output_dir:
+            return
+        per_coordinate = self._score_all(rows).cpu().numpy()
+        total = per_coordinate + arrays["offsets"]
+        out = os.path.join(output_dir, f"part-{task_index:05d}.avro")
+        scores_io.write_scores(out, schema_params, arrays["uid"], total,
+                               scores_per_coordinate=per_coordinate,
+                               labels=arrays["labels"],
+                               weights=arrays["weights"])
+        logger.info("Wrote %d deep-tower scores to %s", arrays["n"], out)
+
+    # ------------------------------------------------------------ checkpoint --
+    # The port's checkpoint: <output_model_dir>/deep_tower_ckpt/params.pt (a
+    # torch.save of the state_dict) and manifest.json (the JAX package's
+    # keys, and "framework": "torch"). Both are written once, straight to
+    # their place through the filesystem seam, local or remote alike.
+
+    def _ckpt_dir(self) -> str:
+        return os.path.join(self.checkpoint_path, "deep_tower_ckpt")
+
+    def _save_checkpoint(self) -> None:
+        buf = io.BytesIO()
+        torch.save({k: v.detach().cpu()
+                    for k, v in self.module.state_dict().items()}, buf)
+        ckpt_dir = self._ckpt_dir()
+        fs.makedirs(ckpt_dir, exist_ok=True)
+        with fs.open(os.path.join(ckpt_dir, "params.pt"), "wb") as f:
+            f.write(buf.getvalue())
+        with fs.open(os.path.join(ckpt_dir, "manifest.json"), "w") as f:
+            json.dump({"format_version": self.CKPT_FORMAT_VERSION,
+                       "model": "deep_tower",
+                       "framework": "torch",
+                       "vocab_size": len(self.vocab),
+                       "num_wide": self.num_wide,
+                       "hparams": dataclasses.asdict(self.model_params)}, f,
+                      indent=2)
+        logger.info("Saved deep-tower checkpoint to %s", ckpt_dir)
+
+    def _load_checkpoint(self) -> None:
+        ckpt_dir = self._ckpt_dir()
+        with fs.open(os.path.join(ckpt_dir, "manifest.json")) as f:
+            manifest = json.load(f)
+        if manifest.get("format_version") != self.CKPT_FORMAT_VERSION:
+            raise ValueError(f"unsupported checkpoint version "
+                             f"{manifest.get('format_version')}")
+        if manifest.get("framework") != "torch":
+            raise ValueError(f"{ckpt_dir} was not written by "
+                             "gdmix_tpu_torch (an orbax checkpoint of the "
+                             "JAX package does not load here)")
+        if manifest["vocab_size"] != len(self.vocab) \
+                or manifest["num_wide"] != self.num_wide:
+            raise ValueError("checkpoint was trained with a different "
+                             "vocab/feature space")
+        with fs.open(os.path.join(ckpt_dir, "params.pt"), "rb") as f:
+            state = torch.load(io.BytesIO(f.read()), weights_only=True,
+                               map_location=self.device)
+        self.module.load_state_dict(state)
+        self.has_params = True
+
+    def export(self, output_model_dir):
+        if self.has_params:
+            self._save_checkpoint()
+
+    # --------------------------------------------------------------- predict --
+
+    def predict(self, output_dir, input_data_path, metadata_file,
+                checkpoint_path, execution_context, schema_params):
+        self._refuse_unported(execution_context.get(constants.NUM_WORKERS, 1))
+        self._load_checkpoint()
+        arrays = self._load_arrays(input_data_path, schema_params)
+        self._write_scores(arrays, self._on_device(arrays), schema_params,
+                           output_dir,
+                           execution_context.get(constants.TASK_INDEX, 0))
+
+    @staticmethod
+    def from_argv(argv, base_params: Params,
+                  device=None) -> "DeepTowerModel":
+        return DeepTowerModel(from_argv(DeepTowerParams, argv), base_params,
+                              device)

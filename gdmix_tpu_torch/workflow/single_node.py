@@ -5,7 +5,8 @@ gdmixworkflow/single_node_workflow.py + fixed/random_effect_workflow_
 generator.py), with the subprocess `python -m gdmix.gdmix` / `spark-submit`
 jobs replaced by direct function calls into this package:
 
-  fixed effect:   train(+score) → evaluate (AUC on validation scores)
+  fixed effect:   train(+score) → evaluate (AUC on validation scores); an
+                  LR model, or the deep (detext) tower
   per RE coord:   partition (score join + offset update + group by entity)
                   → batched train(+score) → evaluate
 
@@ -33,6 +34,8 @@ from gdmix_tpu_torch.device import resolve_device
 from gdmix_tpu_torch.drivers.driver import FixedEffectDriver, \
     RandomEffectDriver
 from gdmix_tpu_torch.io import fs
+from gdmix_tpu_torch.models.deep_tower import DeepTowerModel, \
+    DeepTowerParams
 from gdmix_tpu_torch.models.fixed_effect_lr import FixedEffectLRModel
 from gdmix_tpu_torch.models.random_effect_lr import RandomEffectLRModel
 from gdmix_tpu_torch.params import FixedLRParams, Params, REParams, from_dict
@@ -93,10 +96,7 @@ def run_fixed_effect(config: WorkflowConfig, resume: bool = False,
     output_dir = os.path.join(config.output_dir, name)
     model_type = gdmix_config.get("model_type",
                                   constants.LOGISTIC_REGRESSION)
-    if model_type == constants.DETEXT:
-        raise NotImplementedError(
-            "ROADMAP A.8: the deep (detext) fixed effect")
-    if model_type != constants.LOGISTIC_REGRESSION:
+    if model_type not in (constants.LOGISTIC_REGRESSION, constants.DETEXT):
         # same restriction as the reference workflow generator
         # (fixed_effect_workflow_generator.py:75-85); plain linear regression
         # runs through the trainer CLI, not the scored+evaluated workflow
@@ -117,9 +117,14 @@ def run_fixed_effect(config: WorkflowConfig, resume: bool = False,
         "training_score_dir": os.path.join(output_dir, TRAINING_SCORES),
         "validation_score_dir": os.path.join(output_dir, VALIDATION_SCORES),
     })
-    model_params = from_dict(FixedLRParams, {
-        **fe_config, "output_model_dir": os.path.join(output_dir, MODELS)})
-    model = FixedEffectLRModel(model_params, base_params, device=device)
+    if model_type == constants.DETEXT:
+        model_params = from_dict(DeepTowerParams, {
+            **fe_config, "output_model_dir": os.path.join(output_dir, MODELS)})
+        model = DeepTowerModel(model_params, base_params, device=device)
+    else:
+        model_params = from_dict(FixedLRParams, {
+            **fe_config, "output_model_dir": os.path.join(output_dir, MODELS)})
+        model = FixedEffectLRModel(model_params, base_params, device=device)
     FixedEffectDriver(base_params, model).run_training(base_params)
     t1 = time.perf_counter()
     value = _evaluate(output_dir, base_params, metric)

@@ -49,6 +49,8 @@ def test_no_jax_imports_in_any_port_file():
     bad = {k: v for k, v in bad.items() if v}
     assert not bad, bad
     assert len(list(_port_files())) > 30
+    # the deep tower, the one port of a flax/optax/orbax module, is scanned
+    assert os.path.join(PORT, "models", "deep_tower.py") in set(_port_files())
 
 
 def test_port_imports_without_jax_in_fresh_interpreter():
@@ -465,7 +467,10 @@ def test_port_builds_only_from_its_own_sources():
 # functions copied verbatim into a ported module: (module, function), apart
 # from the listed edits of their docstrings (the JAX package's timings on
 # its own device, which the port does not state)
-VERBATIM_FUNCTIONS = [("models/fixed_effect_lr.py", "effective_grad_mode")]
+VERBATIM_FUNCTIONS = [("models/fixed_effect_lr.py", "effective_grad_mode"),
+                      ("models/deep_tower.py", "_tokenize"),
+                      ("models/deep_tower.py", "_load_vocab"),
+                      ("models/deep_tower.py", "_load_arrays")]
 VERBATIM_EDITS = {
     "effective_grad_mode": [
         ('''    "auto" picks the two-level one-hot `block` path inside its measured win
