@@ -101,6 +101,26 @@ Phases, each printing one result line; any failure exits non-zero:
                 job's wall and each train job's kernel launches (its last
                 log line): K5 in the global job, K1 in both RE jobs; each
                 AUC within 2e-3 of the single-node run's.
+     sharded  — the entity-sharded RE plane (re_mode="sharded": records
+                routed to the mesh shard owning their entity, grouped and
+                packed on the card): the primary at full width through
+                fit_flat on both planes at P = 1, cold and warm (median of
+                3), walls, the sharded plane's phases and tiers, each
+                plane's K1/K2 launches and idle share (torch.profiler),
+                max|Δθ| between the planes ≤ F32_TOL; the primary on
+                meshes repeating the card two and four times (the P > 1
+                exchange and per-shard solves on CUDA tensors; one card,
+                so no launch crosses a device) against P = 1; the heavy
+                tail against the host plane, K1 and K2 at its largest-B
+                sharded tier of each, on the arrays the plane packed,
+                against their plain versions; the wide-support and
+                support_120 cuts (the rungs each plane took, well-posed
+                entities ≤ F32_TOL); a refit through the sharded device
+                cache bit-equal to the uncached one with no static upload;
+                the movieLens in-memory pipeline with --re_mode sharded
+                against --re_mode host (AUC within 1e-4 a coordinate), and
+                the trainer CLI's RE stage with --re_mode=sharded in a
+                fresh process.
   7. cli      — `python -m gdmix_tpu_torch.gdmix --action=train` in a fresh
                 process: --stage=random_effect on a small written dataset,
                 --stage=fixed_effect on the movieLens global data, eagerly
@@ -134,12 +154,13 @@ Phases, each printing one result line; any failure exits non-zero:
                 their plain versions, and the tower's train under
                 torch.profiler (device busy, idle).
 Launch counts are zeroed just before each main-path run (4, wide, 5,
-wide_d, 6, single_node, stream, detext) and read just after. Then one JSON line of per-kernel results
+wide_d, 6, single_node, sharded, stream, detext) and read just after. Then one JSON line of per-kernel results
 and, last, the device line. Exits non-zero without a result when no card is present.
 Imports no JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import logging
@@ -552,9 +573,10 @@ def _lanes_smem_wavefronts(form, n, d, iters):
     return len(iters) * (stage + zg) + float(iters.sum()) * per_iter
 
 
-def _lanes_row(fn, B, n, d, tag, reps=5):
+def _lanes_row(fn, B, n, d, tag, reps=5, inputs=None):
     """K1 or K2 (`fn`) at one launch shape against its plain version on the
-    card, on lr_problem's entities: max|Δθ| ≤ F32_TOL where both converge,
+    card, on lr_problem's entities (or on `inputs`, the (θ0, X, y, w, off,
+    counts) a fit launched it with): max|Δθ| ≤ F32_TOL where both converge,
     converged flags agreeing on ≥ 0.999 of the entities; timed, with its
     bound and the shared-memory traffic it needs beside it."""
     import torch
@@ -563,10 +585,13 @@ def _lanes_row(fn, B, n, d, tag, reps=5):
     kw = dict(lam=1.0, unreg_bias=True, maxiter=100, ftol=1e-12, pgtol=1e-5)
     smem_rate = (SMEM_BYTES_PER_CLOCK * _max_sm_clock_hz()
                  * torch.cuda.get_device_properties(0).multi_processor_count)
-    X, y, w, off, cnt = (torch.from_numpy(a).to(dev)
-                         for a in lr_problem(B, n, d, seed=n + d))
+    if inputs is None:
+        X, y, w, off, cnt = (torch.from_numpy(a).to(dev)
+                             for a in lr_problem(B, n, d, seed=n + d))
+        th0 = torch.zeros(B, d, device=dev)
+    else:
+        th0, X, y, w, off, cnt = inputs
     B = X.shape[0]
-    th0 = torch.zeros(B, d, device=dev)
     k = lambda: fn(th0, X, y, w, off, cnt, **kw)
     p = lambda: nl.newton_full_plain(th0, X, y, w, off, cnt, **kw)
     (thk, ck, ik), (thp, cp, _) = k(), p()
@@ -1633,48 +1658,57 @@ def _write_cli_dataset(tmp, num_users=2000, d=24, seed=11):
     return md_file, feature_file, plist, uid
 
 
-def phase_cli():
+def _cli_re_stage(tmp, phase, extra=()):
+    """`python -m gdmix_tpu_torch.gdmix --action=train
+    --stage=random_effect` in a fresh process on _write_cli_dataset's
+    2,000 users, with `extra` flags: its models and scores must be there
+    (a model a user, a finite score a record). Returns its stderr."""
     from gdmix_tpu_torch.io.model_avro import load_sparse_models_from_avro
     from gdmix_tpu_torch.io.scores import read_scores
     from gdmix_tpu_torch.params import SchemaParams
+    md_file, feature_file, plist, n_rec = _write_cli_dataset(tmp)
+    model_dir = os.path.join(tmp, "models")
+    score_dir = os.path.join(tmp, "scores")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "gdmix_tpu_torch.gdmix",
+         "--action=train", "--stage=random_effect",
+         "--model_type=logistic_regression",
+         "--label_column_name=response", "--uid_column_name=uid",
+         "--weight_column_name=weight",
+         "--prediction_score_column_name=predictionScore",
+         f"--partition_list_file={plist}",
+         f"--training_score_dir={score_dir}",
+         f"--metadata_file={md_file}",
+         f"--training_data_dir={os.path.join(tmp, 'trainingData')}",
+         "--feature_bag=per_entity", f"--feature_file={feature_file}",
+         "--partition_entity=user_id",
+         f"--output_model_dir={model_dir}", "--l2_reg_weight=1.0",
+         "--regularize_bias=false", "--dtype=float32", *extra],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+    _check(proc.returncode == 0, f"CLI exit code {proc.returncode}")
+    models = load_sparse_models_from_avro(
+        os.path.join(model_dir, "part-00000.avro"), feature_file)
+    schema = SchemaParams(uid_column_name="uid",
+                          label_column_name="response",
+                          prediction_score_column_name="predictionScore")
+    scores = read_scores(os.path.join(score_dir, "partitionId=0"), schema)
+    ok = (len(models) == 2000 and len(scores["uid"]) == n_rec
+          and bool(np.isfinite(scores["predictionScore"]).all()))
+    _say(phase, stage="random_effect", flags=list(extra),
+         rc=proc.returncode, models=len(models),
+         score_rows=len(scores["uid"]), wall_s=f"{wall:.2f}")
+    _check(ok, "CLI outputs: model count, score rows or finite scores")
+    return proc.stderr
+
+
+def phase_cli():
     with tempfile.TemporaryDirectory(prefix="gdx_smoke_cli_") as tmp:
-        md_file, feature_file, plist, n_rec = _write_cli_dataset(tmp)
-        model_dir = os.path.join(tmp, "models")
-        score_dir = os.path.join(tmp, "scores")
-        env = dict(os.environ, PYTHONPATH=ROOT)
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "gdmix_tpu_torch.gdmix",
-             "--action=train", "--stage=random_effect",
-             "--model_type=logistic_regression",
-             "--label_column_name=response", "--uid_column_name=uid",
-             "--weight_column_name=weight",
-             "--prediction_score_column_name=predictionScore",
-             f"--partition_list_file={plist}",
-             f"--training_score_dir={score_dir}",
-             f"--metadata_file={md_file}",
-             f"--training_data_dir={os.path.join(tmp, 'trainingData')}",
-             "--feature_bag=per_entity", f"--feature_file={feature_file}",
-             "--partition_entity=user_id",
-             f"--output_model_dir={model_dir}", "--l2_reg_weight=1.0",
-             "--regularize_bias=false", "--dtype=float32"],
-            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-        wall = time.perf_counter() - t0
-        if proc.returncode != 0:
-            print(proc.stderr[-4000:], file=sys.stderr)
-        _check(proc.returncode == 0, f"CLI exit code {proc.returncode}")
-        models = load_sparse_models_from_avro(
-            os.path.join(model_dir, "part-00000.avro"), feature_file)
-        schema = SchemaParams(uid_column_name="uid",
-                              label_column_name="response",
-                              prediction_score_column_name="predictionScore")
-        scores = read_scores(os.path.join(score_dir, "partitionId=0"),
-                             schema)
-        ok = (len(models) == 2000 and len(scores["uid"]) == n_rec
-              and bool(np.isfinite(scores["predictionScore"]).all()))
-        _say("cli", rc=proc.returncode, models=len(models),
-             score_rows=len(scores["uid"]), wall_s=f"{wall:.2f}")
-        _check(ok, "CLI outputs: model count, score rows or finite scores")
+        _cli_re_stage(tmp, "cli")
 
 
 def _fe_counters():
@@ -3064,6 +3098,384 @@ def phase_stream(card):
     return errs
 
 
+# ----------------------------------------------------------------- sharded --
+
+SHARDED_MESHES = (2, 4)   # cuda:0 repeated: the P > 1 exchange on one card
+SHARDED_WARM_ROUNDS = 6   # warm primary fits of each plane, in turns
+# the sharded pipeline against the host one, per coordinate: the JAX
+# package's bound between its two planes (tests/test_in_memory_pipeline.py:
+# 53-54)
+SHARDED_AUC_ATOL = 1e-4
+
+
+def _repeated_mesh(p):
+    import torch
+    from gdmix_tpu_torch.parallel.mesh import Mesh
+    return Mesh((torch.device(DEV),) * p)
+
+
+@contextlib.contextmanager
+def _mesh_of(mesh):
+    """The RE model's mesh (get_mesh) is `mesh` inside the block."""
+    from gdmix_tpu_torch.models import random_effect_lr as RE
+    orig = RE.get_mesh
+    RE.get_mesh = lambda device=None: mesh
+    try:
+        yield
+    finally:
+        RE.get_mesh = orig
+
+
+def _re_run(fn):
+    """(fn(), wall seconds, launches by RE kernel) with every RE count
+    zeroed just before."""
+    import torch
+    for c in _re_counters():
+        c.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            {c.__name__: c.launches for c in _re_counters()})
+
+
+def _table_gap(a, b, ids=None):
+    """max |Δθ| between two model tables over `ids` (every id of `a` when
+    None); their ids and each entity's support must be the same."""
+    from gdmix_tpu_torch.io.model_table import flat_positions
+    _check(sorted(a.ids) == sorted(b.ids), "the planes trained other ids")
+    ids = a.ids if ids is None else ids
+    ra = np.fromiter((a.id2row[e] for e in ids), np.int64, len(ids))
+    rb = np.fromiter((b.id2row[e] for e in ids), np.int64, len(ids))
+    _check(np.array_equal(a.lens[ra], b.lens[rb]), "supports differ")
+    pa = flat_positions(a.offs[ra], a.lens[ra])
+    pb = flat_positions(b.offs[rb], b.lens[rb])
+    _check(np.array_equal(a.coef_ids[pa], b.coef_ids[pb]),
+           "support feature ids differ")
+    return max(float(np.abs(a.coef_vals[pa] - b.coef_vals[pb]).max(
+        initial=0.0)), float(np.abs(a.icpt[ra] - b.icpt[rb]).max(
+            initial=0.0)))
+
+
+def _lanes_want(model):
+    """{kernel: launches} a sharded fit of `model` makes on the lanes path:
+    one a tier of its form on each shard (every tier on the primal rung)."""
+    from gdmix_tpu_torch.ops import newton_lanes as nl
+    lay = model.last_fit_sharding
+    want = {"newton_full": 0, "newton_block": 0}
+    for _, n, dim in lay["tiers"]:
+        if dim <= nl.MAX_DIM:
+            k = ("newton_full" if nl.lanes_form(n, dim) == "warp"
+                 else "newton_block")
+            want[k] += lay["shards"]
+    return want
+
+
+def _captured_lanes(record):
+    """newton.newton_lr_batch_lanes wrapped to append each call's kernel
+    inputs, (θ0, X, y, w, off, counts) as the wrapper converts them, to
+    `record`. Returns the original."""
+    import torch
+    from gdmix_tpu_torch.ops import newton
+    orig = newton.newton_lr_batch_lanes
+
+    def lanes(theta0, X, labels, weights, offsets, counts, **kw):
+        f32 = torch.float32
+        record.append((theta0.to(f32).contiguous(), X.to(f32).contiguous(),
+                       labels.to(f32).contiguous(),
+                       weights.to(f32).contiguous(),
+                       offsets.to(f32).contiguous(),
+                       torch.clamp_min(counts.to(f32), 1.0).contiguous()))
+        return orig(theta0, X, labels, weights, offsets, counts, **kw)
+    newton.newton_lr_batch_lanes = lanes
+    return orig
+
+
+def _sharded_primary(card, tmp, launches):
+    """Parts 1 and 2 of phase_sharded: the primary on both planes (P = 1),
+    then on meshes repeating the card. Returns (workload, model, schema)
+    for the cache refit."""
+    fg = make_workload_flat(100_000, seed=0)
+    model, schema = stage_model(24, os.path.join(tmp, "primary"))
+    planes = ("sharded", "host")
+    res = {}
+    for mode in planes:
+        model.model_params.re_mode = mode
+        # ---- the main path (sharded): a cold fit at P = 1 ----
+        table, cold_s, got = _re_run(lambda: model.fit_flat(fg, {}, schema))
+        # ----
+        sharded = mode == "sharded"
+        res[mode] = dict(
+            table=table, cold_s=cold_s, launches=got,
+            cold_phases={k: round(v, 4)
+                         for k, v in model.last_fit_phases.items()},
+            share=_converged_share(model),
+            layout=dict(model.last_fit_sharding) if sharded else {},
+            want=_lanes_want(model) if sharded else None, warm=[],
+            phases=[])
+    # warm fits in turns, S H then H S, on one card in one call
+    for r in range(SHARDED_WARM_ROUNDS):
+        for mode in (planes if r % 2 == 0 else planes[::-1]):
+            model.model_params.re_mode = mode
+            _, w, _ = _re_run(lambda: model.fit_flat(fg, {}, schema))
+            res[mode]["warm"].append(w)
+            res[mode]["phases"].append(dict(model.last_fit_phases))
+    for mode in planes:
+        r = res[mode]
+        model.model_params.re_mode = mode
+        prof_s, busy_ms = _profiled(lambda: model.fit_flat(fg, {}, schema))
+        idle = (f"{1 - busy_ms / (1e3 * prof_s):.4f}" if busy_ms > 0
+                else "not measured")
+        r["warm_s"] = float(np.median(r["warm"]))
+        _say("sharded", workload="primary", plane=mode, shards=1,
+             entities=len(fg), converged=f"{r['share']:.6f}",
+             cold_s=f"{r['cold_s']:.4f}", cold_phases=r["cold_phases"],
+             warm_s_median=f"{r['warm_s']:.4f}",
+             warm_s=[round(w, 4) for w in r["warm"]],
+             warm_phases_median={k: round(float(np.median(
+                 [ph[k] for ph in r["phases"]])), 4)
+                 for k in r["phases"][0]},
+             launches=r["launches"], tiers_B_n_dim=r["layout"].get("tiers"),
+             capacity=r["layout"].get("capacity"),
+             profiled_s=f"{prof_s:.4f}", device_busy_ms=f"{busy_ms:.2f}",
+             idle_share=idle, card=repr(card))
+        _check(r["share"] >= 0.999,
+               f"primary {mode}: converged share {r['share']}")
+    got, want = res["sharded"]["launches"], res["sharded"]["want"]
+    launches.update(got)
+    _check({k: got[k] for k in want} == want,
+           f"primary sharded: lanes launches {got}, tiers {want}")
+    gap = _table_gap(res["sharded"]["table"], res["host"]["table"])
+    _say("sharded", workload="primary", compare="sharded vs host",
+         max_abs_dtheta=f"{gap:.3e}",
+         warm_ratio_sharded_over_host="{:.3f}".format(
+             res["sharded"]["warm_s"] / res["host"]["warm_s"]),
+         sharded_faster_in_pairs="{} of {}".format(
+             sum(a < b for a, b in zip(res["sharded"]["warm"],
+                                       res["host"]["warm"])),
+             SHARDED_WARM_ROUNDS), card=repr(card))
+    _check(gap <= F32_TOL, f"primary: sharded vs host max|dθ| {gap}")
+    p1 = res["sharded"]["table"]
+    model.model_params.re_mode = "sharded"
+    for p in SHARDED_MESHES:
+        with _mesh_of(_repeated_mesh(p)):
+            table, wall, got = _re_run(lambda: model.fit_flat(fg, {},
+                                                              schema))
+            want = _lanes_want(model)
+            layout = dict(model.last_fit_sharding)
+            _, warm_s, _ = _re_run(lambda: model.fit_flat(fg, {}, schema))
+        launches.update(got)
+        gap = _table_gap(table, p1)
+        _say("sharded", workload="primary", shards=p,
+             mesh=f"{DEV} x{p} (one card: no launch crosses a device)",
+             cold_s=f"{wall:.4f}", warm_s=f"{warm_s:.4f}",
+             phases={k: round(v, 4)
+                     for k, v in model.last_fit_phases.items()},
+             capacity=layout["capacity"], tiers_B_n_dim=layout["tiers"],
+             launches=got, max_abs_dtheta_vs_p1=f"{gap:.3e}",
+             converged=f"{_converged_share(model):.6f}", card=repr(card))
+        _check(gap <= F32_TOL, f"primary P={p} vs P=1: max|dθ| {gap}")
+        _check({k: got[k] for k in want} == want,
+               f"primary P={p}: lanes launches {got}, want {want}")
+    return fg, model, schema
+
+
+def _sharded_heavy_tail(card, tmp, launches, errs):
+    """Part 3: the heavy tail through the sharded plane against the host
+    plane; K1 and K2 at the sharded plane's own largest-B tier of each,
+    on the arrays it packed, against their plain version."""
+    from gdmix_tpu_torch.ops import newton, newton_lanes as nl
+    fg = heavy_tail_workload()
+    model, schema = stage_model(24, os.path.join(tmp, "heavy"),
+                                re_mode="sharded")
+    record = []
+    orig = _captured_lanes(record)
+    try:
+        # ---- the main path: the sharded fit ----
+        table, wall, got = _re_run(lambda: model.fit_flat(fg, {}, schema))
+        # ----
+    finally:
+        newton.newton_lr_batch_lanes = orig
+    launches.update(got)
+    want = _lanes_want(model)
+    share = _converged_share(model)
+    layout = dict(model.last_fit_sharding)
+    model.model_params.re_mode = "host"
+    host, host_s, host_got = _re_run(lambda: model.fit_flat(fg, {},
+                                                            schema))
+    gap = _table_gap(table, host)
+    _say("sharded", workload="heavy_tail", entities=len(fg),
+         converged=f"{share:.6f}", sharded_s=f"{wall:.4f}",
+         host_s=f"{host_s:.4f}", tiers_B_n_dim=layout["tiers"],
+         capacity=layout["capacity"], launches=got, host_launches=host_got,
+         max_abs_dtheta_vs_host=f"{gap:.3e}", card=repr(card))
+    _check(share >= 0.999, f"heavy tail sharded: converged share {share}")
+    _check(gap <= F32_TOL, f"heavy tail: sharded vs host max|dθ| {gap}")
+    _check({k: got[k] for k in want} == want,
+           f"heavy tail sharded: lanes launches {got}, want {want}")
+    largest = {}
+    for inputs in record:
+        _, n, dim = inputs[1].shape
+        fn = nl.newton_full if nl.lanes_form(n, dim) == "warp" \
+            else nl.newton_block
+        if inputs[1].shape[0] >= largest.get(fn, (0,))[0]:
+            largest[fn] = (inputs[1].shape[0], inputs)
+    _check(set(largest) == {nl.newton_full, nl.newton_block},
+           f"heavy tail sharded: lanes forms {set(largest)}")
+    for fn, (B, inputs) in largest.items():
+        _, n, dim = inputs[1].shape
+        r = _lanes_row(fn, B, n, dim, "sharded_heavy_tail_tier",
+                       inputs=inputs)
+        errs[fn.__name__] = max(errs.get(fn.__name__, 0.0),
+                                r["max_abs_err"])
+
+
+def _sharded_cuts(card, tmp, launches):
+    """Part 4: the wide-support and support_120 cuts through both planes:
+    the rungs each took, max|Δθ| over the well-posed entities (16+ records
+    of both classes), ≤ F32_TOL; the RE kernels' launches of the sharded
+    fits (K3/K4 where the ladder takes them)."""
+    for tag, fg, d in (("wide_support",
+                        make_workload_flat(4096, seed=2, d=512, max_nnz=16,
+                                           count_lo=32, count_hi=64), 512),
+                       ("support_120", support_120_workload(), 120)):
+        model, schema = stage_model(d, os.path.join(tmp, tag),
+                                    re_mode="sharded")
+        # ---- the main path: the sharded fit ----
+        table, wall, got = _re_run(lambda: model.fit_flat(fg, {}, schema))
+        # ----
+        launches.update(got)
+        rungs, share = dict(model.last_fit_rungs), _converged_share(model)
+        layout = dict(model.last_fit_sharding)
+        model.model_params.re_mode = "host"
+        host, host_s, host_got = _re_run(lambda: model.fit_flat(fg, {},
+                                                                schema))
+        ids = np.asarray(fg.entity_ids)[_well_posed_rows(fg)]
+        gap = _table_gap(table, host, ids)
+        _say("sharded", workload=tag, entities=len(fg),
+             sharded_rungs=rungs, host_rungs=model.last_fit_rungs,
+             converged=f"{share:.6f}",
+             host_converged=f"{_converged_share(model):.6f}",
+             sharded_s=f"{wall:.4f}", host_s=f"{host_s:.4f}",
+             tiers_B_n_dim=layout["tiers"], launches=got,
+             host_launches=host_got, compared=len(ids),
+             max_abs_dtheta_vs_host=f"{gap:.3e}", card=repr(card))
+        _check(share >= 0.999, f"{tag} sharded: converged share {share}")
+        _check(gap <= F32_TOL, f"{tag}: sharded vs host max|dθ| {gap}")
+
+
+def _sharded_cache(card, fg, model, schema):
+    """Part 5: a refit of the primary on offsets + 0.3 through the sharded
+    device cache against the same refit without it: bit for bit, no
+    static upload."""
+    import dataclasses
+    model.model_params.re_mode = "sharded"
+    cache = {}
+    cold = model.fit_flat(fg, {}, schema, device_cache=cache)
+    before = model.static_upload_count
+    shifted = dataclasses.replace(fg, columns=dict(
+        fg.columns, offset=fg.columns["offset"] + 0.3))
+    cached, cached_s, _ = _re_run(lambda: model.fit_flat(
+        shifted, cold, schema, device_cache=cache))
+    cached_phases = {k: round(v, 4) for k, v in
+                     model.last_fit_phases.items()}
+    uploads = model.static_upload_count - before
+    uncached, uncached_s, _ = _re_run(lambda: model.fit_flat(
+        shifted, cold, schema))
+    equal = (list(cached.ids) == list(uncached.ids)
+             and np.array_equal(cached.coef_vals, uncached.coef_vals)
+             and np.array_equal(cached.icpt, uncached.icpt))
+    _say("sharded", cache="primary refit, offsets + 0.3",
+         static_upload_count=before, static_uploads_cached_refit=uploads,
+         bit_equal=equal, cached_s=f"{cached_s:.4f}",
+         cached_phases=cached_phases, uncached_s=f"{uncached_s:.4f}",
+         uncached_phases={k: round(v, 4) for k, v in
+                          model.last_fit_phases.items()}, card=repr(card))
+    _check(before == 1 and uploads == 0,
+           f"sharded cache: {before} cold uploads, {uploads} cached")
+    _check(equal, "sharded cached refit differs from the uncached one")
+
+
+def _sharded_pipeline(card, tmp, ml, launches):
+    """Part 6: the in-memory movieLens pipeline (phase 6's config) through
+    `--re_mode sharded` against `--re_mode host`, AUC within
+    SHARDED_AUC_ATOL per coordinate; then the trainer CLI's RE stage with
+    --re_mode=sharded in a fresh process."""
+    import yaml
+    from gdmix_tpu_torch.models.random_effect_lr import RandomEffectLRModel
+    from gdmix_tpu_torch.workflow.main import main as workflow_main
+    planes = []
+    orig = RandomEffectLRModel.fit_records_sharded
+
+    def spy(self, *a, **k):
+        planes.append(self.model_params.partition_entity)
+        return orig(self, *a, **k)
+    runs = {}
+    for mode in ("sharded", "host"):
+        cfg_path = os.path.join(tmp, f"movielens_{mode}.yaml")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(movielens_config(
+                ml, os.path.join(tmp, f"out_{mode}")), f, sort_keys=False)
+        RandomEffectLRModel.fit_records_sharded = spy
+        try:
+            # ---- the main path (sharded): the pipeline ----
+            runs[mode] = _re_run(lambda: workflow_main(
+                ["--config_path", cfg_path, "--mode", "in_memory",
+                 "--num_sweeps", "2", "--re_mode", mode]))
+            # ----
+        finally:
+            RandomEffectLRModel.fit_records_sharded = orig
+        if mode == "sharded":
+            launches.update(runs[mode][2])
+    (sm, s_wall, s_got), (hm, h_wall, h_got) = runs["sharded"], runs["host"]
+    gaps = {c: abs(sm[c] - hm[c]) for c in COORDINATES}
+    _say("sharded", pipeline="in_memory --num_sweeps 2",
+         auc_sharded={k: round(v, 6) for k, v in sm.items()},
+         auc_host={k: round(v, 6) for k, v in hm.items()},
+         auc_gap={k: f"{v:.2e}" for k, v in gaps.items()},
+         sharded_fits=planes, wall_sharded_s=f"{s_wall:.3f}",
+         wall_host_s=f"{h_wall:.3f}", launches=s_got, card=repr(card))
+    _check(planes == ["user_id", "movie_id"] * 2,
+           f"the pipeline's RE fits took another plane: {planes}")
+    _check(max(gaps.values()) <= SHARDED_AUC_ATOL,
+           f"sharded pipeline vs host: AUC gaps {gaps}")
+    _check(s_got["newton_full"] > 0, f"sharded pipeline: {s_got}")
+    cli_tmp = os.path.join(tmp, "cli_sharded")
+    os.makedirs(cli_tmp)
+    err = _cli_re_stage(cli_tmp, "sharded", ("--re_mode=sharded",))
+    fits = [ln for ln in err.splitlines() if "sharded fit:" in ln]
+    _check(len(fits) == 1, "the CLI's RE stage did not take the sharded "
+                           "plane")
+    kl = [ln for ln in err.splitlines() if "kernel launches:" in ln]
+    cli_launches = json.loads(kl[-1].split("kernel launches:", 1)[1])
+    _say("sharded", cli_fit=fits[0].split("sharded fit:", 1)[1].strip(),
+         cli_launches=cli_launches)
+    _check(cli_launches.get("newton_full", 0) > 0,
+           f"the CLI's sharded stage never launched K1: {cli_launches}")
+
+
+def phase_sharded(card, tmp, ml):
+    """The entity-sharded RE plane (re_mode="sharded") on the card, parts
+    1–6 (_sharded_primary, _sharded_heavy_tail, _sharded_cuts,
+    _sharded_cache, _sharded_pipeline). Returns ({kernel: max |error|} of
+    its K1/K2 rows, {kernel: launches} of its main-path runs)."""
+    from collections import Counter
+    t0 = time.perf_counter()
+    launches, errs = Counter(), {}
+    sub = os.path.join(tmp, "sharded")
+    os.makedirs(sub)
+    fg, model, schema = _sharded_primary(card, sub, launches)
+    _sharded_heavy_tail(card, sub, launches, errs)
+    _sharded_cuts(card, sub, launches)
+    _sharded_cache(card, fg, model, schema)
+    _sharded_pipeline(card, sub, ml, launches)
+    _say("sharded", launches=dict(launches),
+         phase_s=f"{time.perf_counter() - t0:.3f}", card=repr(card))
+    _check(launches["newton_full"] > 0 and launches["newton_block"] > 0,
+           f"the sharded phase skipped K1 or K2: {dict(launches)}")
+    return errs, launches
+
+
 # ------------------------------------------------------------------ detext --
 
 # the JAX bench's deep-tower cell (bench.py:434-487): B rows of L tokens
@@ -3411,6 +3823,11 @@ def main():
         phase_dag(card, tmp, ml100k, single)
         phase_cli()
         phase_fe_cli(ml, tmp)
+        errs, sharded_launches = phase_sharded(card, tmp, ml)
+    for name, err in errs.items():
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+    for name, n in sharded_launches.items():
+        launches[name] += n
     for name, err in phase_stream(card).items():
         res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
     with tempfile.TemporaryDirectory(prefix="gdx_smoke_detext_") as tmp:

@@ -56,11 +56,12 @@ def _print_help() -> None:
 
 def _refuse_multi_process_env() -> None:
     """The JAX package joins a multi-host job from COORDINATOR_ADDRESS /
-    NUM_PROCESSES; the port runs on one device until multi-GPU lands."""
+    NUM_PROCESSES; the port runs in one process until multi-process lands
+    (ROADMAP A.6b)."""
     if os.environ.get("COORDINATOR_ADDRESS") or os.environ.get(
             "NUM_PROCESSES"):
         raise NotImplementedError(
-            "ROADMAP A.6: multi-GPU runs (COORDINATOR_ADDRESS/NUM_PROCESSES "
+            "ROADMAP A.6b: multi-GPU runs (COORDINATOR_ADDRESS/NUM_PROCESSES "
             "are set)")
 
 

@@ -27,7 +27,7 @@ filesystem seam, with a manifest beside it. Checkpoints of the JAX package
 (orbax) do not load here. The tower has no hand-written kernel: the JAX
 package computes it outside any Pallas kernel, and so the port leaves it to
 PyTorch's operators. Not ported (raises NotImplementedError naming its
-ROADMAP item): multi-process training and scoring (A.6).
+ROADMAP item): multi-process training and scoring (A.6b).
 """
 from __future__ import annotations
 
@@ -455,7 +455,7 @@ class DeepTowerModel(Model):
     def _refuse_unported(self, num_workers: int) -> None:
         if num_workers > 1:
             raise NotImplementedError(
-                "ROADMAP A.6: multi-process deep-tower training and scoring "
+                "ROADMAP A.6b: multi-process deep-tower training and scoring "
                 f"({num_workers} workers)")
 
     def train(self, training_data_dir, validation_data_dir, metadata_file,

@@ -27,7 +27,7 @@ uniform ids), runs the fused kernel.
 stream_chunk_rows > 0 trains and scores a tfrecord shard out of core: it
 moves to the device chunk by chunk as it decodes (_device_batch_streamed),
 so host memory holds one chunk. Not ported (raises NotImplementedError
-naming its ROADMAP item): multi-process data parallelism (A.6).
+naming its ROADMAP item): multi-process data parallelism (A.6b).
 """
 from __future__ import annotations
 
@@ -439,7 +439,7 @@ class FixedEffectLRModel(Model):
     def _refuse_unported(self, num_workers: int) -> None:
         if num_workers > 1:
             raise NotImplementedError(
-                "ROADMAP A.6: multi-process fixed-effect training "
+                "ROADMAP A.6b: multi-process fixed-effect training "
                 f"({num_workers} workers)")
 
     def _stream_rows(self) -> int:

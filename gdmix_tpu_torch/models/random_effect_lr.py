@@ -27,8 +27,15 @@ and scoring in entity-complete chunks (stream_chunk_entities), the
 multi-sweep device cache of the sweep-static bucket columns and the
 warm-sweep downlink skip.
 
-Not ported (each raises NotImplementedError naming its ROADMAP item or the
-do-not-port list): two-phase Newton and re_mode="sharded".
+Two planes feed the solver ladder (REParams.re_mode): the host plane
+groups, tiers and packs entities on the host (fit_groups); the
+entity-sharded plane routes records to the mesh shard that owns their
+entity and groups and packs them on that shard's device
+(fit_records_sharded, parallel/entity_sharding.py). "auto" takes the
+sharded plane on a mesh of more than one device, as the JAX package does.
+
+Not ported (raises NotImplementedError naming the do-not-port list):
+two-phase Newton.
 """
 from __future__ import annotations
 
@@ -43,12 +50,13 @@ import torch
 
 from gdmix_tpu_torch import constants
 from gdmix_tpu_torch.data.bucketing import EntityBucket, bucketize
-from gdmix_tpu_torch.device import resolve_device
+from gdmix_tpu_torch.device import pad_to_multiple, resolve_device
 from gdmix_tpu_torch.io import fs, model_avro, scores as scores_io
 from gdmix_tpu_torch.io.input_pipeline import load_per_entity_grouped
 from gdmix_tpu_torch.io.metadata import DatasetMetadata
 from gdmix_tpu_torch.io.model_avro import SparseModel
-from gdmix_tpu_torch.io.model_table import ModelTable
+from gdmix_tpu_torch.io.model_table import (ModelTable, flat_positions,
+                                            intersect_prior_support)
 from gdmix_tpu_torch.models.api import Model
 from gdmix_tpu_torch.ops.lbfgs import lbfgs_batched
 from gdmix_tpu_torch.ops.logistic import (SparseBatch, _l2_mask,
@@ -57,6 +65,11 @@ from gdmix_tpu_torch.ops.logistic import (SparseBatch, _l2_mask,
                                           stable_bce)
 from gdmix_tpu_torch.ops.newton import (densify_bucket, dual_variance,
                                         newton_lr_batch)
+from gdmix_tpu_torch.ops.segment import ENTITY_SENTINEL
+from gdmix_tpu_torch.parallel.entity_sharding import (pack_tier,
+                                                      route_records,
+                                                      shard_rows)
+from gdmix_tpu_torch.parallel.mesh import get_mesh, on_device
 from gdmix_tpu_torch.params import Params, REParams, from_argv
 from gdmix_tpu_torch.util.convert import newton_inputs_from_numpy
 
@@ -299,6 +312,11 @@ class RandomEffectLRModel(Model):
         # one per bucket)
         self.last_fit_skipped = 0
         self.static_upload_count = 0
+        # the plane of the last fit ("host" or "sharded") and, on the
+        # sharded plane, its layout: shards, routing capacity, and each
+        # tier as (P·b_cap, n_cap, dim)
+        self.last_fit_plane = None
+        self.last_fit_sharding = {}
 
     # ------------------------------------------------------------------ train --
 
@@ -423,18 +441,64 @@ class RandomEffectLRModel(Model):
 
     # ---------------------------------------------------------- bucket solving --
 
+    def _flat_records_view(self, fg):
+        """A FlatGroups partition as per-record columns, zero-copy: the
+        input form fit_records_sharded takes. No per-record entity column:
+        fit_flat hands the grouping over as `entity_groups`."""
+        from gdmix_tpu_torch.io.input_pipeline import PerRecordData
+        return PerRecordData(columns=dict(fg.columns), indices=fg.indices,
+                             values=fg.values, nnz=fg.rec_nnz,
+                             num_samples=int(np.asarray(fg.counts).sum()))
+
     def fit_flat(self, fg, model_weights: Mapping[str, SparseModel],
                  schema_params,
                  device_cache=None) -> Mapping[str, SparseModel]:
         """Train a columnar FlatGroups partition through the configured
-        random-effect plane (REParams.re_mode). The port has the host plane
-        (numpy grouping + bucketize, fit_groups); "auto" takes it, as the
-        JAX package's auto does on one device."""
-        if self.model_params.re_mode == "sharded":
-            raise NotImplementedError(
-                "ROADMAP A.6: re_mode='sharded' (multi-GPU entity routing)")
-        return self.fit_groups(fg, model_weights, schema_params,
-                               device_cache=device_cache)
+        random-effect plane (REParams.re_mode, as in
+        gdmix_tpu/models/random_effect_lr.py:598-641):
+
+          sharded — route records to the mesh shard that owns their entity
+                    and group and pack them ON DEVICE (fit_records_sharded);
+                    "auto" takes it when the feature bag is rectangular AND
+                    the mesh (parallel/mesh.get_mesh: every visible card)
+                    has more than one device.
+          host    — numpy grouping + bucketize (fit_groups); "auto" on one
+                    device.
+
+        The FlatGroups is grouped already: its entity ids are factorized at
+        E scale (the sharded fit's `factorize` phase), and each entity's
+        record run is handed over with them."""
+        from gdmix_tpu_torch.data.partitioner import factorize_entities
+        mesh = get_mesh(device=self.device)
+        mode = self.model_params.re_mode
+        use_sharded = (mode == "sharded"
+                       or (mode == "auto" and fg.indices is not None
+                           and mesh.size > 1))
+        if not use_sharded:
+            return self.fit_groups(fg, model_weights, schema_params,
+                                   device_cache=device_cache)
+        t0 = time.time()
+        counts = np.asarray(fg.counts, np.int64)
+        uniq, ginv = factorize_entities(np.asarray(fg.entity_ids, object))
+        inv = np.repeat(ginv, counts)
+        ecounts = np.bincount(ginv, weights=counts,
+                              minlength=len(uniq)).astype(np.int64)
+        # each entity's records are one run of fg, at its group's start, in
+        # fg's order (not factorize's sorted order); an entity repeated in
+        # fg (a capped entity's overflow groups) has no one run
+        rec_starts = None
+        if len(uniq) == len(fg):
+            rec_starts = np.zeros(len(uniq), np.int64)
+            rec_starts[ginv] = np.cumsum(counts) - counts
+        factorize_s = time.time() - t0
+        out = self.fit_records_sharded(
+            self._flat_records_view(fg), schema_params,
+            model_weights=model_weights, mesh=mesh,
+            entity_groups=(uniq, inv, ecounts, rec_starts),
+            device_cache=device_cache)
+        self.last_fit_phases = dict(factorize=factorize_s,
+                                    **self.last_fit_phases)
+        return out
 
     def fit_groups(self, groups, model_weights: Mapping[str, SparseModel],
                    schema_params,
@@ -451,6 +515,7 @@ class RandomEffectLRModel(Model):
                                                     iter_bucketize_flat)
         logger.info("Training %d entities", len(groups))
         tt = [("start", time.time())]  # per-phase wall marks
+        self.last_fit_plane = "host"
         bucketize_fn = (iter_bucketize_flat if isinstance(groups, FlatGroups)
                         else bucketize)
         buckets = bucketize_fn(groups, schema_params,
@@ -620,6 +685,420 @@ class RandomEffectLRModel(Model):
             icpt=thetas[:, 0].copy() if off else None,
             coef_vars=None if var is None else var[:, off:off + u_cap][mask],
             icpt_vars=var[:, 0].copy() if var is not None and off else None)
+
+    # ------------------------------------------------- entity-sharded fit --
+
+    @staticmethod
+    def _entity_supports(inv: np.ndarray, indices, values, nnz,
+                         num_entities: int, num_features: int):
+        """Per-entity sorted unique feature support from per-record padded-COO
+        data, fully vectorized (mirrors bucketize's compact support). Returns
+        flat (sup_keys, sup_feat, sup_offs[E+1]) where sup_keys = e*D + feat
+        is sorted ascending (the np.unique output, reused for the warm-start
+        key intersection)."""
+        if indices is None:
+            return (np.zeros(0, np.int64), np.zeros(0, np.int64),
+                    np.zeros(num_entities + 1, np.int64))
+        k = indices.shape[1]
+        if nnz is not None:
+            entry_ok = np.arange(k)[None, :] < nnz[:, None]
+        else:
+            entry_ok = values != 0
+        flat_ent = np.repeat(inv, k)[entry_ok.reshape(-1)]
+        flat_feat = indices.reshape(-1)[entry_ok.reshape(-1)].astype(np.int64)
+        keys = np.unique(flat_ent.astype(np.int64) * num_features + flat_feat)
+        sup_ent = keys // num_features
+        sup_feat = keys % num_features
+        sup_offs = np.searchsorted(sup_ent, np.arange(num_entities + 1))
+        return keys, sup_feat, sup_offs
+
+    def _local_supports(self, data, inv, counts, rec_starts, indices,
+                        values):
+        """(local [N, K] int32 per-entry ids in the entity's compact
+        support, sup_keys, sup_feat, sup_offs [E+1], u_counts [E]): the
+        reference's enable_local_indexing (job_consumers.py:209-232). With
+        each entity's record run known (`rec_starts`), the multicore C++
+        per-entity dedup; otherwise one N-scale unique + searchsorted."""
+        from gdmix_tpu_torch import native
+        E, D = len(counts), self.num_features
+        nat = None
+        if rec_starts is not None and data.indices is not None:
+            nat = native.entry_local(indices, values, data.nnz, counts,
+                                     rec_starts,
+                                     use_value_mask=data.nnz is None)
+        if nat is not None:
+            local, sup_feat, u_counts, sup_offs = nat
+            sup_keys = (np.repeat(np.arange(E, dtype=np.int64), u_counts) * D
+                        + sup_feat)
+            return local, sup_keys, sup_feat, sup_offs, u_counts
+        sup_keys, sup_feat, sup_offs = self._entity_supports(
+            inv, data.indices, data.values, data.nnz, E, D)
+        local = np.zeros(indices.shape, np.int32)
+        if data.indices is not None and sup_keys.size:
+            k = indices.shape[1]
+            if data.nnz is not None:
+                entry_ok = np.arange(k)[None, :] \
+                    < np.asarray(data.nnz)[:, None]
+            else:
+                entry_ok = values != 0
+            flat_pos = np.flatnonzero(entry_ok.ravel())
+            ent_e = inv[flat_pos // k].astype(np.int64)
+            fid_e = indices.ravel()[flat_pos].astype(np.int64)
+            pos = np.searchsorted(sup_keys, ent_e * D + fid_e)
+            li = local.reshape(-1)
+            li[flat_pos] = (pos - sup_offs[ent_e]).astype(np.int32)
+        return local, sup_keys, sup_feat, sup_offs, np.diff(sup_offs)
+
+    def _warm_start_local(self, model_weights, prior_table, uniq, sup_keys,
+                          sup_feat, sup_offs):
+        """The prior reconciled onto each entity's compact support
+        (reference job_consumers.py:260-288): (warm_icpt as (entity,
+        value) or None, warm_coef as (entity, local position, value) or
+        None). One key intersection for a table prior; the per-entity path
+        for a dict prior that mixes variance presence."""
+        off = 1 if self.has_intercept else 0
+        E, D = len(uniq), self.num_features
+        warm_icpt = warm_coef = None
+        if len(model_weights) and prior_table is not None \
+                and E * D < (1 << 62):
+            id2row = prior_table.id2row
+            prow = np.fromiter((id2row.get(u, -1) for u in uniq), np.int64, E)
+            ents = np.flatnonzero(prow >= 0)
+            if ents.size:
+                if off and prior_table.icpt is not None:
+                    warm_icpt = (ents, prior_table.icpt[prow[ents]])
+                p_ent, _, p_val, pos, hit = intersect_prior_support(
+                    prior_table, ents, prow[ents], sup_keys, D)
+                warm_coef = (p_ent[hit],
+                             pos[hit] - sup_offs[p_ent[hit]], p_val[hit])
+        elif len(model_weights):
+            wi_e, wi_v, w_e, w_l, w_v = [], [], [], [], []
+            for e in range(E):
+                prior = model_weights.get(uniq[e])
+                if prior is None:
+                    continue
+                if off:
+                    wi_e.append(e)
+                    wi_v.append(prior.theta[0])
+                sup = sup_feat[sup_offs[e]:sup_offs[e + 1]]
+                if len(prior.unique_global_indices) and len(sup):
+                    p_idx = np.asarray(prior.unique_global_indices)
+                    order = np.argsort(p_idx, kind="stable")
+                    p_sorted = p_idx[order]
+                    p_theta = np.asarray(prior.theta[off:])[order]
+                    pos = np.clip(np.searchsorted(p_sorted, sup), 0,
+                                  len(p_sorted) - 1)
+                    hit = p_sorted[pos] == sup
+                    w_e.append(np.full(int(hit.sum()), e, np.int64))
+                    w_l.append(np.flatnonzero(hit).astype(np.int64))
+                    w_v.append(p_theta[pos[hit]])
+            if wi_e:
+                warm_icpt = (np.asarray(wi_e, np.int64), np.asarray(wi_v))
+            if w_e:
+                warm_coef = (np.concatenate(w_e), np.concatenate(w_l),
+                             np.concatenate(w_v))
+        return warm_icpt, warm_coef
+
+    def fit_records_sharded(self, data, schema_params,
+                            model_weights: Mapping[str, SparseModel] = None,
+                            mesh=None, entity_groups=None,
+                            device_cache=None) -> Mapping[str, SparseModel]:
+        """Train straight from per-record data (a PerRecordData) on the
+        entity-sharded plane (gdmix_tpu/models/random_effect_lr.py:991-1366):
+        records are routed to the mesh shard owning their entity
+        (parallel/entity_sharding ≡ the Spark shuffle-by-entity,
+        DataPartitioner.scala:235-276), grouped and packed into per-TIER
+        solver blocks on that shard's device, and each shard solves its own
+        entities with the solver ladder of the host plane. Returns the
+        prior ∪ new models, as fit_groups does.
+
+        Tiering + local indexing: entities fall into power-of-two
+        sample-count tiers (the host plane's ladder), and every record's
+        feature ids are remapped on the host to the entity's compact
+        [0, U) support before routing, so each tier's solve dimension is
+        its largest support, not the global feature count.
+
+        Slot assignment is host-predicted (build_entity_blocks packs each
+        shard's entities in ascending entity order), so every tier's route,
+        pack and solve is queued before any result is read back. A tier's
+        solve runs once per shard, on that shard's [b_cap] slice and
+        device; every entity is solved alone, so this equals one solve of
+        the P·b_cap batch.
+
+        `entity_groups`: (uniq, inv, counts, rec_starts) from a caller that
+        has the records grouped already (fit_flat); rec_starts (or None)
+        gives each entity's record run. `device_cache`: a dict the caller
+        keeps across coordinate-descent sweeps over the same records
+        (workflow/pipeline.py): from sweep 2 on only the offsets are routed
+        again; the routed entity/tier tags and each tier's packed static
+        columns stay on the devices."""
+        from gdmix_tpu_torch.data.bucketing import _next_pow2, _sample_caps
+        from gdmix_tpu_torch.data.partitioner import factorize_entities
+        tt = [("start", time.time())]  # per-phase wall marks
+        self.last_fit_plane = "sharded"
+        self.last_fit_skipped = 0
+        model_weights = model_weights if model_weights is not None else {}
+        mesh = mesh if mesh is not None else get_mesh(device=self.device)
+        P = mesh.size
+        p = self.model_params
+        n = data.num_samples
+        dt = self.dtype
+        off = 1 if self.has_intercept else 0
+
+        if entity_groups is not None:
+            uniq, inv, counts, rec_starts = entity_groups
+        else:
+            uniq, inv = factorize_entities(data.columns[p.partition_entity])
+            counts = np.bincount(inv, minlength=len(uniq))
+            rec_starts = None
+        E = len(uniq)
+        prior_table = ModelTable.from_models(model_weights,
+                                             self.has_intercept)
+        if E == 0:
+            self.last_fit_phases = {}
+            return (prior_table if prior_table is not None
+                    else dict(model_weights))
+
+        # the sweep cache (fit_groups' device_cache contract): a hit needs
+        # the same records count, entities, shards, counts and entry width;
+        # the caller owns the invariant that only offsets change
+        k_now = data.indices.shape[1] if data.indices is not None else 0
+        chit = None
+        if device_cache is not None:
+            ent_c = device_cache.get("sharded")
+            if (ent_c is not None and ent_c["n"] == n and ent_c["E"] == E
+                    and ent_c["num_shards"] == P and ent_c["k"] == k_now
+                    and np.array_equal(ent_c["counts"], counts)
+                    and np.array_equal(ent_c["uniq"], uniq)):
+                chit = ent_c
+        # round-robin ownership over the sorted entity ids (any balanced
+        # deterministic assignment works)
+        owner_of_entity = (np.arange(E) % P).astype(np.int32)
+        offsets = (data.columns[p.offset_column_name].astype(np.float64)
+                   if p.offset_column_name in data.columns else np.zeros(n))
+        if chit is None:
+            labels = (data.columns[schema_params.label_column_name]
+                      .astype(np.float64)
+                      if schema_params.label_column_name in data.columns
+                      else np.zeros(n))
+            weights = (data.columns[schema_params.weight_column_name]
+                       .astype(np.float64)
+                       if schema_params.weight_column_name
+                       and schema_params.weight_column_name in data.columns
+                       else np.ones(n))
+            if data.indices is not None:
+                indices, values = data.indices, data.values
+            else:
+                indices = np.zeros((n, 1), np.int32)
+                values = np.zeros((n, 1))
+            local_indices, sup_keys, sup_feat, sup_offs, u_counts = \
+                self._local_supports(data, inv, counts, rec_starts, indices,
+                                     values)
+            u_eff = np.maximum(u_counts, 1)
+            caps = np.asarray(_sample_caps(np.asarray(counts), 8))
+            tier_of_entity = np.searchsorted(caps, counts,
+                                             side="left").astype(np.int32)
+            tt.append(("host_prep", time.time()))
+
+            # pad the record axis to split evenly; padding rows carry weight
+            # 0 and the entity sentinel (they never enter a block)
+            n_pad = pad_to_multiple(max(n, 1), P * 8)
+            rows_per_shard = n_pad // P
+            extra = n_pad - n
+
+            def padr(a, fill=0.0):
+                if not extra:
+                    return a
+                block = np.full((extra,) + a.shape[1:], fill, a.dtype)
+                return np.concatenate([a, block], axis=0)
+
+            ent_rows = padr(inv.astype(np.int32), int(ENTITY_SENTINEL))
+            owner_pad = padr(owner_of_entity[inv], 0)
+            if extra:  # padding rows round-robin (they carry the sentinel)
+                owner_pad[n:] = np.arange(extra) % P
+            tier_rows = padr(tier_of_entity[inv], 0)
+
+            # exact capacity: the most records a source shard sends anywhere
+            src = np.arange(n_pad) // rows_per_shard
+            pair = np.bincount(src * P + owner_pad, minlength=P * P)
+            capacity = pad_to_multiple(max(int(pair.max()), 1), 8)
+            per_shard_rows = P * capacity
+
+            # ONE exchange of every payload column, entity/tier tags included
+            routed = route_records(
+                mesh,
+                dict(indices=shard_rows(mesh, padr(local_indices)),
+                     values=shard_rows(mesh, padr(values), dt),
+                     offsets=shard_rows(mesh, padr(offsets), dt),
+                     labels=shard_rows(mesh, padr(labels), dt),
+                     weights=shard_rows(mesh, padr(weights), dt),
+                     _ent=shard_rows(mesh, ent_rows),
+                     _tier=shard_rows(mesh, tier_rows)),
+                shard_rows(mesh, owner_pad), capacity=capacity)
+            r_ent = routed.arrays["_ent"]
+            r_tier = routed.arrays["_tier"]
+            tt.append(("route", time.time()))
+
+            # host-predicted slots: build_entity_blocks packs each shard's
+            # tier members in ascending entity order, so slot =
+            # owner·b_cap + rank within the owner
+            tiers = []
+            slot_of_entity = np.full(E, -1, np.int64)  # within its own tier
+            for t in range(len(caps)):
+                members = np.flatnonzero(tier_of_entity == t)
+                if members.size == 0:
+                    continue
+                own_m = owner_of_entity[members]
+                per_shard = np.bincount(own_m, minlength=P)
+                b_cap_t = min(max(8, _next_pow2(int(per_shard.max()))),
+                              per_shard_rows)
+                u_cap_t = pad_to_multiple(max(int(u_eff[members].max()), 1),
+                                          8)
+                order = np.argsort(own_m, kind="stable")   # members already ↑
+                sorted_members = members[order]
+                shard_of = own_m[order]
+                shard_starts = np.searchsorted(shard_of, np.arange(P))
+                rank = np.arange(members.size) - shard_starts[shard_of]
+                slots = shard_of.astype(np.int64) * b_cap_t + rank
+                slot_of_entity[sorted_members] = slots
+                tiers.append(dict(t=t, n_cap=int(caps[t]), b_cap=b_cap_t,
+                                  u_cap=u_cap_t, members=sorted_members,
+                                  slots=slots))
+        else:
+            (sup_keys, sup_feat, sup_offs, u_counts, tier_of_entity,
+             slot_of_entity, tiers, owner_pad, capacity, extra) = (
+                chit["sup_keys"], chit["sup_feat"], chit["sup_offs"],
+                chit["u_counts"], chit["tier_of_entity"],
+                chit["slot_of_entity"], chit["tiers"], chit["owner_pad"],
+                chit["capacity"], chit["extra"])
+            tt.append(("host_prep", time.time()))
+            off_pad = (np.concatenate([offsets, np.zeros(extra)])
+                       if extra else offsets)
+            routed = route_records(
+                mesh, dict(offsets=shard_rows(mesh, off_pad, dt)),
+                shard_rows(mesh, owner_pad), capacity=capacity)
+            r_ent, r_tier = chit["r_ent"], chit["r_tier"]
+            tt.append(("route", time.time()))
+        tier_static = {} if device_cache is not None and chit is None \
+            else None
+
+        warm_icpt, warm_coef = self._warm_start_local(
+            model_weights, prior_table, uniq, sup_keys, sup_feat, sup_offs)
+        tt.append(("plan_warm", time.time()))
+
+        # every tier's pack + solve is queued before anything is read back
+        pending = []
+        rungs: Dict[str, int] = {}
+        for ti in tiers:
+            dim_t = ti["u_cap"] + off
+            theta0 = np.zeros((P * ti["b_cap"], dim_t))
+            if warm_icpt is not None:
+                we, wv = warm_icpt
+                sel = tier_of_entity[we] == ti["t"]
+                theta0[slot_of_entity[we[sel]], 0] = wv[sel]
+            if warm_coef is not None:
+                ce, cl, cv = warm_coef
+                sel = tier_of_entity[ce] == ti["t"]
+                theta0[slot_of_entity[ce[sel]], off + cl[sel]] = cv[sel]
+            sample_count = np.zeros(P * ti["b_cap"])
+            sample_count[ti["slots"]] = counts[ti["members"]]
+            blocks, _, _, pack_dropped = pack_tier(
+                mesh, routed, r_ent, r_tier, ti["t"], b_cap=ti["b_cap"],
+                n_cap=ti["n_cap"])
+            if chit is not None:
+                # sweep 2+: only offsets were routed; the static packed
+                # columns are the cached device tensors
+                blocks = dict(chit["tier_static"][ti["t"]],
+                              offsets=blocks["offsets"])
+            elif tier_static is not None:
+                tier_static[ti["t"]] = {
+                    k: blocks[k]
+                    for k in ("indices", "values", "labels", "weights")}
+            rung, solve = self._select_solver(
+                ti["u_cap"], P * ti["b_cap"], ti["n_cap"])
+            rungs[rung] = rungs.get(rung, 0) + 1
+            theta0_s = shard_rows(mesh, theta0, dt)
+            count_s = shard_rows(mesh, sample_count, dt)
+            solved = []
+            for s, dev in enumerate(mesh.devices):
+                a = {k: v[s] for k, v in blocks.items()}
+                a["indices"] = a["indices"].long()
+                a["sample_count"], a["theta0"] = count_s[s], theta0_s[s]
+                with on_device(dev):
+                    solved.append(solve(a))
+            pending.append((ti, solved, pack_dropped))
+        if tier_static is not None:
+            self.static_upload_count += 1
+            device_cache["sharded"] = dict(
+                n=n, E=E, k=k_now, num_shards=P,
+                counts=np.array(counts, copy=True),
+                uniq=np.array(uniq, copy=True),
+                sup_keys=sup_keys, sup_feat=sup_feat, sup_offs=sup_offs,
+                u_counts=u_counts, tier_of_entity=tier_of_entity,
+                slot_of_entity=slot_of_entity, tiers=tiers,
+                owner_pad=owner_pad, capacity=capacity, extra=extra,
+                r_ent=r_ent, r_tier=r_tier, tier_static=tier_static)
+        tt.append(("dispatch", time.time()))
+
+        # columnar collection: each tier's support coefficients gathered
+        # straight into ModelTable columns (no per-entity python)
+        with_var = self.variance_mode is not None
+        host = lambda ts: torch.cat([t.to("cpu", torch.float64)
+                                     for t in ts]).numpy()
+        dropped = int(sum(int(o.sum()) for o in routed.overflow))
+        tables = []
+        n_conv = 0
+        for ti, solved, pack_dropped in pending:
+            thetas = host([s[0] for s in solved])
+            variances = host([s[1] for s in solved]) if with_var else None
+            conv = torch.cat([s[2].to("cpu") for s in solved]).numpy()
+            dropped += int(sum(int(d.sum()) for d in pack_dropped))
+            thetas = np.where(np.abs(thetas) <= p.sparsity_threshold, 0.0,
+                              thetas)
+            ents_t, slots_t = ti["members"], ti["slots"]
+            n_conv += int(conv[slots_t].sum())
+            lens = u_counts[ents_t]
+            src = flat_positions(sup_offs[ents_t], lens)
+            inner = np.arange(int(lens.sum())) \
+                - np.repeat(np.cumsum(lens) - lens, lens)
+            rows = np.repeat(slots_t, lens)
+            offs_out = np.zeros(len(ents_t) + 1, np.int64)
+            np.cumsum(lens, out=offs_out[1:])
+            tables.append(ModelTable(
+                ids=uniq[ents_t].astype(object), offs=offs_out,
+                coef_ids=sup_feat[src],
+                coef_vals=thetas[rows, off + inner],
+                icpt=thetas[slots_t, 0].copy() if off else None,
+                coef_vars=(variances[rows, off + inner] if with_var
+                           else None),
+                icpt_vars=(variances[slots_t, 0].copy()
+                           if with_var and off else None)))
+        assert dropped == 0, (
+            f"entity routing dropped {dropped} records (capacity={capacity}, "
+            f"tiers={[(ti['b_cap'], ti['n_cap']) for ti in tiers]}) — "
+            f"capacities are planned exactly, this is a bug")
+        self.last_fit_converged = (n_conv, E)
+        self.last_fit_rungs = rungs
+        new = ModelTable.concat(tables, has_intercept=self.has_intercept,
+                                with_variance=with_var)
+        if prior_table is not None:
+            merged = prior_table.merged_with(new)
+        else:  # mixed variance presence in the prior dict
+            merged = dict(model_weights)
+            merged.update(new)
+        tt.append(("fetch_collect", time.time()))
+        self.last_fit_phases = {nm: tb - ta for (_, ta), (nm, tb)
+                                in zip(tt, tt[1:])}
+        self.last_fit_sharding = dict(
+            shards=P, capacity=capacity,
+            tiers=[(P * ti["b_cap"], ti["n_cap"], ti["u_cap"] + off)
+                   for ti in tiers])
+        logger.info("sharded fit: %d entities over %d shards in %d tiers "
+                    "(capacity=%d); %d models total | %s", E, P, len(tiers),
+                    capacity, len(merged),
+                    " ".join(f"{nm}={dt_:.3f}s"
+                             for nm, dt_ in self.last_fit_phases.items()))
+        return merged
 
     # ---------------------------------------------------------------- scoring --
 

@@ -12,6 +12,7 @@ synchronize would not report it.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import glob
@@ -158,3 +159,14 @@ def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
     """The current stream of t's card, as the kernels take it (the raw
     handle: no Stream object is made per launch)."""
     return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(t.device.index))
+
+
+@contextlib.contextmanager
+def on_card(t: torch.Tensor):
+    """The device guard of every launch: t's card is the thread's current
+    device inside the block, which yields that card's current stream. The C
+    entry points launch, set their shared-memory opt-in
+    (cudaFuncSetAttribute) and read cudaGetDevice on the CURRENT device,
+    so a tensor on a second card needs its card made current first."""
+    with torch.cuda.device(t.device):
+        yield stream_of(t)

@@ -104,13 +104,12 @@ def fe_hybrid_hot(theta_c, b, hot_idx, values, labels, weights, offsets2,
     sums = torch.zeros(2, dtype=torch.float64, device=dev)
     lib = _library()
     fn = getattr(lib, f"gdx_fe_hybrid_hot_{_SUFFIX[dtype]}")
-    with torch.cuda.device(dev):
+    with _cuda.on_card(theta_c) as stream:
         err = fn(_cuda.ptr(hot_idx), _cuda.ptr(values), _cuda.ptr(labels),
                  _cuda.ptr(weights), _cuda.ptr(offsets2), _cuda.ptr(theta_c),
                  _cuda.ptr(b), n, k, hot, int(linear), tier,
                  int(fe_pass.vector_path(k, hot_idx, values)), _cuda.ptr(g),
-                 _cuda.ptr(r), _cuda.ptr(sums), _cuda.stream_of(theta_c),
-                 None)
+                 _cuda.ptr(r), _cuda.ptr(sums), stream, None)
     _cuda.check(lib, err, what)
     fe_hybrid_hot.launches += 1
     return sums[0].to(dtype), g, sums[1].to(dtype), r

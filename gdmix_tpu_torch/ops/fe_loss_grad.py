@@ -141,13 +141,13 @@ def fe_loss_grad_fused(x, indices, values, labels, weights, offsets,
     grad = torch.zeros_like(x)
     sums = torch.zeros(2, dtype=torch.float64, device=x.device)
     lib, fn = _fn("fused", x.dtype)
-    with torch.cuda.device(x.device):
+    with _cuda.on_card(x) as stream:
         err = fn(_cuda.ptr(indices), _cuda.ptr(values), _cuda.ptr(labels),
                  _cuda.ptr(weights), _cuda.ptr(offsets), _cuda.ptr(x), n, k,
                  num_features, int(has_intercept), int(linear),
                  privatised_form(num_features, x.element_size()),
                  int(fe_pass.vector_path(k, indices, values)),
-                 _cuda.ptr(grad), _cuda.ptr(sums), _cuda.stream_of(x), None)
+                 _cuda.ptr(grad), _cuda.ptr(sums), stream, None)
     _cuda.check(lib, err, what)
     fe_loss_grad_fused.launches += 1
     if has_intercept:
@@ -191,10 +191,10 @@ def fe_gather_entries(theta_w: torch.Tensor, idx: torch.Tensor,
                          f"{tuple(val.shape)}: both [E]")
     out = torch.empty_like(val)
     lib, fn = _fn("gather", val.dtype)
-    with torch.cuda.device(val.device):
+    with _cuda.on_card(val) as stream:
         err = fn(_cuda.ptr(idx), _cuda.ptr(val), _cuda.ptr(theta_w),
                  idx.shape[0], _cuda.ptr(out), _max_blocks(val.device),
-                 _cuda.stream_of(val))
+                 stream)
     _cuda.check(lib, err, what)
     fe_gather_entries.launches += 1
     return out
@@ -224,11 +224,11 @@ def fe_scatter_entries(idx: torch.Tensor, ce: torch.Tensor,
                          f"{tuple(ce.shape)}: both [E]")
     g = torch.zeros(num_features, dtype=ce.dtype, device=ce.device)
     lib, fn = _fn("scatter", ce.dtype)
-    with torch.cuda.device(ce.device):
+    with _cuda.on_card(ce) as stream:
         err = fn(_cuda.ptr(idx), _cuda.ptr(ce), idx.shape[0], num_features,
                  privatised_form(num_features, ce.element_size()),
                  int(idx.data_ptr() % 16 == 0 and ce.data_ptr() % 16 == 0),
-                 _cuda.ptr(g), _cuda.stream_of(ce), None)
+                 _cuda.ptr(g), stream, None)
     _cuda.check(lib, err, what)
     fe_scatter_entries.launches += 1
     return g

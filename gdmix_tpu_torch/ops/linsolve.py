@@ -142,9 +142,9 @@ def _launch(what: str, H: torch.Tensor, R: torch.Tensor, r: int):
     lib = _library()
     fn = (lib.gdx_ldlt_solve_f64 if H.dtype == torch.float64
           else lib.gdx_ldlt_solve_f32)
-    with torch.cuda.device(H.device):
+    with _cuda.on_card(H) as stream:
         err = fn(_cuda.ptr(H), _cuda.ptr(R), _cuda.ptr(x), B, d, r,
-                 None if ws is None else _cuda.ptr(ws), _cuda.stream_of(H))
+                 None if ws is None else _cuda.ptr(ws), stream)
     _cuda.check(lib, err, what)
     return x
 

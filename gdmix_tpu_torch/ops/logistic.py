@@ -21,7 +21,7 @@ irrelevant for both X·θ and Xᵀr). The gather + `index_add_` form of
 is ported with its kernels (ops/fe_hybrid.py, ops/windowed_scatter.py). The
 JAX package's other strategies for the same sums (`onehot`, `block`,
 `segment`) are TPU layouts and are not carried over; the psum of the
-multi-device objective is ROADMAP A.6.
+multi-process objective is ROADMAP A.6b.
 """
 from __future__ import annotations
 

@@ -276,12 +276,12 @@ def newton_full(theta0, X, y, w, off, cnt, *, lam: float, unreg_bias: bool,
     if B == 0:
         return th, conv, iters
     lib = _lib()
-    with torch.cuda.device(X.device):
+    with _cuda.on_card(X) as stream:
         err = lib.gdx_newton_full(
             *(_cuda.ptr(t) for t in (X, y, w, off, cnt, theta0, th, conv,
                                      iters)),
             B, n, dim, float(lam), int(unreg_bias), int(maxiter),
-            float(ftol), float(pgtol), _cuda.stream_of(X))
+            float(ftol), float(pgtol), stream)
     _cuda.check(lib, err, "newton_full")
     newton_full.launches += 1
     return th, conv, iters
@@ -309,14 +309,14 @@ def newton_block(theta0, X, y, w, off, cnt, *, lam: float, unreg_bias: bool,
     zu = (torch.empty(2, B, n, dtype=X.dtype, device=X.device) if streamed
           else None)
     lib = _lib()
-    with torch.cuda.device(X.device):
+    with _cuda.on_card(X) as stream:
         err = lib.gdx_newton_block(
             *(_cuda.ptr(t) for t in (X, y, w, off, cnt, theta0, th, conv,
                                      iters)),
             None if zu is None else _cuda.ptr(zu[0]),
             None if zu is None else _cuda.ptr(zu[1]), int(streamed),
             B, n, dim, float(lam), int(unreg_bias), int(maxiter),
-            float(ftol), float(pgtol), _cuda.stream_of(X))
+            float(ftol), float(pgtol), stream)
     _cuda.check(lib, err, "newton_block")
     newton_block.launches += 1
     return th, conv, iters

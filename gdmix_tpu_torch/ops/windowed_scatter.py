@@ -201,12 +201,12 @@ def windowed_scatter_add(idx_local: torch.Tensor, contrib: torch.Tensor,
                          f"{contrib.device}")
     dev = contrib.device
     out = torch.empty(num_windows * window, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    with _cuda.on_card(out) as stream:
         err = lib.gdx_windowed_scatter_add(
             _cuda.ptr(idx_local), _cuda.ptr(contrib), tile_rows * KPACK,
             window, _cuda.ptr(plan.items), plan.items.shape[0],
             _cuda.ptr(plan.scratch), _cuda.ptr(plan.counters),
-            _grid(lib, window, dev), _cuda.ptr(out), _cuda.stream_of(out))
+            _grid(lib, window, dev), _cuda.ptr(out), stream)
     _cuda.check(lib, err, what)
     windowed_scatter_add.launches += 1
     return out

@@ -15,7 +15,7 @@ compiles a Kubeflow Pipeline of TFJob/SparkApplication CRDs
 The train jobs run on the first card, as the trainer CLI does, unless the
 DAG is generated for another device (`--device=<d>` on each of them).
 Joining a multi-process job (the JAX package's maybe_initialize_distributed)
-is ROADMAP A.6.
+is ROADMAP A.6b.
 """
 from __future__ import annotations
 

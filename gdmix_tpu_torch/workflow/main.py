@@ -13,7 +13,7 @@ Modes:
                 job on this package's CLIs, dependency-ordered, up to
                 --max_parallel at once (workflow/distributed.py)
 With --compile_dag_to the DAG is written as JSON instead of run. The
-`distributed` and `kubernetes` modes raise: they are ROADMAP A.6. Every
+`distributed` and `kubernetes` modes raise: they are ROADMAP A.6b. Every
 mode runs on the first card and raises without one; `--device cpu` runs
 the plain kernel versions on the CPU (in dag mode: each train job gets
 --device).
@@ -31,8 +31,8 @@ logging.basicConfig(
 logger = logging.getLogger(__name__)
 
 _NOT_PORTED = {
-    "distributed": "ROADMAP A.6: --mode distributed",
-    "kubernetes": "ROADMAP A.6: --mode kubernetes (workflow/k8s.py)",
+    "distributed": "ROADMAP A.6b: --mode distributed",
+    "kubernetes": "ROADMAP A.6b: --mode kubernetes (workflow/k8s.py)",
 }
 
 
@@ -49,9 +49,11 @@ def get_parser() -> argparse.ArgumentParser:
                         choices=["auto", "host", "sharded"],
                         help="random-effect training plane (in_memory "
                              "mode): host = numpy grouping + bucketed "
-                             "batches; auto (default, also a YAML top-level "
-                             "key) takes host on one device; sharded is "
-                             "ROADMAP A.6")
+                             "batches; sharded = route records to the "
+                             "device shard owning their entity and group/"
+                             "pack there; auto (default, also a YAML "
+                             "top-level key) = sharded when the mesh has "
+                             ">1 device, else host")
     parser.add_argument("--device", default=None,
                         help="torch device (default: the first card; "
                              "cpu runs the plain kernel versions)")

@@ -12,8 +12,13 @@ com/linkedin/gdmix/data/OffsetUpdater.scala:105-129).
 Final artifacts (photon-ml avro models, evalSummary.json) are still written,
 so the output stays drop-in compatible with the file-based workflow.
 
-Not ported (each raises NotImplementedError naming its ROADMAP item): the
-sharded random-effect plane and every multi-process run (A.6).
+Random effects train on either plane of RandomEffectLRModel: the host
+plane (numpy grouping + bucketize) or the entity-sharded plane (records
+routed to the mesh shard owning their entity, grouped and packed on the
+device: fit_records_sharded).
+
+Not ported (raises NotImplementedError naming its ROADMAP item): every
+multi-process run (A.6b).
 """
 from __future__ import annotations
 
@@ -31,10 +36,12 @@ from gdmix_tpu_torch.data.partitioner import PartitionerConfig, \
     assign_group_ids, group_flat
 from gdmix_tpu_torch.drivers.driver import process_index_and_count
 from gdmix_tpu_torch.io import fs
-from gdmix_tpu_torch.io.input_pipeline import PerRecordData, read_per_record
+from gdmix_tpu_torch.io.input_pipeline import (PerRecordData,
+                                               read_per_record, slice_rows)
 from gdmix_tpu_torch.models.fixed_effect_lr import FixedEffectLRModel
 from gdmix_tpu_torch.models.random_effect_lr import RandomEffectLRModel
 from gdmix_tpu_torch.ops.metrics import auc as auc_metric
+from gdmix_tpu_torch.parallel.mesh import get_mesh
 from gdmix_tpu_torch.params import FixedLRParams, Params, REParams, from_dict
 from gdmix_tpu_torch.workflow.config import METRIC, MODELS, WorkflowConfig
 
@@ -69,21 +76,23 @@ class _Ledger:
 
 class InMemoryPipeline:
     """Runs the fixed effect + random effects with the score ledger in
-    memory, on one device.
+    memory, in one process.
 
     re_mode selects the random-effect training plane: "host" groups
-    entities on the host and solves bucketed batches (fit_groups); "auto"
-    takes "host" on one device, as the JAX package's auto does; "sharded"
-    (entity routing across devices) is ROADMAP A.6."""
+    entities on the host and solves bucketed batches (fit_groups);
+    "sharded" routes each record to the mesh shard owning its entity and
+    groups and packs on the device (fit_records_sharded); "auto" takes
+    "sharded" on a mesh of more than one device (parallel/mesh.get_mesh:
+    every visible card) when the feature bag is rectangular, and "host"
+    otherwise, as the JAX package's auto does. The fixed effect runs on
+    the first card either way."""
 
     def __init__(self, config: WorkflowConfig, num_sweeps: int = 1,
                  re_mode: str = "auto", device=None):
         if re_mode not in ("host", "sharded", "auto"):
             raise ValueError(f"re_mode {re_mode!r}: host, sharded or auto")
-        if re_mode == "sharded":
-            raise NotImplementedError(
-                "ROADMAP A.6: re_mode='sharded' (multi-GPU entity routing)")
         self.config = config
+        self.re_mode = re_mode
         self.num_sweeps = num_sweeps
         self.device = device
         self.metrics: Dict[str, float] = {}
@@ -92,7 +101,7 @@ class InMemoryPipeline:
         _, nproc = process_index_and_count()
         if nproc > 1:
             raise NotImplementedError(
-                f"ROADMAP A.6: multi-process in-memory pipeline ({nproc} "
+                f"ROADMAP A.6b: multi-process in-memory pipeline ({nproc} "
                 "processes)")
         cfg = self.config
         (fe_name, fe_raw), = cfg.fixed_effect_config.items()
@@ -200,14 +209,21 @@ class InMemoryPipeline:
                     max_samples=item["max_samples"],
                     uid_column_name=params.uid_column_name,
                     offset_column_name=mp.offset_column_name)
-                groups = self._group_active(item["train"], pcfg)
                 # the records are the same in every sweep (only the offset
                 # column changes), so from sweep 2 on only offsets and θ0
                 # cross to the device (RandomEffectLRModel.
-                # _bucket_device_arrays)
-                item["weights"] = model.fit_groups(
-                    groups, item["weights"], params,
-                    device_cache=item.setdefault("dev_cache", {}))
+                # _bucket_device_arrays; on the sharded plane only the
+                # offsets are routed again)
+                if self._use_sharded_re(item["train"]):
+                    item["weights"] = model.fit_records_sharded(
+                        self._active_records(item["train"], pcfg), params,
+                        model_weights=item["weights"],
+                        device_cache=item.setdefault("dev_cache", {}))
+                else:
+                    groups = self._group_active(item["train"], pcfg)
+                    item["weights"] = model.fit_groups(
+                        groups, item["weights"], params,
+                        device_cache=item.setdefault("dev_cache", {}))
 
                 # score ALL training rows (active + passive) for the ledger:
                 # one sparse record join, no re-grouping
@@ -263,6 +279,30 @@ class InMemoryPipeline:
             total = total - own[pos]
         data.columns[offset_column] = total.astype(np.float32)
 
+    def _use_sharded_re(self, data: PerRecordData) -> bool:
+        """The plane of a random-effect coordinate (gdmix_tpu/workflow/
+        pipeline.py:105-118): "auto" takes the sharded plane when the bag
+        is rectangular (an intercept-only coordinate, indices None, keeps
+        the host grouping) AND the mesh has more than one device."""
+        if self.re_mode == "auto":
+            return (data.indices is not None
+                    and get_mesh(device=self.device).size > 1)
+        return self.re_mode == "sharded"
+
+    @staticmethod
+    def _active_records(data: PerRecordData, pcfg: PartitionerConfig
+                        ) -> PerRecordData:
+        """The active records (group id 0 — DataPartitioner's min/max
+        bounding, getGroupId :332-379), per record, for the sharded
+        plane."""
+        if not (pcfg.min_samples or pcfg.max_samples):
+            return data
+        uids = data.columns[pcfg.uid_column_name].astype(np.int64)
+        gids = assign_group_ids(
+            np.asarray(data.columns[pcfg.partition_entity]), uids,
+            pcfg.min_samples, pcfg.max_samples)
+        return slice_rows(data, np.flatnonzero(gids == 0))
+
     @staticmethod
     def _group_active(data: PerRecordData, pcfg: PartitionerConfig):
         """The active records grouped by entity, columnar (DataPartitioner's
@@ -289,7 +329,8 @@ def run_gdmix_in_memory(config_path_or_obj, num_sweeps: int = 1,
                         re_mode: Optional[str] = None,
                         device=None) -> Dict[str, float]:
     """re_mode precedence: explicit argument > the config's top-level
-    `re_mode` key > "auto" (the host plane on one device)."""
+    `re_mode` key > "auto" (the sharded plane on a mesh of more than one
+    device, the host plane on one)."""
     config = (config_path_or_obj
               if isinstance(config_path_or_obj, WorkflowConfig)
               else WorkflowConfig.from_file(config_path_or_obj))

@@ -2,7 +2,8 @@
 skip in the port (RandomEffectLRModel._bucket_device_arrays(cache=…),
 _bucket_moved), against the port's uncached path and the JAX package's
 cached one, in float64 on the CPU. Ports tests/test_device_cache.py (its
-sharded test waits for ROADMAP A.6) and tests/test_warm_downlink_skip.py."""
+sharded test is in tests/test_torch_sharded_re.py) and
+tests/test_warm_downlink_skip.py."""
 import copy
 
 import numpy as np

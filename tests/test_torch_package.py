@@ -470,7 +470,9 @@ def test_port_builds_only_from_its_own_sources():
 VERBATIM_FUNCTIONS = [("models/fixed_effect_lr.py", "effective_grad_mode"),
                       ("models/deep_tower.py", "_tokenize"),
                       ("models/deep_tower.py", "_load_vocab"),
-                      ("models/deep_tower.py", "_load_arrays")]
+                      ("models/deep_tower.py", "_load_arrays"),
+                      ("parallel/entity_sharding.py", "plan_capacities"),
+                      ("models/random_effect_lr.py", "_entity_supports")]
 VERBATIM_EDITS = {
     "effective_grad_mode": [
         ('''    "auto" picks the two-level one-hot `block` path inside its measured win

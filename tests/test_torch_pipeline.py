@@ -122,9 +122,166 @@ def test_cli_in_memory_and_unported_modes(ml_data, tmp_path, monkeypatch):
         torch_main(["--config_path", cfg_path, "--device", "cpu"] + argv)
     assert calls == [("single_node", False, "cpu"),
                      ("single_node", True, "cpu"), ("dag", 8, 2)]
-    with pytest.raises(NotImplementedError, match="A.6"):
-        torch_main(["--config_path", cfg_path, "--mode", "in_memory",
-                    "--re_mode", "sharded"])
+    # --re_mode sharded, once refused, trains: the AUC ladder climbs
+    metrics = torch_main(["--config_path", cfg_path, "--mode", "in_memory",
+                          "--re_mode", "sharded", "--device", "cpu"])
+    assert metrics["global"] < metrics["per-user"] < metrics["per-movie"]
+
+
+# ---- the entity-sharded RE plane in the pipeline ---------------------------
+
+def _port_config(ml_data, out_dir):
+    """The fixture's config as the port's WorkflowConfig, at its own
+    (float32) settings."""
+    cfg = _config(ml_data, out_dir)
+    return WorkflowConfig.from_dict({
+        "output_dir": cfg.output_dir,
+        "fixed_effect_config": copy.deepcopy(cfg.fixed_effect_config),
+        "random_effect_config": copy.deepcopy(cfg.random_effect_config)})
+
+
+def _eight_cpus(monkeypatch):
+    """The pipeline and the RE model see a mesh of eight cpu entries (the
+    JAX tests' eight virtual devices)."""
+    import gdmix_tpu_torch.models.random_effect_lr as port_re
+    import gdmix_tpu_torch.workflow.pipeline as port_pipe
+    from gdmix_tpu_torch.parallel.mesh import Mesh
+    mesh = Mesh((torch.device("cpu"),) * 8)
+    monkeypatch.setattr(port_re, "get_mesh", lambda device=None: mesh)
+    monkeypatch.setattr(port_pipe, "get_mesh", lambda device=None: mesh)
+
+
+def _spy_planes(monkeypatch):
+    from gdmix_tpu_torch.models.random_effect_lr import RandomEffectLRModel
+    planes = {"sharded": [], "host": []}
+    for plane, name in (("sharded", "fit_records_sharded"),
+                        ("host", "fit_groups")):
+        orig = getattr(RandomEffectLRModel, name)
+
+        def spy(self, *a, _orig=orig, _plane=plane, **k):
+            planes[_plane].append(self.model_params.partition_entity)
+            return _orig(self, *a, **k)
+        monkeypatch.setattr(RandomEffectLRModel, name, spy)
+    return planes
+
+
+def test_sharded_re_mode_matches_host_mode(ml_data, tmp_path, monkeypatch):
+    """tests/test_in_memory_pipeline.py:39-72 on the port: the sharded
+    plane over an 8-entry mesh reproduces the host-grouped pipeline, AUC
+    within 1e-4 per coordinate and models within 1e-3 (float32, the JAX
+    test's bounds)."""
+    _eight_cpus(monkeypatch)
+    host = torch_run(_port_config(ml_data, str(tmp_path / "h")),
+                     re_mode="host", device="cpu")
+    shard = torch_run(_port_config(ml_data, str(tmp_path / "s")),
+                      re_mode="sharded", device="cpu")
+    assert set(host) == set(shard)
+    for name in host:
+        assert abs(host[name] - shard[name]) < 1e-4, \
+            (name, host[name], shard[name])
+    for coord, bag in (("per-user", "per_user"), ("per-movie", "per_movie")):
+        ff = os.path.join(ml_data, bag, "featureList", bag)
+        h, g = (load_sparse_models_from_avro(
+            os.path.join(str(tmp_path / d), coord, "models",
+                         "part-00000.avro"), ff) for d in ("h", "s"))
+        assert set(h) == set(g) and len(h) > 0
+        for eid in h:
+            np.testing.assert_allclose(g[eid].theta, h[eid].theta,
+                                       atol=1e-3, err_msg=f"{coord}/{eid}")
+
+
+def test_two_sweeps_sharded_match_jax(ml_data, tmp_path, monkeypatch):
+    """Two sweeps on the sharded plane in float64, the port's over eight
+    cpu entries against the JAX package's over its eight devices: sweep 2
+    goes through each side's sharded sweep cache. AUC within 1e-6, models
+    within 1e-4 (test_two_sweeps_match_jax's bounds)."""
+    from gdmix_tpu.workflow.config import WorkflowConfig as JaxConfig
+    _eight_cpus(monkeypatch)
+    planes = _spy_planes(monkeypatch)
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "torch")
+    want = jax_run(JaxConfig.from_dict(_config_dict(ml_data, jdir)),
+                   num_sweeps=2, re_mode="sharded")
+    got = torch_run(WorkflowConfig.from_dict(_config_dict(ml_data, tdir)),
+                    num_sweeps=2, re_mode="sharded", device="cpu")
+    assert planes["sharded"] == ["user_id", "movie_id"] * 2
+    assert planes["host"] == []
+    for name in want:
+        assert abs(got[name] - want[name]) <= AUC_ATOL, \
+            (name, got[name], want[name])
+    for coord, bag in (("per-user", "per_user"), ("per-movie", "per_movie")):
+        ff = os.path.join(ml_data, bag, "featureList", bag)
+        g, j = (load_sparse_models_from_avro(
+            os.path.join(d, coord, "models", "part-00000.avro"), ff)
+            for d in (tdir, jdir))
+        assert set(g) == set(j) and len(g) > 0
+        for eid in j:
+            np.testing.assert_allclose(g[eid].theta, j[eid].theta, rtol=0,
+                                       atol=MODEL_ATOL,
+                                       err_msg=f"{coord}/{eid}")
+
+
+def test_cli_auto_routes_sharded_on_a_mesh(ml_data, tmp_path, monkeypatch):
+    """tests/test_in_memory_pipeline.py:75-115 on the port: on an 8-entry
+    mesh a plain `--mode in_memory` run takes the sharded plane for both
+    RE coordinates; --re_mode host opts out; a YAML top-level re_mode key
+    is honored."""
+    _eight_cpus(monkeypatch)
+    planes = _spy_planes(monkeypatch)
+    cfg = _config_dict(ml_data, str(tmp_path / "out"))
+    cfg_path = str(tmp_path / "cfg.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f, sort_keys=False)
+    metrics = torch_main(["--config_path", cfg_path, "--mode", "in_memory",
+                          "--device", "cpu"])
+    assert planes["sharded"] == ["user_id", "movie_id"]
+    assert planes["host"] == []
+    assert metrics["per-movie"] > metrics["global"]
+    planes["sharded"].clear()
+    torch_main(["--config_path", cfg_path, "--mode", "in_memory",
+                "--re_mode", "host", "--device", "cpu"])
+    assert planes["sharded"] == [] and len(planes["host"]) == 2
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(dict(cfg, re_mode="sharded"), f, sort_keys=False)
+    planes["host"].clear()
+    torch_main(["--config_path", cfg_path, "--mode", "in_memory",
+                "--device", "cpu"])
+    assert planes["sharded"] == ["user_id", "movie_id"]
+    assert planes["host"] == []
+
+
+def test_auto_single_device_routes_host(ml_data, tmp_path, monkeypatch):
+    """tests/test_in_memory_pipeline.py:118-170 on the port: on a one-entry
+    mesh (the CPU, or one card) auto keeps the host plane, in the pipeline
+    and in fit_flat alike."""
+    from gdmix_tpu_torch.data.bucketing import FlatGroups
+    from test_random_effect_lr import _make_groups, _write_dataset
+    from test_torch_random_effect import _torch_model
+    planes = _spy_planes(monkeypatch)
+    torch_run(_port_config(ml_data, str(tmp_path / "auto1")), device="cpu")
+    assert planes["sharded"] == [] and len(planes["host"]) == 2
+    planes["host"].clear()
+    groups, _ = _make_groups(num_entities=3, seed=7)
+    md_file, train_dir, feature_file = _write_dataset(tmp_path, groups)
+    model, schema = _torch_model(md_file, train_dir, feature_file,
+                                 str(tmp_path / "m"), re_mode="auto")
+    K = max(len(ix) for g in groups for ix in g.ragged_indices)
+    fg = FlatGroups(
+        entity_ids=np.array([g.entity_id for g in groups], object),
+        counts=np.array([len(g.columns["response"]) for g in groups],
+                        np.int64),
+        columns={k: np.concatenate([g.columns[k] for g in groups])
+                 for k in groups[0].columns},
+        indices=np.vstack([np.array([np.pad(ix, (0, K - len(ix)))
+                                     for ix in g.ragged_indices], np.int32)
+                           for g in groups]),
+        values=np.vstack([np.array([np.pad(v, (0, K - len(v)))
+                                    for v in g.ragged_values])
+                          for g in groups]),
+        rec_nnz=np.concatenate([np.array([len(ix) for ix in
+                                          g.ragged_indices], np.int32)
+                                for g in groups]))
+    model.fit_flat(fg, {}, schema)
+    assert planes["sharded"] == [] and planes["host"] == ["user_id"]
 
 
 @pytest.mark.parametrize("weighted", [False, True])
