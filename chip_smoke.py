@@ -153,8 +153,28 @@ Phases, each printing one result line; any failure exits non-zero:
                 K1/K2 at every lanes tier of its RE partitions against
                 their plain versions, and the tower's train under
                 torch.profiler (device busy, idle).
+     multiprocess — multi-process training (ROADMAP A.6b): two processes
+                sharing the card over a gloo process group (NCCL refuses
+                two ranks on one card), each joined through the JAX
+                package's environment contract (COORDINATOR_ADDRESS /
+                NUM_PROCESSES / PROCESS_ID). Through the model API: the FE
+                uniform cell fit on rows rank::2 (one all-reduce of [loss,
+                gradient] a funcall; profiled: each process's idle share)
+                and the wide-D cell at λ = 10⁴ through auto (K12 + 2×K13
+                on each process's own split), θ bit-equal on both ranks and
+                within the FE limits of one process's fit; the in-memory
+                movieLens-100K pipeline, 2 sweeps, on the host and the
+                sharded RE plane (the model-file exchange), AUC within
+                2e-3 of one process; the deep tower (cnn, batch 512, 3
+                epochs; float32, and float64 held to 1e-6) against one
+                process. The trainer CLI over the FE
+                cell's 4 tfrecord files (two a process), eagerly and in
+                chunks of 1,048,576 rows; `workflow.main --mode
+                distributed` against the single-node run. Every process's
+                kernel launches add to the kernels line.
 Launch counts are zeroed just before each main-path run (4, wide, 5,
-wide_d, 6, single_node, sharded, stream, detext) and read just after. Then one JSON line of per-kernel results
+wide_d, 6, single_node, sharded, multiprocess — in each child process —,
+stream, detext) and read just after. Then one JSON line of per-kernel results
 and, last, the device line. Exits non-zero without a result when no card is present.
 Imports no JAX.
 """
@@ -3476,6 +3496,543 @@ def phase_sharded(card, tmp, ml):
     return errs, launches
 
 
+# ------------------------------------------------------------ multiprocess --
+
+MP_PROCS = 2              # processes sharing the one card over gloo
+MP_TOWER_EPOCHS = 3
+# The model-API FE cells: (name, ids, D, FixedLRParams overrides, θ held).
+# Two processes against one: each process sums its own rows' loss and
+# gradient, then one all-reduce adds them, so the fits are held to the FE
+# limits: the loss within FE_LOSS_RTOL and θ within FE_GRAD_RTOL·max|θ|. A
+# float32 fit stops where float32 no longer sees f fall (f ≈ 3.5e6 steps
+# by 0.25, ops/lbfgs.py), which leaves θ loose along flat directions in
+# any two runs, one process or two: there θ's gap is printed, and θ is
+# held on a float64 twin of the uniform cell stopped by its gradient alone
+# (ftol 0, ‖g‖∞ ≤ 1e-6: θ then sits within 1e-6 / λ_min(H) of the optimum)
+MP_FE_CELLS = (
+    ("uniform", "uniform", FE_D, {}, False),
+    ("uniform_f64", "uniform", FE_D,
+     dict(dtype="float64", lbfgs_tolerance=0.0, lbfgs_pgtol=1e-6,
+          num_of_lbfgs_iterations=500), True),
+    ("wide_d", "zipf", WIDE_D,
+     dict(l2_reg_weight=WIDE_D_CONVERGED_LAMBDA), False),
+)
+# The pipelines' AUC within MODES_AUC_ATOL (the JAX package's bound,
+# tests/test_multiprocess_pipeline.py:45). The tower cells: (dtype, AUC
+# bound, max|Δscore| bound relative to max|score| or None). Each step's sums
+# run in two halves, and on the card the embedding's and cuDNN's backward
+# add with atomics, so a rounding-level gradient noise enters every step;
+# Adam divides each coordinate by its own running RMS and turns noise-level
+# coordinates into steps of up to the learning rate. In float32 the scores
+# part by a few percent of max|score| over MP_TOWER_EPOCHS epochs (one
+# process against itself as well) while the ranking agrees: the AUC is
+# held, the score gap printed. In float64 the noise is 1e-16 and both are
+# held at 1e-6. The JAX package's own test asks for a 0.98 correlation
+# and 0.05 of AUC (tests/test_deep_tower.py:201).
+MP_TOWER_CELLS = (("float32", 2e-3, None), ("float64", 1e-6, 1e-6))
+MP_TIMEOUT_S = 600
+
+
+def _records_of(b, rows=None):
+    """A SparseBatch on the card as the PerRecordData a model loads, its
+    uids the row numbers; `rows` selects rows."""
+    from gdmix_tpu_torch.io.input_pipeline import PerRecordData
+    sel = slice(None) if rows is None else rows
+    n = int(b.labels.shape[0])
+    uid = np.arange(n, dtype=np.int64)[sel]
+    return PerRecordData(
+        columns={"uid": uid, "response": b.labels.cpu().numpy()[sel],
+                 "offset": b.offsets.cpu().numpy()[sel]},
+        indices=b.indices.cpu().numpy()[sel],
+        values=b.values.cpu().numpy()[sel], num_samples=len(uid))
+
+
+def _theta_sha(coef) -> str:
+    import hashlib
+    return hashlib.sha256(np.ascontiguousarray(coef).tobytes()).hexdigest()
+
+
+def _mp_env(rank, port):
+    env = dict(os.environ)
+    env.update(COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+               NUM_PROCESSES=str(MP_PROCS), PROCESS_ID=str(rank),
+               PYTHONPATH=os.pathsep.join(
+                   p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    return env
+
+
+def _mp_run(argv, what):
+    """MP_PROCS processes of `argv` under the JAX package's environment
+    contract on a free port; (outputs in rank order, wall seconds). A
+    process that fails or outlives MP_TIMEOUT_S fails the smoke; every
+    process is gone on return."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(argv, env=_mp_env(r, port), cwd=ROOT,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(MP_PROCS)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MP_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            print(out[-6000:], flush=True)
+        _check(p.returncode == 0, f"multiprocess {what}: process {r} exited "
+                                  f"{p.returncode}")
+    return outs, wall
+
+
+def _log_json(out, marker):
+    """The JSON after the last `marker` in a process's output."""
+    line = out.rsplit(marker, 1)[1].splitlines()[0]
+    return json.loads(line)
+
+
+def _mp_problem(cell, ids, d, over):
+    import torch
+    dtype = torch.float64 if over.get("dtype") == "float64" else None
+    return fe_problem(ids, seed=3 if cell == "wide_d" else 0, d=d,
+                      dtype=dtype)
+
+
+def _mp_child_fe(tmp, rank):
+    """The child's FE fits through the model API on rows rank::MP_PROCS of
+    the full-width batches (MP_FE_CELLS), the float32 uniform cell
+    profiled (the device's busy share of this process's fit)."""
+    import torch
+    from gdmix_tpu_torch.gdmix import kernel_launches
+    out = {}
+    for cell, ids, d, over, _ in MP_FE_CELLS:
+        b = _mp_problem(cell, ids, d, over)
+        data = _records_of(b, np.arange(rank, FE_N, MP_PROCS))
+        del b
+        model, schema = fe_stage_model(os.path.join(tmp, f"{cell}{rank}"),
+                                       "auto", d=d, sparsity_threshold=0.0,
+                                       **over)
+        _zero_launches()
+        # ---- the main path: one fit on this process's rows ----
+        if cell == "uniform":
+            wall, busy_ms = _profiled(lambda: model.fit_data(data, schema))
+        else:
+            t0 = time.perf_counter()
+            model.fit_data(data, schema)
+            torch.cuda.synchronize()
+            wall, busy_ms = time.perf_counter() - t0, None
+        launches = {k: v for k, v in kernel_launches().items() if v}
+        # ----
+        lf = model.last_fit
+        out[cell] = dict(
+            rows=data.num_samples, f=lf["f"], funcalls=lf["funcalls"],
+            iterations=lf["iterations"], converged=lf["converged"],
+            fit_s=lf["seconds"], wall_s=wall, allreduce_s=lf["allreduce_s"],
+            allreduce_calls=lf["allreduce_calls"],
+            idle=None if busy_ms is None else 1 - busy_ms / 1e3 / wall,
+            sha=_theta_sha(model.model_coefficients),
+            coef=model.model_coefficients.tolist(), launches=launches)
+        del data, model
+    return out
+
+
+def _mp_child_pipelines(a):
+    """The in-memory movieLens-100K pipeline, 2 sweeps, on each RE plane."""
+    import torch
+    from gdmix_tpu_torch.gdmix import kernel_launches
+    from gdmix_tpu_torch.workflow.config import WorkflowConfig
+    from gdmix_tpu_torch.workflow.pipeline import InMemoryPipeline
+    out = {}
+    for plane in ("host", "sharded"):
+        pipe = InMemoryPipeline(WorkflowConfig.from_file(a[plane]),
+                                num_sweeps=2, re_mode=plane)
+        _zero_launches()
+        # ---- the main path ----
+        t0 = time.perf_counter()
+        metrics = pipe.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in kernel_launches().items() if v}
+        # ----
+        out[plane] = dict(metrics=metrics, wall_s=wall,
+                          exchanges=pipe.exchanges, launches=launches)
+    return out
+
+
+def _zero_launches():
+    for c in _re_counters() + _hybrid_counters():
+        c.launches = 0
+
+
+def _mp_child_tower(a, ctx):
+    """The deep tower (cnn, batch 512) trained data parallel, each
+    MP_TOWER_CELLS dtype."""
+    import torch
+    import yaml
+    from gdmix_tpu_torch.gdmix import kernel_launches
+    with open(a["tower"]) as f:
+        cfg = yaml.safe_load(f)
+    out = {}
+    for dtype, _, _ in MP_TOWER_CELLS:
+        model, base = _detext_model(cfg, f"{a['tower_out']}_{dtype}",
+                                    dtype=dtype)
+        _zero_launches()
+        # ---- the main path ----
+        t0 = time.perf_counter()
+        model.train(model.training_data_dir, model.validation_data_dir,
+                    model.metadata_file, model.checkpoint_path, ctx, base)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in kernel_launches().items() if v}
+        # ----
+        out[dtype] = dict(wall_s=wall, fit=model.last_fit,
+                          launches=launches)
+    return out
+
+
+def _mp_child(args):
+    """One process of the multiprocess phase's model-API group: joins the
+    job of its environment (workflow/distributed.py), then runs the FE
+    fits, the pipelines and the tower, and prints its results as one
+    `MP_RESULT {json}` line."""
+    global DEV
+    import torch
+    from gdmix_tpu_torch import constants
+    from gdmix_tpu_torch.workflow.distributed import \
+        maybe_initialize_distributed
+    a = json.loads(args[0])
+    joined = maybe_initialize_distributed()
+    DEV = joined["device"]
+    rank = joined["process_id"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = torch.cuda.get_device_name(torch.device(DEV))
+    ctx = {constants.TASK_INDEX: rank,
+           constants.NUM_WORKERS: joined["num_processes"],
+           constants.IS_CHIEF: rank == 0}
+    res = dict(joined, card=card, fe=_mp_child_fe(a["tmp"], rank),
+               pipelines=_mp_child_pipelines(a),
+               tower=_mp_child_tower(a, ctx))
+    print("MP_RESULT " + json.dumps(res), flush=True)
+
+
+def _mp_fe_reference(tmp):
+    """The one-process fits of the FE cells, in this process."""
+    ref = {}
+    for cell, ids, d, over, _ in MP_FE_CELLS:
+        b = _mp_problem(cell, ids, d, over)
+        data = _records_of(b)
+        del b
+        model, schema = fe_stage_model(os.path.join(tmp, f"{cell}_one"),
+                                       "auto", d=d, sparsity_threshold=0.0,
+                                       **over)
+        model.fit_data(data, schema)
+        ref[cell] = dict(f=model.last_fit["f"],
+                         funcalls=model.last_fit["funcalls"],
+                         fit_s=model.last_fit["seconds"],
+                         coef=model.model_coefficients)
+        del data, model
+    return ref
+
+
+def _mp_fe_check(tag, ranks, ref_f, ref_coef, hold_theta):
+    """Both ranks bit-equal; the loss (and with `hold_theta` θ) within the
+    FE limits of the one-process fit. Returns (f rel, max|Δθ| / max|θ|)."""
+    _check(len({r["sha"] for r in ranks}) == 1,
+           f"multiprocess {tag}: θ differs between the ranks")
+    coef = np.asarray(ranks[0]["coef"])
+    f_rel = abs(ranks[0]["f"] - ref_f) / abs(ref_f)
+    d_rel = float(np.abs(coef - ref_coef).max() / np.abs(ref_coef).max())
+    _check(all(r["converged"] for r in ranks),
+           f"multiprocess {tag}: a rank did not converge")
+    _check(f_rel <= FE_LOSS_RTOL and (d_rel <= FE_GRAD_RTOL or not
+                                      hold_theta),
+           f"multiprocess {tag} against one process: f rel {f_rel:.2e}, "
+           f"max|Δθ|/max|θ| {d_rel:.2e}")
+    return f_rel, d_rel
+
+
+def _mp_cli_fe(card, tmp, launches):
+    """`python -m gdmix_tpu_torch.gdmix --stage fixed_effect` in two
+    processes under the environment contract over the FE uniform cell as
+    STREAM_FE_FILES tfrecord files (two a process), eagerly and in chunks
+    of STREAM_CHUNK_ROWS, against one process's train of the same files:
+    the ranks' fits equal, the loss within FE_LOSS_RTOL (float32: θ's gap
+    is printed, see MP_FE_CELLS)."""
+    from gdmix_tpu_torch import constants
+    from gdmix_tpu_torch.io.feature_list import write_feature_list
+    from gdmix_tpu_torch.io.model_avro import load_linear_models_from_avro
+    features = os.path.join(tmp, "fe_features.csv")
+    write_feature_list([(f"f{i}", "") for i in range(FE_D)], features)
+    data, make_s, write_s = _write_fe_files(tmp)
+    model, schema = fe_stage_model(os.path.join(tmp, "cli_one"), "auto",
+                                   feature_file=features,
+                                   sparsity_threshold=0.0)
+    model.train(data, None, model.metadata_file, model.checkpoint_path,
+                {constants.TASK_INDEX: 0, constants.NUM_WORKERS: 1,
+                 constants.IS_CHIEF: True}, schema)
+    ref_f, ref = model.last_fit["f"], model.model_coefficients
+    del model
+    for tag, extra in (("eager", []),
+                       ("stream", [f"--stream_chunk_rows={STREAM_CHUNK_ROWS}"])):
+        out_dir = os.path.join(tmp, f"cli_{tag}")
+        for sub in ("models", "scores"):
+            os.makedirs(os.path.join(out_dir, sub))
+        argv = [sys.executable, "-m", "gdmix_tpu_torch.gdmix",
+                "--action=train", "--stage=fixed_effect",
+                "--model_type=logistic_regression",
+                "--label_column_name=response", "--uid_column_name=uid",
+                "--prediction_score_column_name=predictionScore",
+                f"--metadata_file={os.path.join(tmp, 'cli_one', 'tensor_metadata.json')}",
+                f"--training_data_dir={data}", "--feature_bag=global",
+                f"--feature_file={features}",
+                f"--output_model_dir={os.path.join(out_dir, 'models')}",
+                f"--training_score_dir={os.path.join(out_dir, 'scores')}",
+                "--l2_reg_weight=1.0", "--regularize_bias=False",
+                "--sparsity_threshold=0.0"] + extra
+        # ---- the main path: the trainer CLI in two processes ----
+        outs, wall = _mp_run(argv, f"FE CLI {tag}")
+        # ----
+        fits = [_log_fit(o) for o in outs]
+        for o in outs:
+            for k, v in _log_json(o, "kernel launches: ").items():
+                launches[k] += v
+        (coef,) = load_linear_models_from_avro(
+            os.path.join(out_dir, "models", "part-00000.avro"), features)
+        f_rel = abs(fits[0]["f"] - ref_f) / abs(ref_f)
+        d_rel = float(np.abs(coef - ref).max() / np.abs(ref).max())
+        parts = sorted(os.listdir(os.path.join(out_dir, "scores")))
+        _say("multiprocess", cli="gdmix --stage fixed_effect", run=tag,
+             files=STREAM_FE_FILES, make_s=f"{make_s:.3f}",
+             write_s=f"{write_s:.3f}", wall_s=f"{wall:.3f}",
+             rank_fits=fits, f_rel=f"{f_rel:.2e}",
+             max_dcoef_rel=f"{d_rel:.2e}", score_parts=parts,
+             backend=[_log_backend(o) for o in outs], card=repr(card))
+        _check(fits[0]["f"] == fits[1]["f"]
+               and fits[0]["funcalls"] == fits[1]["funcalls"],
+               f"FE CLI {tag}: the ranks' fits differ: {fits}")
+        _check(f_rel <= FE_LOSS_RTOL,
+               f"FE CLI {tag} against one process: f rel {f_rel:.2e}")
+        _check(parts == ["part-00000.avro", "part-00001.avro"],
+               f"FE CLI {tag}: score parts {parts}")
+
+
+def _log_fit(out):
+    """The trainer's fit line (models/fixed_effect_lr.py `f_min: ...`)."""
+    line = out.rsplit("f_min: ", 1)[1].splitlines()[0]
+    f, rest = line.split(", iters: ")
+    iters, rest = rest.split(", funcalls: ")
+    funcalls = rest.split(",")[0]
+    return dict(f=float(f), iterations=int(iters), funcalls=int(funcalls))
+
+
+def _log_backend(out):
+    return out.rsplit("backend ", 1)[1].split()[0]
+
+
+def phase_multiprocess(card, tmp, ml, single):
+    """Multi-process training (ROADMAP A.6b) with MP_PROCS processes
+    sharing the one card over a gloo process group (NCCL refuses two ranks
+    on one card), each joined through the JAX package's environment
+    contract: (a) one group through the model API: the FE uniform cell
+    (fit on rows rank::2, profiled) and the wide-D cell at λ = 10⁴ through
+    auto (K12 + 2×K13 on each process's own split), the in-memory
+    movieLens-100K pipeline, 2 sweeps, on the host and the sharded RE plane
+    (the model-file exchange), and the deep tower (cnn, batch 512,
+    MP_TOWER_EPOCHS epochs, MP_TOWER_CELLS), each against one process's
+    run here; (b) the
+    trainer CLI over the FE cell's 4 files, eagerly and streamed; (c)
+    `workflow.main --mode distributed` against the single-node run. Returns
+    {kernel: launches} of the children's main-path runs."""
+    import torch
+    import yaml
+    from collections import Counter
+    from gdmix_tpu_torch import constants
+    from gdmix_tpu_torch.data import movielens
+    from gdmix_tpu_torch.io.scores import read_scores
+    from gdmix_tpu_torch.ops.metrics import auc as auc_metric
+    from gdmix_tpu_torch.workflow.pipeline import InMemoryPipeline
+    from gdmix_tpu_torch.workflow.config import WorkflowConfig
+    phase_t0 = time.perf_counter()
+    launches = Counter()
+    sub = os.path.join(tmp, "multiprocess")
+    os.makedirs(sub)
+    # ---- one process: the references ----
+    t0 = time.perf_counter()
+    fe_ref = _mp_fe_reference(sub)
+    cfgs = {plane: _ml100k_config(ml, sub, f"mp_{plane}")
+            for plane in ("host", "sharded")}
+    one = {plane: InMemoryPipeline(WorkflowConfig.from_file(
+        _ml100k_config(ml, sub, f"one_{plane}")), num_sweeps=2,
+        re_mode=plane).run() for plane in ("host", "sharded")}
+    dml = movielens.prepare_gdmix_data(os.path.join(sub, "detext100k"),
+                                       movielens.generate_synthetic(
+                                           **ML100K), with_detext=True)
+    tower_cfg = _detext_config(dml, os.path.join(sub, "tower_cfg"),
+                               MP_TOWER_EPOCHS)
+    tower_path = os.path.join(sub, "tower.yaml")
+    with open(tower_path, "w") as f:
+        yaml.safe_dump(tower_cfg, f, sort_keys=False)
+    tower_ref = {}
+    for dtype, _, _ in MP_TOWER_CELLS:
+        model, base = _detext_model(
+            tower_cfg, os.path.join(sub, f"tower_one_{dtype}"), dtype=dtype)
+        model.train(model.training_data_dir, model.validation_data_dir,
+                    model.metadata_file, model.checkpoint_path,
+                    {constants.TASK_INDEX: 0, constants.NUM_WORKERS: 1,
+                     constants.IS_CHIEF: True}, base)
+        tower_ref[dtype] = model.last_fit
+        del model
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    _say("multiprocess", references_s=f"{time.perf_counter() - t0:.3f}",
+         fe_one={c: dict(f=f"{r['f']:.6f}", funcalls=r["funcalls"],
+                         fit_s=f"{r['fit_s']:.3f}")
+                 for c, r in fe_ref.items()},
+         in_memory_one=one, card=repr(card))
+
+    # ---- (a) the model API in MP_PROCS processes ----
+    args = dict(tmp=sub, host=cfgs["host"], sharded=cfgs["sharded"],
+                tower=tower_path, tower_out=os.path.join(sub, "tower_mp"))
+    outs, wall = _mp_run([sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                          "--mp-child", json.dumps(args)], "model API")
+    ranks = [_log_json(o, "MP_RESULT ") for o in outs]
+    _say("multiprocess", group="model API", wall_s=f"{wall:.3f}",
+         world_size=[r["num_processes"] for r in ranks],
+         backend=[r["backend"] for r in ranks],
+         rank_card=[f"{r['process_id']}:{r['device']}:{r['card']}"
+                    for r in ranks])
+    _check([r["process_id"] for r in ranks] == list(range(MP_PROCS))
+           and {r["backend"] for r in ranks} == {"gloo"}
+           and {r["num_processes"] for r in ranks} == {MP_PROCS},
+           f"multiprocess: the group is not {MP_PROCS} gloo ranks")
+    for cell, _, d, over, hold_theta in MP_FE_CELLS:
+        fits = [r["fe"][cell] for r in ranks]
+        f_rel, d_rel = _mp_fe_check(cell, fits, fe_ref[cell]["f"],
+                                    np.asarray(fe_ref[cell]["coef"]),
+                                    hold_theta)
+        for fit in fits:
+            for k, v in fit["launches"].items():
+                launches[k] += v
+        _say("multiprocess", fe=cell, N=FE_N, D=d, K=FE_K,
+             dtype=over.get("dtype", "float32"),
+             rows=[f["rows"] for f in fits],
+             funcalls=[f["funcalls"] for f in fits],
+             one_process_funcalls=fe_ref[cell]["funcalls"],
+             fit_s=[f"{f['fit_s']:.3f}" for f in fits],
+             wall_s=[f"{f['wall_s']:.3f}" for f in fits],
+             one_process_fit_s=f"{fe_ref[cell]['fit_s']:.3f}",
+             allreduce_s_per_funcall=[
+                 f"{f['allreduce_s'] / max(f['allreduce_calls'], 1):.6f}"
+                 for f in fits],
+             allreduce_share=[f"{f['allreduce_s'] / f['fit_s']:.3f}"
+                              for f in fits],
+             device_idle=[None if f["idle"] is None else f"{f['idle']:.4f}"
+                          for f in fits],
+             f=f"{fits[0]['f']:.6f}", f_rel=f"{f_rel:.2e}",
+             max_dcoef_rel=f"{d_rel:.2e}", theta_held=hold_theta,
+             launches=[f["launches"] for f in fits], card=repr(card))
+        want = (("fe_hybrid_hot", "windowed_scatter_add") if d == WIDE_D
+                else ("fe_loss_grad_fused",))
+        _check(all(f["launches"].get(k, 0) >= f["funcalls"]
+                   for f in fits for k in want),
+               f"multiprocess {cell}: a kernel of the path skipped a "
+               f"funcall: {[f['launches'] for f in fits]}")
+    for plane in ("host", "sharded"):
+        runs = [r["pipelines"][plane] for r in ranks]
+        got = runs[0]["metrics"]
+        gap = {c: abs(got[c] - one[plane][c]) for c in COORDINATES}
+        for run in runs:
+            for k, v in run["launches"].items():
+                launches[k] += v
+        ex = runs[0]["exchanges"]
+        _say("multiprocess", pipeline=f"in_memory --re_mode {plane}",
+             sweeps=2, auc={k: round(v, 6) for k, v in got.items()},
+             auc_gap={k: f"{v:.2e}" for k, v in gap.items()},
+             wall_s=[f"{r['wall_s']:.3f}" for r in runs],
+             exchange_files=[e["files"] for e in ex],
+             exchange_s=[f"{e['seconds']:.4f}" for e in ex],
+             launches=[r["launches"] for r in runs], card=repr(card))
+        _check(runs[0]["metrics"] == runs[1]["metrics"],
+               f"multiprocess pipeline {plane}: the ranks' AUCs differ")
+        _check(max(gap.values()) <= MODES_AUC_ATOL,
+               f"multiprocess pipeline {plane} against one process: {gap}")
+        _check(len(ex) == 4 and all(e["files"] == MP_PROCS for e in ex),
+               f"multiprocess pipeline {plane}: exchanges {ex}")
+        _check(all(r["launches"].get("newton_full", 0) > 0
+                   and r["launches"].get("fe_loss_grad_fused", 0) > 0
+                   for r in runs),
+               f"multiprocess pipeline {plane}: K1 or K5 never launched")
+    # the tower: the two processes' part files against one process's scores
+    for dtype, auc_atol, score_rtol in MP_TOWER_CELLS:
+        one_s, mp_s = (read_scores(os.path.join(
+            sub, f"tower_{who}_{dtype}", "validation_scores"), base)
+            for who in ("one", "mp"))
+        o1, o2 = (np.argsort(s["uid"], kind="stable") for s in (one_s, mp_s))
+        _check(np.array_equal(one_s["uid"][o1], mp_s["uid"][o2]),
+               f"multiprocess tower {dtype}: the part files do not hold "
+               "every row once")
+        s1, s2 = one_s["predictionScore"][o1], mp_s["predictionScore"][o2]
+        y = one_s["response"][o1]
+        auc1, auc2 = float(auc_metric(s1, y)), float(auc_metric(s2, y))
+        dscore = float(np.abs(s1 - s2).max() / np.abs(s1).max())
+        towers = [r["tower"][dtype] for r in ranks]
+        for t in towers:
+            for k, v in t["launches"].items():
+                launches[k] += v
+        _say("multiprocess", tower="cnn", dtype=dtype, batch=512,
+             epochs=MP_TOWER_EPOCHS,
+             wall_s=[f"{t['wall_s']:.3f}" for t in towers],
+             fit_s=[f"{t['fit']['seconds']:.3f}" for t in towers],
+             one_process_fit_s=f"{tower_ref[dtype]['seconds']:.3f}",
+             best_epoch=[t["fit"]["best_epoch"] for t in towers],
+             one_process_best_epoch=tower_ref[dtype]["best_epoch"],
+             auc=f"{auc2:.6f}", one_process_auc=f"{auc1:.6f}",
+             auc_gap=f"{abs(auc1 - auc2):.2e}",
+             max_dscore_rel=f"{dscore:.2e}",
+             corr=f"{np.corrcoef(s1, s2)[0, 1]:.8f}", card=repr(card))
+        _check(abs(auc1 - auc2) <= auc_atol
+               and (score_rtol is None or dscore <= score_rtol),
+               f"multiprocess tower {dtype} against one process: AUC gap "
+               f"{abs(auc1 - auc2):.2e}, max|Δscore| {dscore:.2e}")
+
+    # ---- (b) the trainer CLI ----
+    _mp_cli_fe(card, sub, launches)
+
+    # ---- (c) --mode distributed ----
+    cfg = _ml100k_config(ml, sub, "distributed")
+    outs, wall = _mp_run([sys.executable, "-m", "gdmix_tpu_torch.workflow."
+                          "main", "--config_path", cfg, "--mode",
+                          "distributed"], "--mode distributed")
+    metrics = [_log_json(o, "workflow metrics: ") for o in outs]
+    for o in outs:
+        for k, v in _log_json(o, "kernel launches: ").items():
+            launches[k] += v
+    gap = {c: abs(metrics[0][c] - single[c]) for c in COORDINATES}
+    _say("multiprocess", mode="distributed", wall_s=f"{wall:.3f}",
+         auc={k: round(v, 6) for k, v in metrics[0].items()},
+         auc_gap_single_node={k: f"{v:.2e}" for k, v in gap.items()},
+         backend=[_log_backend(o) for o in outs], card=repr(card))
+    _check(metrics[0] == metrics[1],
+           "--mode distributed: the ranks report other AUCs")
+    _check(max(gap.values()) <= MODES_AUC_ATOL,
+           f"--mode distributed against single_node: {gap}")
+    _say("multiprocess", launches=dict(launches),
+         phase_s=f"{time.perf_counter() - phase_t0:.3f}", card=repr(card))
+    for k in ("newton_full", "newton_block", "fe_loss_grad_fused",
+              "fe_hybrid_hot", "windowed_scatter_add"):
+        _check(launches[k] > 0, f"multiprocess: {k} never launched")
+    return launches
+
+
 # ------------------------------------------------------------------ detext --
 
 # the JAX bench's deep-tower cell (bench.py:434-487): B rows of L tokens
@@ -3803,6 +4360,10 @@ KERNELS = (
 def main():
     sys.path.insert(0, ROOT)
     import gdmix_tpu_torch  # noqa: F401  (outside a checkout: fail first)
+    if sys.argv[1:2] == ["--mp-child"]:
+        # a process of the multiprocess phase, started by phase_multiprocess
+        _mp_child(sys.argv[2:])
+        return
     card = phase_device()
     import torch
     phase_build()
@@ -3824,9 +4385,11 @@ def main():
         phase_cli()
         phase_fe_cli(ml, tmp)
         errs, sharded_launches = phase_sharded(card, tmp, ml)
+        mp_launches = phase_multiprocess(card, tmp, ml100k, single)
     for name, err in errs.items():
         res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
-    for name, n in sharded_launches.items():
+    for name, n in list(sharded_launches.items()) + list(
+            mp_launches.items()):
         launches[name] += n
     for name, err in phase_stream(card).items():
         res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)

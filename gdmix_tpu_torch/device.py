@@ -5,7 +5,9 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """`device` as a torch.device; by default the first card, and an error
+    """`device` as a torch.device; by default the current card (the first,
+    or the one a multi-process job gave this process:
+    workflow/distributed.py maybe_initialize_distributed), and an error
     when there is none. The CPU, where every kernel wrapper takes its plain
     PyTorch version, is had only by asking for it (device="cpu", or
     --device=cpu on the command lines)."""
@@ -16,7 +18,7 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device: gdmix_tpu_torch runs on a card unless the CPU "
             "is asked for (device='cpu', or --device=cpu on the command "
             "line)")
-    return torch.device("cuda:0")
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def pop_device_flag(argv):

@@ -13,10 +13,9 @@ import logging
 import os
 from typing import List, Optional
 
-import torch.distributed as dist
-
 from gdmix_tpu_torch import constants
 from gdmix_tpu_torch.io import fs
+from gdmix_tpu_torch.parallel.process_group import process_index_and_count
 from gdmix_tpu_torch.params import Params
 
 logger = logging.getLogger(__name__)
@@ -26,12 +25,6 @@ def _is_empty_directory(path: str) -> bool:
     if not fs.isdir(path):
         raise ValueError(f"Directory expected, but {path} is not a directory")
     return len(fs.listdir(path)) == 0
-
-
-def process_index_and_count():
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
 
 
 class Driver(abc.ABC):

@@ -4,17 +4,19 @@ The port of gdmix_tpu/gdmix.py (reference gdmix.py:13-40): one argv serves
 both the run's Params and the model's params; unknown flags are ignored by
 each parser. The port trains and scores the fixed effect (logistic or
 linear regression, or the deep detext tower) and random-effect logistic
-regression on one device: the first card, or the CPU with --device=cpu
-(taken out of argv before the params parsers see it). A run ends by logging how many times it launched
-each hand-written kernel (`kernel launches: {...}`, all 0 on the CPU), so
-that a job run in its own process, as the job DAG runs it, shows which
-kernels it went through.
+regression on one device a process: the first card (or the card a
+multi-process job gives the process), or the CPU with --device=cpu (taken
+out of argv before the params parsers see it). A process started with
+COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID set, or by torchrun, joins
+that job first (workflow/distributed.py maybe_initialize_distributed). A
+run ends by logging how many times it launched each hand-written kernel
+(`kernel launches: {...}`, all 0 on the CPU), so that a job run in its own
+process, as the job DAG runs it, shows which kernels it went through.
 """
 from __future__ import annotations
 
 import json
 import logging
-import os
 import sys
 
 from gdmix_tpu_torch import constants
@@ -54,17 +56,6 @@ def _print_help() -> None:
         print()
 
 
-def _refuse_multi_process_env() -> None:
-    """The JAX package joins a multi-host job from COORDINATOR_ADDRESS /
-    NUM_PROCESSES; the port runs in one process until multi-process lands
-    (ROADMAP A.6b)."""
-    if os.environ.get("COORDINATOR_ADDRESS") or os.environ.get(
-            "NUM_PROCESSES"):
-        raise NotImplementedError(
-            "ROADMAP A.6b: multi-GPU runs (COORDINATOR_ADDRESS/NUM_PROCESSES "
-            "are set)")
-
-
 def kernel_launches() -> dict:
     """{kernel: launches} of this process, from each wrapper's counter."""
     from gdmix_tpu_torch.ops import (fe_hybrid, fe_loss_grad, linsolve,
@@ -81,8 +72,13 @@ def run(argv) -> None:
     if not argv or "--help" in argv or "-h" in argv:
         _print_help()
         return
-    _refuse_multi_process_env()
     argv, device = pop_device_flag(argv)
+    # join the job named by the environment (COORDINATOR_ADDRESS /
+    # NUM_PROCESSES / PROCESS_ID, as workflow/k8s.py injects them, or
+    # torchrun's), as the JAX package's trainer does; no-op without it
+    from gdmix_tpu_torch.workflow.distributed import \
+        maybe_initialize_distributed
+    maybe_initialize_distributed(device)
     params = from_argv(Params, argv)
     driver = get_driver(params, argv, device)
     if params.action == constants.ACTION_INFERENCE:

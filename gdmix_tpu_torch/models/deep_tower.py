@@ -19,15 +19,25 @@ Covered, as in the JAX package (--ftr_ext, doc fields, losses):
   * losses: `classification` (pointwise weighted BCE) and `ranking`
     (in-batch pairwise logistic within `query_column` groups).
 
-Training is mini-batch Adam on one device, the data uploaded once and each
-batch gathered there; the loss of each step stays on the device until the
-epoch ends. The best epoch by validation AUC is kept and saved as the
-port's own checkpoint: a `state_dict` written by `torch.save` through the
-filesystem seam, with a manifest beside it. Checkpoints of the JAX package
-(orbax) do not load here. The tower has no hand-written kernel: the JAX
-package computes it outside any Pallas kernel, and so the port leaves it to
-PyTorch's operators. Not ported (raises NotImplementedError naming its
-ROADMAP item): multi-process training and scoring (A.6b).
+Training is mini-batch Adam on one device a process, the data uploaded
+once and each batch gathered there; the loss of each step stays on the
+device until the epoch ends. The best epoch by validation AUC is kept and
+saved as the port's own checkpoint: a `state_dict` written by `torch.save`
+through the filesystem seam, with a manifest beside it, by the chief alone.
+Checkpoints of the JAX package (orbax) do not load here. The tower has no
+hand-written kernel: the JAX package computes it outside any Pallas
+kernel, and so the port leaves it to PyTorch's operators.
+
+Across processes (a process group; gdmix_tpu/models/deep_tower.py:288-530)
+training is data parallel: every process holds the full data and draws the
+same permutation from the seed, takes its contiguous slice of each global
+batch, and the gradients are averaged by one all-reduce a step before Adam,
+so every replica stays identical (batch_size % processes == 0, as in the
+JAX package). The ranking loss pairs rows across the whole global batch, so
+there each process also gathers the batch's logits. Scoring splits each
+chunk over the processes and gathers the scores back; each process writes
+its interleaved share of the rows. NUM_WORKERS > 1 with no process group
+means independent replicas: each scores only its interleaved share.
 """
 from __future__ import annotations
 
@@ -54,6 +64,9 @@ from gdmix_tpu_torch.io.metadata import DatasetMetadata
 from gdmix_tpu_torch.models.api import Model
 from gdmix_tpu_torch.ops.logistic import stable_bce
 from gdmix_tpu_torch.ops.metrics import auc as auc_metric
+from gdmix_tpu_torch.parallel.process_group import (all_gather_rows,
+                                                    all_reduce_sum, barrier,
+                                                    process_index_and_count)
 from gdmix_tpu_torch.params import Params, from_argv
 
 logger = logging.getLogger(__name__)
@@ -361,7 +374,8 @@ _ROW_KEYS = ("tokens", "mask", "indices", "values", "labels", "weights",
 
 class DeepTowerModel(Model):
     """Deep fixed-effect coordinate with the standard score interface, on
-    one device: the first card, or the CPU when it is asked for."""
+    one device a process: the process's card, or the CPU when it is asked
+    for."""
 
     CKPT_FORMAT_VERSION = 1
 
@@ -452,16 +466,57 @@ class DeepTowerModel(Model):
         gen = torch.Generator().manual_seed(self.model_params.seed)
         return init_state(self.module, gen)
 
-    def _refuse_unported(self, num_workers: int) -> None:
-        if num_workers > 1:
-            raise NotImplementedError(
-                "ROADMAP A.6b: multi-process deep-tower training and scoring "
-                f"({num_workers} workers)")
+    def _shared_step(self, opt, rows, idx, ranking: bool) -> torch.Tensor:
+        """One data-parallel step of this process: its contiguous share of
+        the global batch `idx`, the gradients averaged over the processes
+        (one all-reduce, the loss packed with them), then Adam. Returns the
+        global batch's loss. Each process differentiates n·(its share of
+        the global data loss) + l2·Σ‖leaf‖², so the average is the global
+        batch's gradient: for the pointwise loss that share is the mean
+        over its slice; for the ranking loss, whose pairs span the batch,
+        it is the global pairwise loss with only this process's logits
+        live (the others' gathered)."""
+        rank, nproc = process_index_and_count()
+        per = len(idx) // nproc
+        local = {k: v[idx[rank * per:(rank + 1) * per]]
+                 for k, v in rows.items()}
+        p = self.model_params
+        opt.zero_grad(set_to_none=True)
+        if not ranking:
+            loss = tower_loss(self.module, local, False, p.l2_reg_weight)
+            shown = loss.detach()
+        else:
+            z = self.module(local["tokens"], local["mask"], local["indices"],
+                            local["values"]) + local["offsets"]
+            z_all = all_gather_rows(z.detach())
+            z = torch.cat([z_all[:rank * per], z, z_all[(rank + 1) * per:]])
+            data = pairwise_ranking_loss(z, rows["labels"][idx],
+                                         rows["weights"][idx],
+                                         rows["groups"][idx])
+            l2 = (p.l2_reg_weight * sum(
+                torch.sum(q * q) for q in self.module.parameters()
+                if q.requires_grad) if p.l2_reg_weight else 0.0)
+            loss = nproc * data + l2
+            shown = (data + l2).detach()
+        loss.backward()
+        params = [q for q in self.module.parameters() if q.grad is not None]
+        flat = all_reduce_sum(torch.cat(
+            [q.grad.reshape(-1) for q in params] + [shown.reshape(1)])) / nproc
+        at = 0
+        for q in params:
+            q.grad.copy_(flat[at:at + q.numel()].view_as(q))
+            at += q.numel()
+        opt.step()
+        return flat[-1]
 
     def train(self, training_data_dir, validation_data_dir, metadata_file,
               checkpoint_path, execution_context, schema_params):
         p = self.model_params
-        self._refuse_unported(execution_context.get(constants.NUM_WORKERS, 1))
+        rank, nproc = process_index_and_count()
+        if nproc > 1 and p.batch_size % nproc:
+            raise ValueError(
+                f"multi-process deep-tower training needs batch_size "
+                f"divisible by the process count ({p.batch_size} % {nproc})")
         logger.info("Kicking off deep-tower training on %s", self.device)
         train = self._load_arrays(training_data_dir, schema_params)
         valid = (self._load_arrays(validation_data_dir, schema_params)
@@ -485,6 +540,14 @@ class DeepTowerModel(Model):
             losses = []
             for s in range(steps_per_epoch):
                 idx = perm[s * p.batch_size:(s + 1) * p.batch_size]
+                if nproc > 1:
+                    # a global batch short of a multiple of the process
+                    # count (n < batch_size) drops its remainder
+                    idx = idx[:len(idx) // nproc * nproc]
+                    if len(idx):
+                        losses.append(self._shared_step(opt, train_t, idx,
+                                                        ranking))
+                    continue
                 batch = {k: v[idx] for k, v in train_t.items()}
                 opt.zero_grad(set_to_none=True)
                 loss = tower_loss(self.module, batch, ranking,
@@ -518,24 +581,46 @@ class DeepTowerModel(Model):
                     "%.3f s", best_epoch, p.num_epochs, steps_per_epoch,
                     self.last_fit["seconds"],
                     extra={"deep_tower_fit": self.last_fit})
+        # one writer (ROADMAP C.4), and no process reads it before it is
+        # written
         if execution_context.get(constants.IS_CHIEF, True):
             self._save_checkpoint()
+        barrier()
 
         # score train + validation with the best epoch's parameters
         task_index = execution_context.get(constants.TASK_INDEX, 0)
+        num_workers = execution_context.get(constants.NUM_WORKERS, 1)
         self._write_scores(train, train_t, schema_params,
-                           self.base_params.training_score_dir, task_index)
+                           self.base_params.training_score_dir, task_index,
+                           num_workers)
         if valid is not None:
             self._write_scores(valid, valid_t, schema_params,
                                self.base_params.validation_score_dir,
-                               task_index)
+                               task_index, num_workers)
 
     @torch.no_grad()
     def _score_all(self, rows: Dict[str, torch.Tensor],
                    chunk: int = 4096) -> torch.Tensor:
         """Scores (without the offset) of every row, in chunks of `chunk`
-        rows, on the device."""
+        rows, on the device. Across processes each process scores its
+        contiguous slice of each chunk (the chunk padded with its last row
+        to a multiple of the process count) and the slices are gathered
+        back, so every process holds every score."""
         n = rows["tokens"].shape[0]
+        rank, nproc = process_index_and_count()
+        if nproc > 1:
+            out = []
+            for s in range(0, n, chunk):
+                idx = torch.arange(s, min(s + chunk, n), device=self.device)
+                true_len = len(idx)
+                idx = torch.cat([idx, idx[-1:].repeat((-true_len) % nproc)])
+                per = len(idx) // nproc
+                mine = idx[rank * per:(rank + 1) * per]
+                z = self.module(rows["tokens"][mine], rows["mask"][mine],
+                                rows["indices"][mine], rows["values"][mine])
+                out.append(all_gather_rows(z)[:true_len])
+            return torch.cat(out) if out else torch.zeros(
+                0, dtype=self.dtype, device=self.device)
         out = [self.module(rows["tokens"][s:s + chunk],
                            rows["mask"][s:s + chunk],
                            rows["indices"][s:s + chunk],
@@ -545,17 +630,35 @@ class DeepTowerModel(Model):
                                                       device=self.device)
 
     def _write_scores(self, arrays, rows, schema_params, output_dir,
-                      task_index):
+                      task_index, num_workers: int = 1):
+        """This worker's part-{task_index:05d}.avro: its interleaved share
+        (rows task_index::num_workers), so that the workers' part files
+        hold every row once. In a process group every process scores every
+        row together (_score_all) and keeps its share; independent
+        replicas (num_workers > 1 with no group) score only their share."""
         if not output_dir:
             return
+        n = arrays["n"]
+        if num_workers > 1 and process_index_and_count()[1] == 1:
+            sub = np.arange(task_index, n, num_workers)
+            arrays = dict(arrays, n=len(sub), **{
+                k: arrays[k][sub] for k in ("offsets", "uid", "labels",
+                                            "weights")})
+            rows = {k: v[torch.as_tensor(sub, device=self.device)]
+                    for k, v in rows.items()}
+            keep = slice(None)
+        else:
+            keep = slice(task_index, None, num_workers)
         per_coordinate = self._score_all(rows).cpu().numpy()
         total = per_coordinate + arrays["offsets"]
         out = os.path.join(output_dir, f"part-{task_index:05d}.avro")
-        scores_io.write_scores(out, schema_params, arrays["uid"], total,
-                               scores_per_coordinate=per_coordinate,
-                               labels=arrays["labels"],
-                               weights=arrays["weights"])
-        logger.info("Wrote %d deep-tower scores to %s", arrays["n"], out)
+        scores_io.write_scores(out, schema_params, arrays["uid"][keep],
+                               total[keep],
+                               scores_per_coordinate=per_coordinate[keep],
+                               labels=arrays["labels"][keep],
+                               weights=arrays["weights"][keep])
+        logger.info("Wrote %d deep-tower scores to %s",
+                    len(arrays["uid"][keep]), out)
 
     # ------------------------------------------------------------ checkpoint --
     # The port's checkpoint: <output_model_dir>/deep_tower_ckpt/params.pt (a
@@ -613,12 +716,12 @@ class DeepTowerModel(Model):
 
     def predict(self, output_dir, input_data_path, metadata_file,
                 checkpoint_path, execution_context, schema_params):
-        self._refuse_unported(execution_context.get(constants.NUM_WORKERS, 1))
         self._load_checkpoint()
         arrays = self._load_arrays(input_data_path, schema_params)
         self._write_scores(arrays, self._on_device(arrays), schema_params,
                            output_dir,
-                           execution_context.get(constants.TASK_INDEX, 0))
+                           execution_context.get(constants.TASK_INDEX, 0),
+                           execution_context.get(constants.NUM_WORKERS, 1))
 
     @staticmethod
     def from_argv(argv, base_params: Params,

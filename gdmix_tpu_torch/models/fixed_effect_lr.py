@@ -1,5 +1,5 @@
-"""Fixed-effect LR / linear-regression trainer: full-batch L-BFGS on one
-device.
+"""Fixed-effect LR / linear-regression trainer: full-batch L-BFGS, data
+parallel across processes.
 
 Port of gdmix_tpu/models/fixed_effect_lr.py (the TPU re-design of the
 reference FixedEffectLRModelLBFGS, linkedin/gdmix:gdmix-trainer/src/gdmix/
@@ -26,8 +26,20 @@ uniform ids), runs the fused kernel.
 
 stream_chunk_rows > 0 trains and scores a tfrecord shard out of core: it
 moves to the device chunk by chunk as it decodes (_device_batch_streamed),
-so host memory holds one chunk. Not ported (raises NotImplementedError
-naming its ROADMAP item): multi-process data parallelism (A.6b).
+so host memory holds one chunk.
+
+Across processes (a process group joined by workflow/distributed.py; the
+JAX package's `_device_batch` / `_device_batch_streamed` multi-host halves,
+gdmix_tpu/models/fixed_effect_lr.py:256-440): each process loads only its
+own rows — its file shard (io/shard.py, TASK_INDEX of NUM_WORKERS), or its
+sample shard where there are fewer files than processes — onto its own
+card. Every funcall runs the data term on the local rows and then ONE
+all-reduce of one packed tensor [loss, gradient]; the λ-term is added
+after it. The reduced sums are bit-equal on every rank, so the replicated
+L-BFGS host loop (ops/lbfgs.py) takes the same steps everywhere. The
+SIMPLE/FULL variance all-reduces its Hessian diagonal / Hessian. Each
+process scores its own rows into part-{task_index:05d}.avro; the chief
+alone saves the model.
 """
 from __future__ import annotations
 
@@ -53,6 +65,8 @@ from gdmix_tpu_torch.ops.logistic import (
     fixed_effect_value_and_grad_hybrid,
     fixed_effect_value_and_grad_hybrid_pallas, hessian_diag, hessian_full,
     l2_value_and_grad, predict_logits)
+from gdmix_tpu_torch.parallel.process_group import (all_reduce_sum,
+                                                    process_index_and_count)
 from gdmix_tpu_torch.params import FixedLRParams, Params, from_argv
 from gdmix_tpu_torch.util.convert import fe_coefficients_from_numpy
 from gdmix_tpu_torch.util.model_utils import threshold_coefficients
@@ -103,7 +117,7 @@ def effective_grad_mode(grad_mode: str, has_intercept: bool,
 
 class FixedEffectLRModel(Model):
     """Full-batch LR/linear-regression with host-driven L-BFGS on one
-    device."""
+    device a process."""
 
     def __init__(self, model_params: FixedLRParams, base_params: Params,
                  device=None):
@@ -142,8 +156,10 @@ class FixedEffectLRModel(Model):
         # how many times the static columns crossed to the device (the
         # multi-sweep cache keeps this at 1)
         self.static_upload_count = 0
-        # the last fit's L-BFGS counts and wall seconds
+        # the last fit's L-BFGS counts and wall seconds, and across
+        # processes the all-reduces it made and their seconds
         self.last_fit: Dict[str, float] = {}
+        self._allreduce = [0, 0.0]
         # the last streamed ingestion: chunks, rows, bag width, and the
         # seconds each chunk took to decode and to reach the device
         self.last_ingest: Dict[str, object] = {}
@@ -259,7 +275,15 @@ class FixedEffectLRModel(Model):
         padded to the widest chunk's (at least 8, as the JAX package's;
         id 0, value 0: inert) and the chunks are concatenated one column at
         a time. Only the last chunk may be short of a multiple of 8 rows
-        (the chunker yields exact-size chunks)."""
+        (the chunker yields exact-size chunks).
+
+        Across processes each process streams its own file shard. The JAX
+        package agrees one padded row count and one bag width over the
+        processes at stream end (process_allgather) only because
+        make_array_from_process_local_data needs equal shards; a process
+        group that sums local results needs neither, so each process keeps
+        its own rows and width, and a process whose shard is empty holds an
+        empty batch."""
         cols = {name: [] for name in SparseBatch._fields}
         uids, decode_s, upload_s = [], [], []
         n, k_max, saw_short = 0, 8, False
@@ -284,7 +308,14 @@ class FixedEffectLRModel(Model):
             decode_s.append(t1 - t0)
             upload_s.append(time.perf_counter() - t1)
         if not uids:
-            raise ValueError("empty chunk stream")
+            if process_index_and_count()[1] == 1:
+                raise ValueError("empty chunk stream")
+            empty = np.zeros((0, k_max))
+            part = self._upload(empty.astype(np.int32), empty, *[
+                np.zeros(0)] * 3)
+            for name in SparseBatch._fields:
+                cols[name].append(getattr(part, name))
+            uids.append(np.zeros(0, np.int64))
 
         def cat(name):
             parts = cols.pop(name)
@@ -311,9 +342,11 @@ class FixedEffectLRModel(Model):
     def _objective_fun(self, batch: SparseBatch,
                        hybrid_aux: Optional[HybridAux] = None):
         """(value, grad) of the objective: the data term through the FE
-        kernels, then the λ-term once. `hybrid_aux`: the hot/cold split
-        (build_hybrid_aux_for); without one, the hybrid modes take the fused
-        kernel, as JAX's fall through to scatter."""
+        kernels, across processes summed by one all-reduce of [value,
+        grad] (_reduce), then the λ-term once. `hybrid_aux`: the hot/cold
+        split (build_hybrid_aux_for); without one, the hybrid modes take
+        the fused kernel, as JAX's fall through to scatter. A process with
+        no rows contributes zeros."""
         mode = self._grad_mode()
         linear = self.model_type == constants.LINEAR_REGRESSION
         b = batch
@@ -338,14 +371,33 @@ class FixedEffectLRModel(Model):
                     self.num_features, has_intercept=self.has_intercept,
                     linear=linear)
 
+        if b.labels.shape[0] == 0:
+            def data_term(x):
+                return x.new_zeros(()), torch.zeros_like(x)
+
         def fun(x):
-            v, g = data_term(x)
+            v, g = self._reduce(*data_term(x))
             lv, lg = l2_value_and_grad(
                 x, self.l2_reg_weight, has_intercept=self.has_intercept,
                 regularize_bias=self.is_regularize_bias,
                 intercept_at_end=True)
             return v + lv, g + lg
         return fun
+
+    def _reduce(self, v: torch.Tensor, g: torch.Tensor):
+        """Σ over the processes of the data term (v, g): one all-reduce of
+        the packed [v, g...], timed (after the data term is done) into
+        last_fit's allreduce_s; (v, g) as they are in one process."""
+        if process_index_and_count()[1] == 1:
+            return v, g
+        packed = torch.cat([v.reshape(1).to(g.dtype), g])
+        if packed.is_cuda:
+            torch.cuda.synchronize(packed.device)
+        t0 = time.perf_counter()
+        packed = all_reduce_sum(packed)
+        self._allreduce[0] += 1
+        self._allreduce[1] += time.perf_counter() - t0
+        return packed[0].to(v.dtype), packed[1:]
 
     # ------------------------------------------------------------------ train --
 
@@ -376,7 +428,8 @@ class FixedEffectLRModel(Model):
         row count of JAX's objective, so the layouts equal JAX's."""
         p = self.model_params
         mode = self._grad_mode()
-        if mode not in ("hybrid", "pallas_hybrid"):
+        if mode not in ("hybrid", "pallas_hybrid") \
+                or batch.labels.shape[0] == 0:
             return None
         if device_cache is not None and "hybrid_aux" in device_cache:
             return device_cache["hybrid_aux"]
@@ -384,6 +437,13 @@ class FixedEffectLRModel(Model):
                                self.num_features,
                                hot_features=p.hot_features,
                                cold_max_frac=p.hybrid_cold_max_frac)
+        # Across processes each process builds its split from its own rows:
+        # the split changes how the gradient is summed, not its value, so
+        # no hot set needs agreeing. The JAX package turns the windowed
+        # cold side off on a mesh of more than one device
+        # (gdmix_tpu/models/fixed_effect_lr.py:722-727), a limit of its
+        # kernel under GSPMD, not of the math; here every process runs the
+        # kernel on its own card and keeps it.
         use_windowed = (mode == "hybrid"
                         and (p.hybrid_windowed_cold == "on"
                              or (p.hybrid_windowed_cold == "auto"
@@ -409,6 +469,7 @@ class FixedEffectLRModel(Model):
             x0 = torch.zeros(self._dim, dtype=self.dtype, device=self.device)
         p = self.model_params
         aux = self.build_hybrid_aux_for(batch, device_cache)
+        self._allreduce = [0, 0.0]
         t0 = time.perf_counter()
         res = lbfgs(self._objective_fun(batch, aux), x0,
                     m=p.num_of_lbfgs_curvature_pairs, ftol=p.lbfgs_tolerance,
@@ -419,7 +480,9 @@ class FixedEffectLRModel(Model):
             f=res.f, iterations=res.num_iterations,
             funcalls=res.num_funcalls, converged=res.converged,
             line_search_failed=res.line_search_failed,
-            host_syncs=res.host_syncs, seconds=seconds)
+            host_syncs=res.host_syncs, seconds=seconds,
+            allreduce_calls=self._allreduce[0],
+            allreduce_s=self._allreduce[1])
         logger.info("f_min: %s, iters: %s, funcalls: %s, converged: %s, "
                     "host syncs: %s, %.3f s", res.f, res.num_iterations,
                     res.num_funcalls, res.converged, res.host_syncs, seconds)
@@ -436,12 +499,6 @@ class FixedEffectLRModel(Model):
                                            cache=device_cache)
         return self._score_arrays(batch, uid, n, schema_params)
 
-    def _refuse_unported(self, num_workers: int) -> None:
-        if num_workers > 1:
-            raise NotImplementedError(
-                "ROADMAP A.6b: multi-process fixed-effect training "
-                f"({num_workers} workers)")
-
     def _stream_rows(self) -> int:
         """The chunk size of out-of-core ingestion, or 0 to load eagerly:
         streaming takes tfrecord input without custom_input_fn (the JAX
@@ -456,10 +513,13 @@ class FixedEffectLRModel(Model):
             "custom_input_fn — loading eagerly instead")
         return 0
 
-    def _chunks(self, input_path: str, chunk_rows: int):
+    def _chunks(self, input_path: str, chunk_rows: int, num_shards: int = 1,
+                shard_index: int = 0):
         from gdmix_tpu_torch.io.input_pipeline import iter_per_record_chunks
         return iter_per_record_chunks(input_path, self.metadata,
                                       self.feature_bag_name,
+                                      num_shards=num_shards,
+                                      shard_index=shard_index,
                                       chunk_rows=chunk_rows)
 
     def train(self, training_data_dir, validation_data_dir, metadata_file,
@@ -469,11 +529,13 @@ class FixedEffectLRModel(Model):
         task_index = execution_context.get(constants.TASK_INDEX, 0)
         num_workers = execution_context.get(constants.NUM_WORKERS, 1)
         is_chief = execution_context.get(constants.IS_CHIEF, True)
-        self._refuse_unported(num_workers)
 
         if self.model_params.copy_to_local:
             training_data_dir = self._copy_shard_to_local(
                 training_data_dir, num_workers, task_index)
+            num_shards, shard_index = 1, 0
+        else:
+            num_shards, shard_index = num_workers, task_index
         # Warm start from a prior avro model if shapes match (reference
         # :606-623).
         prev = self._load_model(catch_exception=True)
@@ -482,7 +544,8 @@ class FixedEffectLRModel(Model):
         chunk_rows = self._stream_rows()
         if chunk_rows:
             batch, train_uid, n_train = self._device_batch_streamed(
-                self._chunks(training_data_dir, chunk_rows), schema_params)
+                self._chunks(training_data_dir, chunk_rows, num_shards,
+                             shard_index), schema_params)
             logger.info("streamed ingestion: %d records on %s in %d chunks "
                         "of %d rows", n_train, self.device,
                         self.last_ingest["chunks"], chunk_rows)
@@ -490,7 +553,7 @@ class FixedEffectLRModel(Model):
         else:
             train_data = load_per_record(
                 training_data_dir, self.metadata, self.feature_bag_name,
-                num_shards=1, shard_index=0,
+                num_shards=num_shards, shard_index=shard_index,
                 data_format=self.model_params.data_format,
                 feature_file=self.feature_file,
                 custom_input_fn=self.model_params.custom_input_fn)
@@ -575,18 +638,22 @@ class FixedEffectLRModel(Model):
 
     def _compute_variance(self, batch: SparseBatch, x: torch.Tensor) -> None:
         """SIMPLE: 1/(diag H + ε); FULL: diag((H + (λ+ε)I)⁻¹) with the
-        intercept's λ removed when unregularized (reference :442-463)."""
+        intercept's λ removed when unregularized (reference :442-463).
+        Across processes the data Hessian (diagonal) is all-reduced before
+        λ is added (reference :302-306)."""
         lam = self.l2_reg_weight
         kw = dict(has_intercept=self.has_intercept, intercept_at_end=True)
         if self.variance_mode == constants.SIMPLE:
-            H = hessian_diag(x, batch, self.num_features, **kw).to(
+            H = all_reduce_sum(hessian_diag(
+                x, batch, self.num_features, **kw)).to(
                 "cpu", torch.float64).numpy().copy()
             H += lam
             if self.has_intercept and not self.is_regularize_bias:
                 H[-1] -= lam
             self.variances = 1.0 / (H + _EPSILON)
         elif self.variance_mode == constants.FULL:
-            H = hessian_full(x, batch, self.num_features, **kw).to(
+            H = all_reduce_sum(hessian_full(
+                x, batch, self.num_features, **kw)).to(
                 "cpu", torch.float64).numpy().copy()
             H += np.diag([lam + _EPSILON] * H.shape[0])
             if self.has_intercept and not self.is_regularize_bias:
@@ -656,7 +723,6 @@ class FixedEffectLRModel(Model):
         logger.info("Kicking off fixed effect LR predict")
         task_index = execution_context.get(constants.TASK_INDEX, 0)
         num_workers = execution_context.get(constants.NUM_WORKERS, 1)
-        self._refuse_unported(num_workers)
         self.model_coefficients = np.asarray(self._load_model(),
                                              dtype=np.float64)
         chunk_rows = self._stream_rows()
@@ -665,7 +731,8 @@ class FixedEffectLRModel(Model):
             # plus the O(N) scores (gdmix_tpu/models/fixed_effect_lr.py:
             # 983-1020)
             outs = []
-            for chunk in self._chunks(input_data_path, chunk_rows):
+            for chunk in self._chunks(input_data_path, chunk_rows,
+                                      num_workers, task_index):
                 b, uid, n = self._device_batch(chunk, schema_params)
                 outs.append(self._score_arrays(b, uid, n, schema_params))
             if not outs:
@@ -683,7 +750,7 @@ class FixedEffectLRModel(Model):
             return
         data = load_per_record(
             input_data_path, self.metadata, self.feature_bag_name,
-            num_shards=1, shard_index=0,
+            num_shards=num_workers, shard_index=task_index,
             data_format=self.model_params.data_format,
             feature_file=self.feature_file,
             custom_input_fn=self.model_params.custom_input_fn)

@@ -69,7 +69,8 @@ from gdmix_tpu_torch.ops.segment import ENTITY_SENTINEL
 from gdmix_tpu_torch.parallel.entity_sharding import (pack_tier,
                                                       route_records,
                                                       shard_rows)
-from gdmix_tpu_torch.parallel.mesh import get_mesh, on_device
+from gdmix_tpu_torch.parallel.mesh import get_mesh, local_mesh, on_device
+from gdmix_tpu_torch.parallel.process_group import process_index_and_count
 from gdmix_tpu_torch.params import Params, REParams, from_argv
 from gdmix_tpu_torch.util.convert import newton_inputs_from_numpy
 
@@ -467,9 +468,14 @@ class RandomEffectLRModel(Model):
 
         The FlatGroups is grouped already: its entity ids are factorized at
         E scale (the sharded fit's `factorize` phase), and each entity's
-        record run is handed over with them."""
+        record run is handed over with them. Across processes each process
+        solves its own partition on its LOCAL mesh (parallel/mesh.
+        local_mesh); the level across processes stays the partition
+        round-robin of the driver."""
         from gdmix_tpu_torch.data.partitioner import factorize_entities
-        mesh = get_mesh(device=self.device)
+        mesh = (get_mesh(device=self.device)
+                if process_index_and_count()[1] == 1
+                else local_mesh(device=self.device))
         mode = self.model_params.re_mode
         use_sharded = (mode == "sharded"
                        or (mode == "auto" and fg.indices is not None

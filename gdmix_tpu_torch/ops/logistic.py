@@ -20,8 +20,10 @@ irrelevant for both X·θ and Xᵀr). The gather + `index_add_` form of
 `build_hybrid_aux`, the windowed cold layouts and the two hybrid objectives)
 is ported with its kernels (ops/fe_hybrid.py, ops/windowed_scatter.py). The
 JAX package's other strategies for the same sums (`onehot`, `block`,
-`segment`) are TPU layouts and are not carried over; the psum of the
-multi-process objective is ROADMAP A.6b.
+`segment`) are TPU layouts and are not carried over. These objectives sum
+over the rows they are given; across processes each process sums its own
+rows and the trainer adds the processes' sums with one all-reduce
+(models/fixed_effect_lr.py, parallel/process_group.py).
 """
 from __future__ import annotations
 

@@ -11,10 +11,11 @@ A mesh may name one device more than once (eight `cpu` entries stand for
 the JAX tests' eight virtual CPU devices, and a card repeated exercises the
 P > 1 exchange on CUDA tensors), which is what the tests do with it.
 
-Not here: `batch_sharding` and `replicated` have no torch meaning in one
-process; they wait for the fixed effect's data parallelism across
-processes (ROADMAP A.6b), where the batch is split by hand and its
-gradients all-reduced.
+Not here: `batch_sharding` and `replicated`. Across processes the fixed
+effect's batch is split by hand (each process loads its own rows) and its
+loss and gradient are summed by one all-reduce
+(parallel/process_group.py); the coefficients are replicated because
+every process runs the same L-BFGS on the same sums.
 """
 from __future__ import annotations
 
@@ -25,6 +26,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from gdmix_tpu_torch.device import pad_to_multiple, resolve_device
+from gdmix_tpu_torch.parallel.process_group import (host_process_count,
+                                                    process_index_and_count)
 
 __all__ = ["Mesh", "get_mesh", "local_mesh", "on_device", "pad_to_multiple"]
 
@@ -55,11 +58,15 @@ def get_mesh(devices: Optional[Sequence] = None, device=None) -> Mesh:
 
 def local_mesh(device=None) -> Mesh:
     """The process-LOCAL mesh: this process's devices only. In one process
-    it is get_mesh(); across processes (ROADMAP A.6b) the random-effect
-    plane composes round-robin entity ownership between processes with the
-    routing inside each process's local mesh, so the exchange never leaves
-    the process."""
-    return get_mesh(device=device)
+    it is get_mesh(). Across processes the random-effect plane composes
+    round-robin entity ownership between processes with the routing inside
+    each process's local mesh, so the exchange never leaves the process:
+    the mesh is every visible card when the process is alone on its host,
+    else the one card the job gave it (resolve_device: the current card;
+    two processes sharing one card both hold it)."""
+    if process_index_and_count()[1] == 1 or host_process_count() == 1:
+        return get_mesh(device=device)
+    return Mesh((resolve_device(device),))
 
 
 def on_device(device: torch.device):

@@ -1,6 +1,6 @@
-"""The job DAG: the file-based pipeline as a chain of CLI jobs.
+"""Distributed workflow: the job DAG and joining a multi-process job.
 
-Port of the DAG half of gdmix_tpu/workflow/distributed.py. The reference
+Port of gdmix_tpu/workflow/distributed.py. The reference
 compiles a Kubeflow Pipeline of TFJob/SparkApplication CRDs
 (gdmix-workflow/src/gdmixworkflow/distributed/container_ops.py); here:
 
@@ -12,13 +12,17 @@ compiles a Kubeflow Pipeline of TFJob/SparkApplication CRDs
      condition, fail the pipeline on job failure), with subprocesses instead
      of CRDs and ready-set parallelism instead of `.after()` chaining
 
+  3. `maybe_initialize_distributed`: torch.distributed from the JAX
+     package's environment contract (COORDINATOR_ADDRESS / NUM_PROCESSES /
+     PROCESS_ID, what workflow/k8s.py injects), or from torchrun's
+     (RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT)
+
 The train jobs run on the first card, as the trainer CLI does, unless the
 DAG is generated for another device (`--device=<d>` on each of them).
-Joining a multi-process job (the JAX package's maybe_initialize_distributed)
-is ROADMAP A.6b.
 """
 from __future__ import annotations
 
+import atexit
 import json
 import logging
 import os
@@ -26,13 +30,69 @@ import subprocess
 import time
 from typing import Dict, List, Optional
 
+import torch
+import torch.distributed as dist
+
 from gdmix_tpu_torch.io import fs
+from gdmix_tpu_torch.parallel import process_group
 from gdmix_tpu_torch.workflow.config import (METRIC, MODELS, PARTITION,
                                              TRAINING_SCORES,
                                              VALIDATION_SCORES,
                                              WorkflowConfig)
 
 logger = logging.getLogger(__name__)
+
+
+def _leave_group() -> None:
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def maybe_initialize_distributed(device=None) -> Dict[str, object]:
+    """Join the job's process group when the environment names one, and
+    make this process's card current. Returns {process_id, num_processes,
+    backend, device}.
+
+    COORDINATOR_ADDRESS (host:port), NUM_PROCESSES and PROCESS_ID are the
+    JAX package's contract (gdmix_tpu/workflow/distributed.py:36-51) and
+    become `init_process_group(init_method="tcp://host:port")`; without
+    them a torchrun launch (WORLD_SIZE > 1) joins through `env://`. The
+    card: `device` when given, else LOCAL_RANK or the rank modulo the
+    visible cards (parallel/process_group.process_device); the backend by
+    the rule of parallel/process_group.py, logged. A group that fails to
+    form raises: the run never goes on in one process."""
+    if dist.is_initialized():
+        rank, world = process_group.process_index_and_count()
+        return dict(process_id=rank, num_processes=world,
+                    backend=dist.get_backend(), device=None)
+    env = os.environ
+    if env.get("COORDINATOR_ADDRESS"):
+        world, rank = int(env["NUM_PROCESSES"]), int(env["PROCESS_ID"])
+        init_method = f"tcp://{env['COORDINATOR_ADDRESS']}"
+    elif int(env.get("WORLD_SIZE", "1")) > 1:
+        world, rank = int(env["WORLD_SIZE"]), int(env["RANK"])
+        init_method = "env://"
+    else:
+        return dict(process_id=0, num_processes=1, backend=None,
+                    device=None)
+    if not 0 <= rank < world:
+        raise ValueError(f"process {rank} of a job of {world} processes")
+    dev = process_group.process_device(device, rank)
+    backend = process_group.backend_for(dev)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=init_method, rank=rank,
+                            world_size=world)
+    # leave the group before the interpreter tears down (a peer that has
+    # already gone must not leave this process's gloo threads to die with
+    # it: that aborts the process after its work is done)
+    atexit.register(_leave_group)
+    logger.info("torch.distributed joined: process %d/%d on %s, backend %s "
+                "(%d processes on this host, %d visible cards)", rank, world,
+                dev, backend, process_group.host_process_count(),
+                torch.cuda.device_count())
+    return dict(process_id=rank, num_processes=world, backend=backend,
+                device=str(dev))
 
 
 def _flags(d: Dict) -> List[str]:

@@ -9,14 +9,22 @@ Modes:
                 from its first unfinished coordinate
   in_memory   — the whole coordinate descent in one process with the score
                 ledger in memory, no stage files (workflow/pipeline.py)
+  distributed — join the job the environment names (COORDINATOR_ADDRESS /
+                NUM_PROCESSES / PROCESS_ID, or torchrun's) and run
+                single_node in every process: the train stages in every
+                process, the set-up and the data jobs on the chief
+                (workflow/single_node.py, ROADMAP C.14)
   dag         — generate the job DAG and EXECUTE it: one subprocess per
                 job on this package's CLIs, dependency-ordered, up to
                 --max_parallel at once (workflow/distributed.py)
-With --compile_dag_to the DAG is written as JSON instead of run. The
-`distributed` and `kubernetes` modes raise: they are ROADMAP A.6b. Every
-mode runs on the first card and raises without one; `--device cpu` runs
-the plain kernel versions on the CPU (in dag mode: each train job gets
---device).
+  kubernetes  — compile the DAG to batch/v1 Job manifests (+ headless
+                Services for multi-host trainer stages) under
+                --k8s_output_dir; with --launch, drive them through kubectl
+                in dependency order (workflow/k8s.py)
+With --compile_dag_to the DAG is written as JSON instead of run. Every
+mode runs on a card (the first, or in `distributed` the process's) and
+raises without one; `--device cpu` runs the plain kernel versions on the
+CPU (in dag mode: each train job gets --device).
 """
 from __future__ import annotations
 
@@ -30,12 +38,6 @@ logging.basicConfig(
     datefmt="%Y/%m/%d %I:%M:%S", level=logging.INFO)
 logger = logging.getLogger(__name__)
 
-_NOT_PORTED = {
-    "distributed": "ROADMAP A.6b: --mode distributed",
-    "kubernetes": "ROADMAP A.6b: --mode kubernetes (workflow/k8s.py)",
-}
-
-
 def get_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="gdmix-tpu workflow "
                                                  "(PyTorch port)")
@@ -43,6 +45,14 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--mode", default="single_node",
                         choices=["single_node", "in_memory", "distributed",
                                  "dag", "kubernetes"])
+    parser.add_argument("--k8s_output_dir", default="k8s-manifests",
+                        help="manifest output directory (kubernetes mode)")
+    parser.add_argument("--launch", action="store_true",
+                        help="kubernetes mode: launch the compiled plan "
+                             "through kubectl and wait for completion")
+    parser.add_argument("--namespace", default=None,
+                        help="kubernetes namespace (kubernetes mode; "
+                             "defaults to the config's k8s_config.namespace)")
     parser.add_argument("--num_sweeps", type=int, default=1,
                         help="coordinate-descent sweeps (in_memory mode)")
     parser.add_argument("--re_mode", default=None,
@@ -76,8 +86,23 @@ def main(args=None) -> dict:
         compile_dag(args.config_path, args.compile_dag_to,
                     device=args.device)
         return {}
-    if args.mode in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[args.mode])
+    if args.mode == "distributed":
+        from gdmix_tpu_torch.workflow.distributed import \
+            maybe_initialize_distributed
+        maybe_initialize_distributed(args.device)
+    if args.mode == "kubernetes":
+        from gdmix_tpu_torch.workflow.k8s import compile_kubernetes, \
+            launch_dag
+        overrides = {"namespace": args.namespace} if args.namespace else {}
+        plan = compile_kubernetes(args.config_path, args.k8s_output_dir,
+                                  **overrides)
+        if args.launch:
+            order = launch_dag(args.k8s_output_dir)
+            logger.info("kubernetes plan complete: %s", order)
+            return {"jobs": order}
+        logger.info("compiled %d jobs to %s (use --launch to run)",
+                    len(plan), args.k8s_output_dir)
+        return {"jobs": [j["name"] for j in plan]}
     if args.mode == "dag":
         from gdmix_tpu_torch.device import resolve_device
         from gdmix_tpu_torch.workflow.config import WorkflowConfig
@@ -100,7 +125,9 @@ def main(args=None) -> dict:
             run_gdmix_single_node
         metrics = run_gdmix_single_node(args.config_path, resume=args.resume,
                                         device=args.device)
+    from gdmix_tpu_torch.gdmix import kernel_launches
     logger.info("workflow metrics: %s", json.dumps(metrics))
+    logger.info("kernel launches: %s", json.dumps(kernel_launches()))
     return metrics
 
 

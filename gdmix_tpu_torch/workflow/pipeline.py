@@ -1,6 +1,6 @@
 """In-memory coordinate-descent pipeline: NO file I/O between coordinates.
 
-Port of gdmix_tpu/workflow/pipeline.py on one device. Where GDMix writes
+Port of gdmix_tpu/workflow/pipeline.py. Where GDMix writes
 scores/partitions/offsets to HDFS between every stage, here the uid-keyed
 score ledger lives in memory, the offset update (OffsetUpdater semantics) is
 a vectorized join, entity grouping is an in-process sort, and each
@@ -17,14 +17,23 @@ plane (numpy grouping + bucketize) or the entity-sharded plane (records
 routed to the mesh shard owning their entity, grouped and packed on the
 device: fit_records_sharded).
 
-Not ported (raises NotImplementedError naming its ROADMAP item): every
-multi-process run (A.6b).
+Across processes (a process group joined by workflow/distributed.py;
+gdmix_tpu/workflow/pipeline.py:121-140, :196-300) every process holds the
+full data in memory. The fixed effect fits on this process's rows
+(rank::nproc) with the all-reduce of models/fixed_effect_lr.py and scores
+every row. Random-effect entities are owned round-robin by the processes
+(the host plane over the grouped entity list, the sharded plane over the
+factorized ids, routed over the process's local mesh); each process fits
+its own and the partial models are merged through the model-file exchange:
+one avro a process under <models>/.exchange-sweep<n>, a barrier, then
+everyone reads everyone's. The chief alone writes the final artifacts.
 """
 from __future__ import annotations
 
 import json
 import logging
 import os
+import time
 from dataclasses import dataclass, field
 from typing import Dict, Optional
 
@@ -32,16 +41,18 @@ import numpy as np
 
 from gdmix_tpu_torch import constants
 from gdmix_tpu_torch.data.evaluator import EVAL_SUMMARY_JSON
+from gdmix_tpu_torch.data.bucketing import select_entities
 from gdmix_tpu_torch.data.partitioner import PartitionerConfig, \
-    assign_group_ids, group_flat
-from gdmix_tpu_torch.drivers.driver import process_index_and_count
+    assign_group_ids, factorize_entities, group_flat
 from gdmix_tpu_torch.io import fs
 from gdmix_tpu_torch.io.input_pipeline import (PerRecordData,
                                                read_per_record, slice_rows)
 from gdmix_tpu_torch.models.fixed_effect_lr import FixedEffectLRModel
 from gdmix_tpu_torch.models.random_effect_lr import RandomEffectLRModel
 from gdmix_tpu_torch.ops.metrics import auc as auc_metric
-from gdmix_tpu_torch.parallel.mesh import get_mesh
+from gdmix_tpu_torch.parallel.mesh import get_mesh, local_mesh
+from gdmix_tpu_torch.parallel.process_group import (barrier,
+                                                    process_index_and_count)
 from gdmix_tpu_torch.params import FixedLRParams, Params, REParams, from_dict
 from gdmix_tpu_torch.workflow.config import METRIC, MODELS, WorkflowConfig
 
@@ -76,16 +87,18 @@ class _Ledger:
 
 class InMemoryPipeline:
     """Runs the fixed effect + random effects with the score ledger in
-    memory, in one process.
+    memory, in one process or in each process of a group.
 
     re_mode selects the random-effect training plane: "host" groups
     entities on the host and solves bucketed batches (fit_groups);
     "sharded" routes each record to the mesh shard owning its entity and
     groups and packs on the device (fit_records_sharded); "auto" takes
     "sharded" on a mesh of more than one device (parallel/mesh.get_mesh:
-    every visible card) when the feature bag is rectangular, and "host"
-    otherwise, as the JAX package's auto does. The fixed effect runs on
-    the first card either way."""
+    every visible card; across processes the process's local_mesh) when
+    the feature bag is rectangular, and "host" otherwise, as the JAX
+    package's auto does. The fixed effect runs on the process's card
+    either way. `exchanges` records each model-file exchange: coordinate,
+    sweep, files read, seconds."""
 
     def __init__(self, config: WorkflowConfig, num_sweeps: int = 1,
                  re_mode: str = "auto", device=None):
@@ -96,13 +109,36 @@ class InMemoryPipeline:
         self.num_sweeps = num_sweeps
         self.device = device
         self.metrics: Dict[str, float] = {}
+        self.exchanges = []
+
+    def _exchange_re_models(self, model_dir: str, sweep: int, name: str,
+                            partial, model) -> Dict:
+        """Multi-process model merge (gdmix_tpu/workflow/pipeline.py:
+        121-140): each process owns a disjoint entity subset (round-robin ≡
+        random_effect_driver.py:60-68 partition assignment), writes its
+        partial avro, waits at a barrier for every process's, and reads
+        them all — the reference's partition-model-files contract, with the
+        filesystem as the exchange fabric."""
+        rank = process_index_and_count()[0]
+        t0 = time.perf_counter()
+        ex_dir = os.path.join(model_dir, f".exchange-sweep{sweep}")
+        fs.makedirs(ex_dir, exist_ok=True)
+        model._save_model(os.path.join(ex_dir, f"part-{rank:05d}.avro"),
+                          partial)
+        barrier()
+        merged: Dict = {}
+        files = sorted(f for f in fs.listdir(ex_dir) if f.endswith(".avro"))
+        for f in files:
+            merged.update(model._load_weights(os.path.join(ex_dir, f)))
+        seconds = time.perf_counter() - t0
+        self.exchanges.append(dict(coordinate=name, sweep=sweep,
+                                   files=len(files), seconds=seconds))
+        logger.info("model exchange %s sweep %d: %d files, %d models, "
+                    "%.3f s", name, sweep, len(files), len(merged), seconds)
+        return merged
 
     def run(self) -> Dict[str, float]:
-        _, nproc = process_index_and_count()
-        if nproc > 1:
-            raise NotImplementedError(
-                f"ROADMAP A.6b: multi-process in-memory pipeline ({nproc} "
-                "processes)")
+        rank, nproc = process_index_and_count()
         cfg = self.config
         (fe_name, fe_raw), = cfg.fixed_effect_config.items()
         fe_config = dict(fe_raw)
@@ -166,20 +202,24 @@ class InMemoryPipeline:
                                  max_samples=max_samples, weights={}))
 
         # multi-sweep device reuse: only the offset column changes between
-        # sweeps (see FixedEffectLRModel._device_batch), so the fit and the
-        # training-set scoring share ONE cache and one device copy of the
-        # static columns
+        # sweeps (see FixedEffectLRModel._device_batch). In one process the
+        # fit and the training-set scoring share ONE cache and one device
+        # copy of the static columns; across processes the fit sees this
+        # process's rows only, so the two get a cache each
         fe_caches = {"fit": {}, "valid": {}}
+        fe_caches["score_train"] = fe_caches["fit"] if nproc == 1 else {}
         for sweep in range(self.num_sweeps):
             logger.info("=== coordinate-descent sweep %d ===", sweep + 1)
             # ---- fixed effect ----
             self._set_offsets(fe_train, train_ledger, fe_name,
                               fe_model_params.offset_column_name, uid_col)
             warm = fe_model.model_coefficients if sweep else None
-            fe_model.fit_data(fe_train, fe_params, warm_start=warm,
+            fe_fit_view = fe_train if nproc == 1 else slice_rows(
+                fe_train, np.arange(rank, fe_train.num_samples, nproc))
+            fe_model.fit_data(fe_fit_view, fe_params, warm_start=warm,
                               device_cache=fe_caches["fit"])
-            tr_scores = fe_model.score_data(fe_train, fe_params,
-                                            device_cache=fe_caches["fit"])
+            tr_scores = fe_model.score_data(
+                fe_train, fe_params, device_cache=fe_caches["score_train"])
             train_ledger.apply_coordinate(fe_name, tr_scores["uid"],
                                           tr_scores["per_coordinate"])
             if fe_valid is not None:
@@ -214,16 +254,38 @@ class InMemoryPipeline:
                 # cross to the device (RandomEffectLRModel.
                 # _bucket_device_arrays; on the sharded plane only the
                 # offsets are routed again)
+                cache = item.setdefault("dev_cache", {})
                 if self._use_sharded_re(item["train"]):
-                    item["weights"] = model.fit_records_sharded(
-                        self._active_records(item["train"], pcfg), params,
-                        model_weights=item["weights"],
-                        device_cache=item.setdefault("dev_cache", {}))
+                    records = self._active_records(item["train"], pcfg)
+                    mesh = None
+                    if nproc > 1:
+                        # round-robin entity OWNERSHIP across processes,
+                        # routing within the process's local mesh
+                        uniq, inv = factorize_entities(
+                            records.columns[mp.partition_entity])
+                        owned = (np.arange(len(uniq)) % nproc) == rank
+                        records = slice_rows(records,
+                                             np.flatnonzero(owned[inv]))
+                        mine, mesh = uniq[owned], local_mesh(
+                            device=self.device)
+                    fitted = model.fit_records_sharded(
+                        records, params, model_weights=item["weights"],
+                        mesh=mesh, device_cache=cache)
                 else:
                     groups = self._group_active(item["train"], pcfg)
-                    item["weights"] = model.fit_groups(
-                        groups, item["weights"], params,
-                        device_cache=item.setdefault("dev_cache", {}))
+                    if nproc > 1:
+                        # round-robin ownership over the (identical) full
+                        # entity list
+                        groups = select_entities(
+                            groups, np.arange(rank, len(groups), nproc))
+                        mine = groups.entity_ids
+                    fitted = model.fit_groups(groups, item["weights"],
+                                              params, device_cache=cache)
+                if nproc > 1:
+                    fitted = dict(item["weights"], **self._exchange_re_models(
+                        os.path.join(cfg.output_dir, name, MODELS), sweep,
+                        name, {eid: fitted[eid] for eid in mine}, model))
+                item["weights"] = fitted
 
                 # score ALL training rows (active + passive) for the ledger:
                 # one sparse record join, no re-grouping
@@ -244,17 +306,20 @@ class InMemoryPipeline:
                         valid_ledger.total,
                         self._labels(item["valid"], params)))
 
-        # ---- persist final artifacts ----
-        fs.makedirs(os.path.join(cfg.output_dir, fe_name, MODELS),
-                    exist_ok=True)
-        fe_model._save_model()
-        self._write_metric(fe_name)
-        for item in re_items:
-            model_dir = os.path.join(cfg.output_dir, item["name"], MODELS)
-            fs.makedirs(model_dir, exist_ok=True)
-            item["model"]._save_model(
-                os.path.join(model_dir, "part-00000.avro"), item["weights"])
-            self._write_metric(item["name"])
+        # ---- persist final artifacts (the chief only across processes) ----
+        if rank == 0:
+            fs.makedirs(os.path.join(cfg.output_dir, fe_name, MODELS),
+                        exist_ok=True)
+            fe_model._save_model()
+            self._write_metric(fe_name)
+            for item in re_items:
+                model_dir = os.path.join(cfg.output_dir, item["name"],
+                                         MODELS)
+                fs.makedirs(model_dir, exist_ok=True)
+                item["model"]._save_model(
+                    os.path.join(model_dir, "part-00000.avro"),
+                    item["weights"])
+                self._write_metric(item["name"])
         return dict(self.metrics)
 
     # ------------------------------------------------------------------ utils --
@@ -283,10 +348,13 @@ class InMemoryPipeline:
         """The plane of a random-effect coordinate (gdmix_tpu/workflow/
         pipeline.py:105-118): "auto" takes the sharded plane when the bag
         is rectangular (an intercept-only coordinate, indices None, keeps
-        the host grouping) AND the mesh has more than one device."""
+        the host grouping) AND the mesh has more than one device: get_mesh
+        in one process, the process's local_mesh across processes."""
         if self.re_mode == "auto":
-            return (data.indices is not None
-                    and get_mesh(device=self.device).size > 1)
+            mesh = (get_mesh(device=self.device)
+                    if process_index_and_count()[1] == 1
+                    else local_mesh(device=self.device))
+            return data.indices is not None and mesh.size > 1
         return self.re_mode == "sharded"
 
     @staticmethod

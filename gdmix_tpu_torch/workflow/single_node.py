@@ -14,9 +14,17 @@ The score-residual handoff between coordinates stays the reference's directory
 contract: <coordinate>/{models,metric,train_scores,validation_scores,partition}.
 Every directory operation goes through the filesystem seam (io/fs), so a
 remote `output_dir` is cleared and written where it lies. Both models run
-on one device: the first card, or the CPU when it is asked for. Each
-coordinate logs its partition, train and evaluate seconds (the record's
-`stage_seconds`).
+on one device a process: the process's card, or the CPU when it is asked
+for. Each coordinate logs its partition, train and evaluate seconds (the
+record's `stage_seconds`).
+
+In every process of a group (`--mode distributed`) the train stages run in
+every process (the fixed effect's file or sample shards, the random
+effect's partitions round-robin), while the set-up of each coordinate's
+tree and the data jobs (partitioner, evaluator) run on the chief alone,
+each followed by a barrier; the other processes read the chief's
+evalSummary.json. The JAX package runs those in every process, and they
+race on one tree (ROADMAP C.14).
 """
 from __future__ import annotations
 
@@ -38,6 +46,8 @@ from gdmix_tpu_torch.models.deep_tower import DeepTowerModel, \
     DeepTowerParams
 from gdmix_tpu_torch.models.fixed_effect_lr import FixedEffectLRModel
 from gdmix_tpu_torch.models.random_effect_lr import RandomEffectLRModel
+from gdmix_tpu_torch.parallel.process_group import (barrier,
+                                                    process_index_and_count)
 from gdmix_tpu_torch.params import FixedLRParams, Params, REParams, from_dict
 from gdmix_tpu_torch.workflow.config import (METRIC, MODELS, PARTITION,
                                              TRAINING_SCORES,
@@ -73,12 +83,27 @@ def _completed_metric(output_dir: str, metric: str):
         return None
 
 
+def _on_chief(fn) -> None:
+    """Run `fn` on the chief alone, then wait for every process (C.14);
+    just `fn` in one process."""
+    if process_index_and_count()[0] == 0:
+        fn()
+    barrier()
+
+
 def _evaluate(output_dir: str, params: Params, metric: str) -> float:
-    return run_evaluator(
+    """The evaluator job on the chief; every process returns the value the
+    chief wrote to evalSummary.json."""
+    barrier()   # every process's validation scores are written
+    _on_chief(lambda: run_evaluator(
         os.path.join(output_dir, VALIDATION_SCORES),
         os.path.join(output_dir, METRIC), params.label_column_name,
         params.prediction_score_column_name, metric,
-        schema_params=params)[metric]
+        schema_params=params))
+    value = _completed_metric(output_dir, metric)
+    if value is None:
+        raise RuntimeError(f"no {metric} in {output_dir}/{METRIC}")
+    return value
 
 
 def _log_stages(kind: str, name: str, metric: str, value: float,
@@ -108,7 +133,7 @@ def run_fixed_effect(config: WorkflowConfig, resume: bool = False,
             logger.info("resume: fixed effect %s already complete (%s = %s)",
                         name, metric, done)
             return {name: done}
-    _create_subdirs(output_dir)
+    _on_chief(lambda: _create_subdirs(output_dir))
 
     t0 = time.perf_counter()
     base_params = from_dict(Params, {
@@ -158,11 +183,15 @@ def run_random_effects(config: WorkflowConfig, prev_model_name: str,
                 metrics[name] = done
                 prev_model_name = name
                 continue
-        _create_subdirs(output_dir)
-        for score_name in (TRAINING_SCORES, VALIDATION_SCORES):
-            for idx in range(num_partitions):
-                fs.makedirs(os.path.join(output_dir, score_name,
-                                         f"partitionId={idx}"), exist_ok=True)
+
+        def set_up():
+            _create_subdirs(output_dir)
+            for score_name in (TRAINING_SCORES, VALIDATION_SCORES):
+                for idx in range(num_partitions):
+                    fs.makedirs(os.path.join(output_dir, score_name,
+                                             f"partitionId={idx}"),
+                                exist_ok=True)
+        _on_chief(set_up)
 
         # ---- partition job (DataPartitioner equivalent) ----
         t0 = time.perf_counter()
@@ -182,7 +211,7 @@ def run_random_effects(config: WorkflowConfig, prev_model_name: str,
             prediction_score_column_name=gdmix_config.get(
                 "prediction_score_column_name", "predictionScore"),
         )
-        run_partitioner(
+        _on_chief(lambda: run_partitioner(
             training_data_dir=re_config["training_data_dir"],
             validation_data_dir=re_config.get("validation_data_dir"),
             metadata_file=re_config["metadata_file"],
@@ -192,7 +221,7 @@ def run_random_effects(config: WorkflowConfig, prev_model_name: str,
             output_partition_list_file=partition_list_file,
             config=cfg, feature_bag=re_config.get("feature_bag"),
             training_score_dir=os.path.join(prev_dir, TRAINING_SCORES),
-            validation_score_dir=os.path.join(prev_dir, VALIDATION_SCORES))
+            validation_score_dir=os.path.join(prev_dir, VALIDATION_SCORES)))
 
         # ---- train job ----
         t1 = time.perf_counter()

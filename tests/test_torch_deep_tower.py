@@ -408,19 +408,19 @@ def test_checkpoint_on_a_remote_scheme(detext_data, trained, tmp_path,
 
 
 def test_refusals(detext_data, tmp_path, monkeypatch):
-    """num_workers > 1 raises ROADMAP A.6 in train and predict; a
+    """Across processes a batch size the process count does not divide
+    raises, as in the JAX package (deep_tower.py:298; more than one worker
+    now trains: tests/test_torch_multiprocess_deep_tower.py); a
     transformer over two text columns raises ROADMAP C.11 at construction
     (the JAX package cannot build it); without a card and without the CPU
     asked for, the model raises like the rest of the port."""
-    model = _port_model(detext_data, str(tmp_path))
-    ctx = dict(CTX, **{constants.NUM_WORKERS: 2})
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        model.train(model.training_data_dir, None, model.metadata_file,
-                    model.checkpoint_path, ctx, model.base_params)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        model.predict(str(tmp_path), model.validation_data_dir,
-                      model.metadata_file, model.checkpoint_path, ctx,
-                      model.base_params)
+    model = _port_model(detext_data, str(tmp_path), batch_size=256)
+    ctx = dict(CTX, **{constants.NUM_WORKERS: 3})
+    with monkeypatch.context() as m:
+        m.setattr(tdt, "process_index_and_count", lambda: (0, 3))
+        with pytest.raises(ValueError, match="256 % 3"):
+            model.train(model.training_data_dir, None, model.metadata_file,
+                        model.checkpoint_path, ctx, model.base_params)
     with pytest.raises(ValueError, match="ROADMAP C.11"):
         _port_model(detext_data, str(tmp_path), ftr_ext="transformer",
                     doc_text_columns="doc_query,doc_query")

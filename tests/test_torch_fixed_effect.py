@@ -227,24 +227,30 @@ def test_out_of_range_feature_id_raises(tmp_path, bad_id):
 
 
 @pytest.mark.parametrize("over,ctx,item", [
-    # the A.9 case keeps its id: it now asserts that the option trains
-    pytest.param(dict(stream_chunk_rows=64), {}, None, id="over0-ctx0-A.9"),
-    (dict(), {constants.NUM_WORKERS: 2}, "A.6"),
+    # the A.9 and A.6 cases keep their ids: they now assert that the
+    # option trains
+    pytest.param(dict(stream_chunk_rows=64), {}, "A.9", id="over0-ctx0-A.9"),
+    pytest.param(dict(), {constants.TASK_INDEX: 1, constants.NUM_WORKERS: 2},
+                 "A.6", id="over1-ctx1-A.6"),
 ])
 def test_unported_options_raise(tmp_path, over, ctx, item):
-    """Multi-process training raises, naming its ROADMAP item. Streaming
-    (item None), once on this list, now trains: in two chunks of 64 rows
-    here, to a converged model of the bag's width."""
+    """Streaming and a worker of several (items A.9, A.6), once on this
+    list, now train. Streamed: in two chunks of 64 rows here, to a
+    converged model of the bag's width. Worker 1 of 2 with no process
+    group: on its sample shard of the one file (rows 1::2), to the model a
+    one-process fit of those rows gives (tests/test_torch_multiprocess_fe.py
+    holds the two-process fit)."""
     ds = _make_dataset(tmp_path)
     mp, bp = _port_params(ds, **over)
     tm = TorchFE(mp, bp, device="cpu")
-    train = lambda: tm.train(mp.training_data_dir, None, ds["md_file"],
-                             mp.output_model_dir,
-                             {constants.TASK_INDEX: 0, **ctx}, bp)
-    if item is None:
-        train()
-        assert tm.last_ingest["chunks"] == 2 and tm.last_fit["converged"]
-        assert tm.model_coefficients.shape == (tm._dim,)
+    tm.train(mp.training_data_dir, None, ds["md_file"], mp.output_model_dir,
+             {constants.TASK_INDEX: 0, **ctx}, bp)
+    assert tm.last_fit["converged"]
+    assert tm.model_coefficients.shape == (tm._dim,)
+    if item == "A.9":
+        assert tm.last_ingest["chunks"] == 2
         return
-    with pytest.raises(NotImplementedError, match=item):
-        train()
+    batch, uid, n = tm._train_batch_cache
+    assert n == len(uid) == ds["X"].shape[0] // 2
+    np.testing.assert_array_equal(uid, np.arange(1, ds["X"].shape[0], 2))
+    assert tm.last_fit["allreduce_calls"] == 0

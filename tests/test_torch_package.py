@@ -81,6 +81,7 @@ MECHANICAL = [
     "util/model_utils.py", "data/evaluator.py",
     "workflow/__init__.py", "workflow/config.py",
     "data/model_splitter.py", "data/best_model.py", "workflow/jobs.py",
+    "workflow/k8s.py",
 ]
 
 # The deliberate edits, (original, copy) after the prefix rewrite.
@@ -392,6 +393,81 @@ def find_files(path: str, suffix: str = "") -> List[str]:
          '                stack.append(full)\n'
          '            else:\n'
          '                yield full\n'),
+    ],
+    # the manifests of a GPU job: trainer pods request nvidia.com/gpu cards
+    # (one process a pod, joined by torch.distributed) in place of TPU
+    # chips, and carry no GKE TPU node selectors
+    "workflow/k8s.py": [
+        ("""\"\"\"Kubernetes workflow surface: TPU-native manifests + a kubectl launcher.
+
+The reference ships""",
+         """\"\"\"Kubernetes workflow surface: GPU manifests + a kubectl launcher.
+
+Port of gdmix_tpu/workflow/k8s.py.
+
+The reference ships"""),
+        ("""launch_crd.py:25-152, launch_tfjob.py:36-148). The TPU-native equivalent
+needs neither custom resources nor operator installs:
+
+* every trainer stage is ONE SPMD program per host, so a multi-host stage is a
+  plain `batch/v1` Job with `completionMode: Indexed` — the pod's
+  JOB_COMPLETION_INDEX is `jax.process_index()`, and a headless Service gives
+  index 0 a stable DNS name for `jax.distributed.initialize` (the same env
+  contract as distributed.maybe_initialize_distributed);""",
+         """launch_crd.py:25-152, launch_tfjob.py:36-148). The equivalent here
+needs neither custom resources nor operator installs:
+
+* every trainer stage is one process per pod joined into one job by
+  torch.distributed, so a multi-host stage is a
+  plain `batch/v1` Job with `completionMode: Indexed` — the pod's
+  JOB_COMPLETION_INDEX is its rank, and a headless Service gives
+  index 0 a stable DNS name for the process group's rendezvous (the same env
+  contract as distributed.maybe_initialize_distributed);"""),
+        ("# stage types that run the SPMD trainer (may span hosts)",
+         "# stage types that run the trainer (may span hosts)"),
+        ("""                 tpu_resource: str = "google.com/tpu",
+                 tpu_chips_per_host: int = 4,
+                 tpu_accelerator: Optional[str] = None,
+                 tpu_topology: Optional[str] = None,
+""",
+         """                 gpu_resource: str = "nvidia.com/gpu",
+                 gpus_per_host: int = 1,
+"""),
+        ("""    `gdmix_tpu_torch.workflow.distributed.maybe_initialize_distributed` consumes.
+    TPU pods carry the GKE node selectors + `google.com/tpu` chip requests
+    (the accelerator/topology pair selects the slice shape).
+""",
+         """    `gdmix_tpu_torch.workflow.distributed.maybe_initialize_distributed` consumes.
+    Trainer pods request `gpus_per_host` cards of `gpu_resource`.
+"""),
+        ("""    node_selector: Dict[str, str] = {}
+    if is_trainer:
+        resources["limits"][tpu_resource] = tpu_chips_per_host
+        resources["requests"][tpu_resource] = tpu_chips_per_host
+        if tpu_accelerator:
+            node_selector["cloud.google.com/gke-tpu-accelerator"] = \\
+                tpu_accelerator
+        if tpu_topology:
+            node_selector["cloud.google.com/gke-tpu-topology"] = tpu_topology
+""",
+         """    if is_trainer:
+        resources["limits"][gpu_resource] = gpus_per_host
+        resources["requests"][gpu_resource] = gpus_per_host
+"""),
+        ("""                     # workers must resolve pod 0's DNS BEFORE it is Ready
+                     # (jax.distributed.initialize runs at startup on all
+                     # pods at once) — same as StatefulSet/JobSet coordinators""",
+         """                     # workers must resolve pod 0's DNS BEFORE it is Ready
+                     # (the process group forms at startup on all
+                     # pods at once) — same as StatefulSet/JobSet coordinators"""),
+        ('"name": "jax-coordinator"', '"name": "coordinator"'),
+        ("""    if node_selector:
+        pod_spec["nodeSelector"] = node_selector
+""", ""),
+        ("""    (namespace, image, num_hosts, tpu_accelerator, tpu_topology,
+    tpu_chips_per_host, memory, data_volume)""",
+         """    (namespace, image, num_hosts, gpu_resource, gpus_per_host, memory,
+    data_volume)"""),
     ],
 }
 

@@ -104,11 +104,17 @@ def test_cli_in_memory_and_unported_modes(ml_data, tmp_path, monkeypatch):
     metrics = torch_main(["--config_path", cfg_path, "--mode", "in_memory",
                           "--device", "cpu"])
     assert metrics["global"] < metrics["per-user"] < metrics["per-movie"]
-    for mode in ("distributed", "kubernetes"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-            torch_main(["--config_path", cfg_path, "--mode", mode])
-    # single_node (the default) and dag are ported: the CLI hands them to
-    # their runners (tests/test_torch_workflow*.py run them end to end)
+    # kubernetes compiles the DAG's eight jobs to manifests
+    # (tests/test_torch_k8s.py holds them against the JAX package's)
+    k8s = str(tmp_path / "k8s")
+    assert len(torch_main(["--config_path", cfg_path, "--mode",
+                           "kubernetes", "--k8s_output_dir", k8s])[
+        "jobs"]) == 8
+    assert os.path.isfile(os.path.join(k8s, "plan.json"))
+    # single_node (the default), dag and distributed are ported: the CLI
+    # hands them to their runners (tests/test_torch_workflow*.py and
+    # tests/test_torch_multiprocess_pipeline.py run them end to end);
+    # distributed with no job in the environment is one process
     from gdmix_tpu_torch.workflow import distributed, single_node
     calls = []
     monkeypatch.setattr(single_node, "run_gdmix_single_node",
@@ -117,11 +123,15 @@ def test_cli_in_memory_and_unported_modes(ml_data, tmp_path, monkeypatch):
     monkeypatch.setattr(distributed, "execute_job_dag",
                         lambda dag, max_parallel: calls.append(
                             ("dag", len(dag), max_parallel)) or [])
+    for var in ("COORDINATOR_ADDRESS", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
     for argv in ([], ["--mode", "single_node", "--resume"],
-                 ["--mode", "dag", "--max_parallel", "2"]):
+                 ["--mode", "dag", "--max_parallel", "2"],
+                 ["--mode", "distributed"]):
         torch_main(["--config_path", cfg_path, "--device", "cpu"] + argv)
     assert calls == [("single_node", False, "cpu"),
-                     ("single_node", True, "cpu"), ("dag", 8, 2)]
+                     ("single_node", True, "cpu"), ("dag", 8, 2),
+                     ("single_node", False, "cpu")]
     # --re_mode sharded, once refused, trains: the AUC ladder climbs
     metrics = torch_main(["--config_path", cfg_path, "--mode", "in_memory",
                           "--re_mode", "sharded", "--device", "cpu"])
