@@ -172,9 +172,23 @@ Phases, each printing one result line; any failure exits non-zero:
                 chunks of 1,048,576 rows; `workflow.main --mode
                 distributed` against the single-node run. Every process's
                 kernel launches add to the kernels line.
+ 10. bench    — `python -m gdmix_tpu_torch.bench` at its full defaults in a
+                fresh process (the JAX bench's workloads and line through
+                the port): exit 0, every key of the line, every rate > 0,
+                no expired budget, converged ≥ 0.999 on every RE line; its
+                kernel launches (its bench[kernels] line) add to the
+                kernels line.
+     prewarm  — tools/prewarm at its defaults with GDMIX_TPU_COMPILE_CACHE
+                an empty directory (every CUDA library built there, the
+                ladder fit twice on the sharded plane), then a fresh
+                process that fits the primary over that directory and
+                builds nothing (0.0 s for every CUDA and native library),
+                its second fit under util/timing's device_profile (a trace
+                with kernel events), beside a cold process over another
+                empty directory whose first fit includes its nvcc.
 Launch counts are zeroed just before each main-path run (4, wide, 5,
 wide_d, 6, single_node, sharded, multiprocess — in each child process —,
-stream, detext) and read just after. Then one JSON line of per-kernel results
+stream, detext, bench and prewarm in theirs) and read just after. Then one JSON line of per-kernel results
 and, last, the device line. Exits non-zero without a result when no card is present.
 Imports no JAX.
 """
@@ -279,30 +293,13 @@ def lr_problem(B, n, dim, seed):
     return X, y, w, off, cnt.astype(np.float32)
 
 
-def make_workload_flat(num_entities, seed=0, d=24, max_nnz=4, count_lo=2,
-                       count_hi=64, pareto_a=1.5):
-    """The primary random-effect workload as a columnar FlatGroups:
-    long-tail (pareto) per-entity sample counts, sparse records over a
-    d-wide feature bag, labels from a per-entity logistic model."""
-    from gdmix_tpu_torch.data.bucketing import FlatGroups
-    rng = np.random.RandomState(seed)
-    counts = np.clip((rng.pareto(pareto_a, num_entities) * 8
-                      + count_lo).astype(int), count_lo, count_hi)
-    total = int(counts.sum())
-    idx_all = rng.randint(0, d, size=(total, max_nnz)).astype(np.int32)
-    val_all = rng.randn(total, max_nnz)
-    nnz_all = rng.randint(1, max_nnz + 1, size=total).astype(np.int32)
-    mask = np.arange(max_nnz)[None, :] < nnz_all[:, None]
-    val_all = val_all * mask
-    w_true = np.repeat(rng.randn(num_entities), counts)
-    z = val_all.sum(1) * 0.5 + w_true
-    y_all = (rng.rand(total) < 1 / (1 + np.exp(-z))).astype(np.float64)
-    return FlatGroups(
-        entity_ids=np.array([str(e) for e in range(num_entities)], object),
-        counts=counts.astype(np.int64),
-        columns={"uid": np.arange(total, dtype=np.int64), "response": y_all,
-                 "offset": 0.1 * rng.randn(total)},
-        indices=idx_all, values=val_all, rec_nnz=nnz_all)
+def make_workload_flat(*args, **kwargs):
+    """The JAX bench's random-effect workload as a columnar FlatGroups
+    (gdmix_tpu_torch/bench.py make_workload_flat): long-tail (pareto)
+    per-entity sample counts, sparse records over a d-wide feature bag,
+    labels from a per-entity logistic model."""
+    from gdmix_tpu_torch.bench import make_workload_flat as make
+    return make(*args, **kwargs)
 
 
 def support_120_workload():
@@ -357,33 +354,15 @@ def stage_model(d, tmp, dtype="float32", device=None, **over):
 
 
 def fe_problem(ids, seed=0, n=None, dtype=None, d=FE_D):
-    """The JAX bench's FE batch (bench.py:562-582), rebuilt on the card
-    from a seeded torch.Generator: ids uniform on [0, d) or inverse-CDF
-    Zipf(1.2) on [1, d] shifted to 0 (the item-popularity class: id 0 is the
-    hottest), values N(0,1), offsets 0.1·N(0,1), labels Bernoulli(0.5),
-    weight 1."""
+    """The JAX bench's FE batch (bench.py:562-582) on the card, drawn by
+    gdmix_tpu_torch/bench.py fe_batch: ids "uniform" on [0, d) or "zipf",
+    inverse-CDF Zipf(1.2) shifted to 0 (the item-popularity class: id 0 is
+    the hottest); FE_N rows of FE_K entries unless `n` is given."""
     import torch
-    from gdmix_tpu_torch.ops.logistic import SparseBatch
-    dev = torch.device(DEV)
-    n, k = n or FE_N, FE_K
-    dtype = dtype or torch.float32
-    g = torch.Generator(device=dev).manual_seed(seed)
-    if ids == "uniform":
-        idx = torch.randint(0, d, (n, k), generator=g, device=dev,
-                            dtype=torch.int32)
-    else:
-        u = torch.empty(n, k, dtype=torch.float64, device=dev).uniform_(
-            1e-7, 1.0, generator=g)
-        a = 1.0 - 1.2
-        idx = (((1.0 + u * (float(d) ** a - 1.0)) ** (1.0 / a)).long() - 1
-               ).clamp_(0, d - 1).to(torch.int32)
-        del u
-    values = torch.randn(n, k, generator=g, device=dev, dtype=dtype)
-    offsets = 0.1 * torch.randn(n, generator=g, device=dev, dtype=dtype)
-    labels = torch.bernoulli(torch.full((n,), 0.5, device=dev, dtype=dtype),
-                             generator=g)
-    return SparseBatch(idx, values, offsets, labels,
-                       torch.ones(n, device=dev, dtype=dtype))
+    from gdmix_tpu_torch.bench import fe_batch
+    return fe_batch(n or FE_N, d, 0.0 if ids == "uniform" else 1.2,
+                    torch.device(DEV), k=FE_K, seed=seed,
+                    dtype=dtype or torch.float32)
 
 
 def fe_stage_model(tmp, grad_mode, d=FE_D, **over):
@@ -1328,26 +1307,16 @@ def _sync_counted(fn):
     """`fn` run under PyTorch's sync debug mode ("warn"): the wrapper counts
     in `.reads` each device→host synchronisation PyTorch makes inside a
     call (a `.all()` or `.item()` read back, a copy to the host), by the
-    Python line that made it; on a CPU-only PyTorch it counts nothing."""
-    import warnings
+    Python line that made it (gdmix_tpu_torch/bench.py count_syncs); on a
+    CPU-only PyTorch it counts nothing."""
     from collections import Counter
     import torch
-    debug = torch.cuda.is_available()
+    from gdmix_tpu_torch.bench import count_syncs
+    dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
     def counted(*args, **kwargs):
-        with warnings.catch_warnings(record=True) as seen:
-            warnings.simplefilter("always")
-            if debug:
-                torch.cuda.set_sync_debug_mode("warn")
-            try:
-                out = fn(*args, **kwargs)
-            finally:
-                if debug:
-                    torch.cuda.set_sync_debug_mode("default")
-        for w in seen:
-            if "called a synchronizing" in str(w.message):
-                counted.reads[f"{os.path.relpath(w.filename, ROOT)}:"
-                              f"{w.lineno}"] += 1
+        out, lines = count_syncs(lambda: fn(*args, **kwargs), dev)
+        counted.reads.update(lines)
         return out
 
     counted.reads = Counter()
@@ -4332,6 +4301,203 @@ def phase_detext(card, tmp):
     return errs, launches
 
 
+# ------------------------------------------------------ bench, prewarm --
+
+BENCH_TIMEOUT_S = 600
+# the RE lines of the bench: the primary, heavy tail, wide support, the
+# stage's two and the sharded heavy tail
+BENCH_RE_LINES = 6
+PREWARM_TIMEOUT_S = 600
+
+
+def _port_env(**extra):
+    """This environment with the checkout on PYTHONPATH, the compile-cache
+    variable dropped, then `extra` set."""
+    env = {k: v for k, v in os.environ.items()
+           if k != "GDMIX_TPU_COMPILE_CACHE"}
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p)
+    env.update(extra)
+    return env
+
+
+def _run(argv, what, timeout, **env):
+    """(stdout, stderr, wall seconds) of argv in a fresh process from the
+    checkout; a non-zero exit or a timeout fails the smoke, and the process
+    is gone on return."""
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(argv, cwd=ROOT, env=_port_env(**env),
+                              capture_output=True, text=True,
+                              timeout=timeout)
+    except subprocess.TimeoutExpired as e:
+        raise SystemExit(f"chip_smoke: FAILED: {what} outlived {timeout}s: "
+                         f"{(e.stderr or b'')[-3000:]!r}")
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:], proc.stderr[-6000:], flush=True)
+    _check(proc.returncode == 0, f"{what} exited {proc.returncode}")
+    return proc.stdout, proc.stderr, wall
+
+
+def phase_bench(card):
+    """`python -m gdmix_tpu_torch.bench` at its full defaults in a fresh
+    process: its one JSON line (every key of the JAX bench's but
+    fe_speedup_vs_round1, every rate > 0), no expired budget, converged ≥
+    0.999 on every RE line; returns its kernel launches (its bench[kernels]
+    line: a fresh process, its counters from 0)."""
+    import re
+    import torch
+    from gdmix_tpu_torch import bench
+    out, err, wall = _run([sys.executable, "-m", "gdmix_tpu_torch.bench"],
+                          "bench", BENCH_TIMEOUT_S)
+    for ln in err.splitlines():
+        if ln.startswith("bench"):
+            print(f"  {ln}")
+    _check("BUDGET EXPIRED" not in err, "bench: the budget expired")
+    line = json.loads(out.strip().splitlines()[-1])
+    print(json.dumps(line), flush=True)
+    _check(set(line) == {"metric", "value", "unit", "vs_baseline",
+                         "submetrics", "device"},
+           f"bench: line keys {sorted(line)}")
+    _check(line["metric"] == bench.METRIC and line["value"] > 0,
+           f"bench: primary {line['value']}")
+    sub = line["submetrics"]
+    _check(set(sub) == set(bench.SUBMETRICS),
+           f"bench: submetrics {sorted(set(sub) ^ set(bench.SUBMETRICS))}")
+    decomp = sub["re_stage_decomposition"]
+    rates = {k: v for k, v in sub.items() if k != "re_stage_decomposition"}
+    rates.update({f"decomposition.{k}": decomp[k] for k in (
+        "wall_s", "warm_fit_s", "bytes_up", "bytes_down",
+        "serial_link_s_est")})
+    low = {k: v for k, v in rates.items() if not v > 0}
+    _check(not low, f"bench: not positive: {low}")
+    conv = [float(c) for c in re.findall(r"converged ([0-9.]+)", err)]
+    _check(len(conv) >= BENCH_RE_LINES and min(conv) >= 0.999,
+           f"bench: converged {conv}")
+    _check(line["device"] != "cpu"
+           and line["device"]["kind"] == torch.cuda.get_device_name(0),
+           f"bench: device {line['device']}")
+    launches = _log_json(err, "bench[kernels]: ")
+    smi = err.rsplit("bench[device]: ", 1)[1].splitlines()[0]
+    _say("bench", wall_s=f"{wall:.1f}", converged=conv, launches=launches,
+         bench_device=repr(smi), card=repr(card))
+    return launches
+
+
+def _fit_child(args):
+    """A fresh process of the prewarm phase: the primary workload's first
+    fit_flat on the card (its nvcc builds, where the compile cache lacks
+    them, inside the wall), then a second under util/timing's phase and
+    device_profile (a torch.profiler trace); with "all", every library of
+    the port loaded after (tools/prewarm.compile_libraries). One `RESULT
+    {json}` line."""
+    import torch
+    from gdmix_tpu_torch.gdmix import kernel_launches
+    from gdmix_tpu_torch.ops import _cuda
+    from gdmix_tpu_torch.tools.prewarm import compile_libraries
+    from gdmix_tpu_torch.util.timing import (device_profile,
+                                             nominal_dispatch_latency_s,
+                                             phase)
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr)
+    fg = make_workload_flat(100_000, seed=0)
+    with tempfile.TemporaryDirectory(prefix="gdx_smoke_fit_") as tmp:
+        model, schema = stage_model(24, tmp, device=DEV)
+        t0 = time.perf_counter()
+        model.fit_flat(fg, {}, schema)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        fit_builds = dict(_cuda.build_seconds)
+        trace_dir = os.path.join(tmp, "trace")
+        t0 = time.perf_counter()
+        with phase("second fit"), device_profile(trace_dir):
+            model.fit_flat(fg, {}, schema)
+            torch.cuda.synchronize()
+        second_s = time.perf_counter() - t0
+        traces = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+        kernel_events = 0
+        for f in traces:
+            with open(f) as fh:
+                kernel_events += fh.read().count('"cat": "kernel"')
+        converged = model.last_fit_converged
+    res = dict(first_fit_s=first_s, second_fit_s=second_s,
+               fit_build_seconds=fit_builds, build_dir=_cuda.BUILD_DIR,
+               converged=converged, traces=len(traces),
+               trace_kernel_events=kernel_events,
+               dispatch_class_s=nominal_dispatch_latency_s(DEV))
+    if args == ["all"]:
+        res.update(compile_libraries(DEV))
+    res["launches"] = kernel_launches()
+    print("RESULT " + json.dumps(res), flush=True)
+
+
+def phase_prewarm(card):
+    """tools/prewarm at its defaults (tiers 8–1,024, the sharded plane
+    twice through a device cache) with GDMIX_TPU_COMPILE_CACHE an empty
+    directory: it builds every CUDA library there; then a fresh process
+    fits the primary over that directory and must build nothing (0.0 s for
+    every CUDA and native library), beside a cold process over another
+    empty directory, whose first fit includes its nvcc. Returns the
+    launches of the three processes."""
+    from gdmix_tpu_torch.ops import _cuda
+    names = set(_cuda.library_names())
+    launches = {}
+
+    def add(ls):
+        for k, v in ls.items():
+            launches[k] = launches.get(k, 0) + v
+    with tempfile.TemporaryDirectory(prefix="gdx_smoke_cache_") as cache, \
+            tempfile.TemporaryDirectory(prefix="gdx_smoke_cold_") as cold:
+        _, err, wall = _run([sys.executable, "-m",
+                             "gdmix_tpu_torch.tools.prewarm"], "prewarm",
+                            PREWARM_TIMEOUT_S, GDMIX_TPU_COMPILE_CACHE=cache)
+        rep = json.loads("{" + err.rsplit("prewarm: {", 1)[1]
+                         .splitlines()[0])
+        add(rep["launches"])
+        _check(rep["build_dir"] == cache and set(rep["cuda"]) == names
+               and all(v > 0 for v in rep["cuda"].values()),
+               f"prewarm: built {rep['cuda']} into {rep['build_dir']}")
+        _check(rep["converged"][0] == rep["converged"][1] == rep["models"],
+               f"prewarm: converged {rep['converged']} of {rep['models']}")
+        _say("prewarm", wall_s=f"{wall:.1f}", models=rep["models"],
+             plane=rep["plane"], build_s=f"{rep['build_s']:.2f}",
+             nvcc={k: round(v, 2) for k, v in rep["cuda"].items()},
+             native=rep["native"], fit_s=f"{rep['fit_s']:.3f}",
+             launches=rep["launches"], card=repr(card))
+        runs = {}
+        for tag, where, args in (("prewarmed", cache, ["all"]),
+                                 ("cold", cold, [])):
+            out, _, wall = _run([sys.executable, os.path.join(
+                ROOT, "chip_smoke.py"), "--fit-child"] + args,
+                f"fit child ({tag})", PREWARM_TIMEOUT_S,
+                GDMIX_TPU_COMPILE_CACHE=where)
+            runs[tag] = r = _log_json(out, "RESULT ")
+            add(r["launches"])
+            _check(r["converged"][0] == r["converged"][1],
+                   f"fit child ({tag}): converged {r['converged']}")
+            _say("prewarm", process=tag, wall_s=f"{wall:.1f}",
+                 first_fit_s=f"{r['first_fit_s']:.3f}",
+                 second_fit_s=f"{r['second_fit_s']:.3f}",
+                 fit_nvcc={k: round(v, 2)
+                           for k, v in r["fit_build_seconds"].items()},
+                 cuda=r.get("cuda"), native=r.get("native"),
+                 traces=r["traces"],
+                 trace_kernel_events=r["trace_kernel_events"],
+                 dispatch_class_s=r["dispatch_class_s"], card=repr(card))
+        warm, cold_r = runs["prewarmed"], runs["cold"]
+        _check(set(warm["cuda"]) == names
+               and all(v == 0.0 for v in warm["cuda"].values())
+               and all(v == 0.0 for v in warm["fit_build_seconds"].values())
+               and all(v == 0.0 for v in warm["native"].values()),
+               f"prewarmed process compiled: {warm['cuda']} "
+               f"{warm['fit_build_seconds']} {warm['native']}")
+        _check(cold_r["fit_build_seconds"].get("newton_lanes", 0) > 0,
+               f"cold process built {cold_r['fit_build_seconds']}")
+        _check(warm["traces"] >= 1 and warm["trace_kernel_events"] > 0,
+               "device_profile wrote no trace with kernel events")
+    return launches
+
+
 KERNELS = (
     ("newton_full", "gdmix_tpu_torch/csrc/newton_lanes.cu",
      "gdmix_tpu/ops/pallas/newton_lanes.py:175"),
@@ -4363,6 +4529,10 @@ def main():
     if sys.argv[1:2] == ["--mp-child"]:
         # a process of the multiprocess phase, started by phase_multiprocess
         _mp_child(sys.argv[2:])
+        return
+    if sys.argv[1:2] == ["--fit-child"]:
+        # a process of the prewarm phase, started by phase_prewarm
+        _fit_child(sys.argv[2:])
         return
     card = phase_device()
     import torch
@@ -4397,6 +4567,9 @@ def main():
         errs, _ = phase_detext(card, tmp)
     for name, err in errs.items():
         res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+    for name, n in list(phase_bench(card).items()) + list(
+            phase_prewarm(card).items()):
+        launches[name] += n
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     rows = [dict(name=name, route="cuda", source=src, replaces=rep,

@@ -242,6 +242,12 @@ def _lbfgs_solver(u_cap, has_intercept, regularize_bias, lam, maxiter, ftol,
     return solve
 
 
+def _nbytes(tensors) -> int:
+    """The bytes of `tensors` in their own types: what a copy of each
+    moves."""
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def _bucket_moved(theta: torch.Tensor, theta0: torch.Tensor) -> torch.Tensor:
     """One device bool per bucket: did the solve move any coefficient off
     its warm start? False: every entity stopped at θ0 and the host rebuilds
@@ -318,6 +324,15 @@ class RandomEffectLRModel(Model):
         # tier as (P·b_cap, n_cap, dim)
         self.last_fit_plane = None
         self.last_fit_sharding = {}
+        # the bytes one fit copied host → device and device → host, on
+        # either plane, reset at each fit (the JAX package's counters,
+        # gdmix_tpu/models/random_effect_lr.py:658). These are the port's
+        # own arrays as they cross, uncompacted and in the model's dtype,
+        # not the JAX package's compacted relay wire, so the two packages'
+        # numbers differ. On the CPU device nothing is copied, and the
+        # same tensors are counted.
+        self.last_fit_bytes_up = 0
+        self.last_fit_bytes_down = 0
 
     # ------------------------------------------------------------------ train --
 
@@ -522,6 +537,7 @@ class RandomEffectLRModel(Model):
         logger.info("Training %d entities", len(groups))
         tt = [("start", time.time())]  # per-phase wall marks
         self.last_fit_plane = "host"
+        self.last_fit_bytes_up = self.last_fit_bytes_down = 0
         bucketize_fn = (iter_bucketize_flat if isinstance(groups, FlatGroups)
                         else bucketize)
         buckets = bucketize_fn(groups, schema_params,
@@ -550,6 +566,7 @@ class RandomEffectLRModel(Model):
         if self.variance_mode is None and len(model_weights):
             moved = _moved_flags([(solved[0], th0)
                                   for _, solved, th0 in pending])
+            self.last_fit_bytes_down += len(pending)  # one bool a bucket
         else:
             moved = [True] * len(pending)
         self.last_fit_skipped = moved.count(False)
@@ -558,10 +575,12 @@ class RandomEffectLRModel(Model):
         for (bucket, (theta, variance, converged), _), mv in zip(pending,
                                                                  moved):
             b_real = len(bucket.entity_ids)
-            n_conv += int(converged[:b_real].sum())
+            n_conv += int(self._fetch(converged[:b_real].sum()))
             n_real += b_real
             tables.append(self._collect_bucket_table(
-                bucket, theta if mv else bucket.theta0, variance))
+                bucket, self._fetch(theta[:b_real]) if mv else bucket.theta0,
+                None if variance is None
+                else self._fetch(variance[:b_real])))
         self.last_fit_converged = (n_conv, n_real)
         self.last_fit_rungs = rungs
         new = ModelTable.concat(tables, has_intercept=self.has_intercept,
@@ -598,7 +617,8 @@ class RandomEffectLRModel(Model):
         shape, entity ids and sample counts; the caller owns the stronger
         invariant that indices, values, labels and weights are unchanged
         (workflow/pipeline.py changes only the offset column). Each upload
-        into a cache adds one to static_upload_count."""
+        into a cache adds one to static_upload_count; the bytes uploaded
+        add to last_fit_bytes_up."""
         cols = _STATIC_COLS + _DYNAMIC_COLS
         if cache is not None:
             ent = cache.get(cache_key)
@@ -606,13 +626,14 @@ class RandomEffectLRModel(Model):
                     and ent["entity_ids"] == list(bucket.entity_ids)
                     and np.array_equal(ent["sample_count"],
                                        bucket.sample_count)):
-                arrays = dict(ent["static"])
-                arrays.update(newton_inputs_from_numpy(
+                dynamic = newton_inputs_from_numpy(
                     {k: getattr(bucket, k) for k in _DYNAMIC_COLS},
-                    self.device, self.dtype))
-                return arrays
+                    self.device, self.dtype)
+                self._uploaded(dynamic.values())
+                return dict(ent["static"], **dynamic)
         arrays = newton_inputs_from_numpy(
             {k: getattr(bucket, k) for k in cols}, self.device, self.dtype)
+        self._uploaded(arrays.values())
         if cache is not None:
             self.static_upload_count += 1
             cache[cache_key] = dict(
@@ -621,6 +642,16 @@ class RandomEffectLRModel(Model):
                 sample_count=np.array(bucket.sample_count, copy=True),
                 static={k: arrays[k] for k in _STATIC_COLS})
         return arrays
+
+    def _uploaded(self, tensors):
+        """`tensors`, their bytes added to last_fit_bytes_up."""
+        self.last_fit_bytes_up += _nbytes(tensors)
+        return tensors
+
+    def _fetch(self, t: torch.Tensor) -> torch.Tensor:
+        """`t` on the host, its bytes added to last_fit_bytes_down."""
+        self.last_fit_bytes_down += _nbytes([t])
+        return t.to("cpu")
 
     def _select_solver(self, u_cap: int, B: int, n_cap: int):
         """The solver ladder of the JAX package
@@ -843,6 +874,8 @@ class RandomEffectLRModel(Model):
         tt = [("start", time.time())]  # per-phase wall marks
         self.last_fit_plane = "sharded"
         self.last_fit_skipped = 0
+        self.last_fit_bytes_up = self.last_fit_bytes_down = 0
+        up = self._uploaded
         model_weights = model_weights if model_weights is not None else {}
         mesh = mesh if mesh is not None else get_mesh(device=self.device)
         P = mesh.size
@@ -933,14 +966,14 @@ class RandomEffectLRModel(Model):
             # ONE exchange of every payload column, entity/tier tags included
             routed = route_records(
                 mesh,
-                dict(indices=shard_rows(mesh, padr(local_indices)),
-                     values=shard_rows(mesh, padr(values), dt),
-                     offsets=shard_rows(mesh, padr(offsets), dt),
-                     labels=shard_rows(mesh, padr(labels), dt),
-                     weights=shard_rows(mesh, padr(weights), dt),
-                     _ent=shard_rows(mesh, ent_rows),
-                     _tier=shard_rows(mesh, tier_rows)),
-                shard_rows(mesh, owner_pad), capacity=capacity)
+                dict(indices=up(shard_rows(mesh, padr(local_indices))),
+                     values=up(shard_rows(mesh, padr(values), dt)),
+                     offsets=up(shard_rows(mesh, padr(offsets), dt)),
+                     labels=up(shard_rows(mesh, padr(labels), dt)),
+                     weights=up(shard_rows(mesh, padr(weights), dt)),
+                     _ent=up(shard_rows(mesh, ent_rows)),
+                     _tier=up(shard_rows(mesh, tier_rows))),
+                up(shard_rows(mesh, owner_pad)), capacity=capacity)
             r_ent = routed.arrays["_ent"]
             r_tier = routed.arrays["_tier"]
             tt.append(("route", time.time()))
@@ -981,8 +1014,8 @@ class RandomEffectLRModel(Model):
             off_pad = (np.concatenate([offsets, np.zeros(extra)])
                        if extra else offsets)
             routed = route_records(
-                mesh, dict(offsets=shard_rows(mesh, off_pad, dt)),
-                shard_rows(mesh, owner_pad), capacity=capacity)
+                mesh, dict(offsets=up(shard_rows(mesh, off_pad, dt))),
+                up(shard_rows(mesh, owner_pad)), capacity=capacity)
             r_ent, r_tier = chit["r_ent"], chit["r_tier"]
             tt.append(("route", time.time()))
         tier_static = {} if device_cache is not None and chit is None \
@@ -1023,8 +1056,8 @@ class RandomEffectLRModel(Model):
             rung, solve = self._select_solver(
                 ti["u_cap"], P * ti["b_cap"], ti["n_cap"])
             rungs[rung] = rungs.get(rung, 0) + 1
-            theta0_s = shard_rows(mesh, theta0, dt)
-            count_s = shard_rows(mesh, sample_count, dt)
+            theta0_s = up(shard_rows(mesh, theta0, dt))
+            count_s = up(shard_rows(mesh, sample_count, dt))
             solved = []
             for s, dev in enumerate(mesh.devices):
                 a = {k: v[s] for k, v in blocks.items()}
@@ -1049,16 +1082,16 @@ class RandomEffectLRModel(Model):
         # columnar collection: each tier's support coefficients gathered
         # straight into ModelTable columns (no per-entity python)
         with_var = self.variance_mode is not None
-        host = lambda ts: torch.cat([t.to("cpu", torch.float64)
+        host = lambda ts: torch.cat([self._fetch(t).double()
                                      for t in ts]).numpy()
-        dropped = int(sum(int(o.sum()) for o in routed.overflow))
+        dropped = sum(int(self._fetch(o.sum())) for o in routed.overflow)
         tables = []
         n_conv = 0
         for ti, solved, pack_dropped in pending:
             thetas = host([s[0] for s in solved])
             variances = host([s[1] for s in solved]) if with_var else None
-            conv = torch.cat([s[2].to("cpu") for s in solved]).numpy()
-            dropped += int(sum(int(d.sum()) for d in pack_dropped))
+            conv = torch.cat([self._fetch(s[2]) for s in solved]).numpy()
+            dropped += sum(int(self._fetch(d.sum())) for d in pack_dropped)
             thetas = np.where(np.abs(thetas) <= p.sparsity_threshold, 0.0,
                               thetas)
             ents_t, slots_t = ti["members"], ti["slots"]

@@ -2,9 +2,12 @@
 
 Each `csrc/<name>.cu` compiles with nvcc for Hopper (sm_90a) into a shared
 library with a plain C interface, loaded through ctypes. Libraries go to
-`build/gdmix_tpu_torch/` in the checkout, named by a hash of their sources,
-and are built on first use inside the process that launches them: never at
-import, so the modules import on machines without nvcc or a card.
+`build/gdmix_tpu_torch/` in the checkout, or to the directory that
+GDMIX_TPU_COMPILE_CACHE names (the JAX package's variable for its
+persistent compiled-code cache; tools/prewarm.py fills it), named by a hash
+of their sources, and are built on first use inside the process that
+launches them: never at import, so the modules import on machines without
+nvcc or a card.
 
 Every C entry point returns `cudaGetLastError()` right after its launch, and
 `check` raises on anything but 0: a refused launch never runs, and a later
@@ -27,7 +30,8 @@ import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "gdmix_tpu_torch")
+BUILD_DIR = (os.environ.get("GDMIX_TPU_COMPILE_CACHE")
+             or os.path.join(os.path.dirname(_PKG), "build", "gdmix_tpu_torch"))
 GENCODE = "arch=compute_90a,code=sm_90a"
 
 # seconds spent compiling each library in this process (0.0 when it was
@@ -35,6 +39,12 @@ GENCODE = "arch=compute_90a,code=sm_90a"
 build_seconds: Dict[str, float] = {}
 ptxas_report: Dict[str, str] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
+
+
+def library_names():
+    """The name of every CUDA library of csrc/ (one a .cu source)."""
+    return tuple(sorted(os.path.splitext(f)[0] for f in os.listdir(CSRC)
+                        if f.endswith(".cu")))
 
 
 def _nvcc() -> str:
