@@ -48,6 +48,22 @@ Phases, each printing one result line; any failure exits non-zero:
                 Newton solve; the primary warm and profiled (idle share);
                 small cuts of the primary and the heavy tail against the
                 float64 CPU solve.
+     two_phase — two-phase Newton (newton_phase1_iters = 2): K1 and K2
+                (both forms) over a lane list on the card against their
+                plain versions, at every tier of the primary and the heavy
+                tail, phase 1 of 1 and 2 iterations, cold and warm (every
+                20th entity cold): inside the prefix within F32_TOL,
+                outside it untouched; a bucket's two-phase dispatch makes
+                the host reads of the single-phase one (sync debug mode),
+                on every bucket of the primary; fit_flat of both workloads
+                on both planes: converged ≥ 0.999, well-posed entities
+                within F32_TOL of the single-phase fit, two launches a
+                tier past 64 entities on the host plane; the primary's
+                four tiers timed with and without two-phase, cold and
+                warm, and K1 at B = 65,536, n = 8 without a lane list;
+                `BENCH_PHASE1=2 python -m gdmix_tpu_torch.bench` (its RE
+                cells), converged ≥ 0.999, no host read a bucket beyond
+                the single-phase dispatch's.
      wide     — the bench's wide-support workload (4,096 entities, d = 512,
                 ≤ 16 nnz, 32–64 samples) cold and warm through the dual
                 Newton and its multi-RHS solve; SIMPLE and FULL variance;
@@ -186,7 +202,7 @@ Phases, each printing one result line; any failure exits non-zero:
                 its second fit under util/timing's device_profile (a trace
                 with kernel events), beside a cold process over another
                 empty directory whose first fit includes its nvcc.
-Launch counts are zeroed just before each main-path run (4, wide, 5,
+Launch counts are zeroed just before each main-path run (4, two_phase, wide, 5,
 wide_d, 6, single_node, sharded, multiprocess — in each child process —,
 stream, detext, bench and prewarm in theirs) and read just after. Then one JSON line of per-kernel results
 and, last, the device line. Exits non-zero without a result when no card is present.
@@ -1429,6 +1445,268 @@ def _fits(card, counters, lanes, counted):
         hm, _ = stage_model(24, os.path.join(tmp, "heavy_gpu"))
         _f64_check(heavy, np.sort(idx), hm, schema, tmp, "heavy_tail")
     return launches
+
+
+# ------------------------------------------------------------ two_phase --
+
+TWO_PHASE_ITERS = (1, 2)   # phase-1 iterations of the lane-list rows
+TWO_PHASE_WARM_EVERY = 20  # the warm rows start every 20th entity cold
+TWO_PHASE_FIT_ITERS = 2    # newton_phase1_iters of the fits and the bench
+
+
+def _two_phase_row(fn, inputs, phase1, tag):
+    """K1 or K2 (`fn`) over a lane list on one tier's inputs (θ0, X, y, w,
+    off, counts): phase 1 by the kernel for `phase1` iterations and its
+    lane list on the card (two_phase_order), then phase 2 by the kernel
+    and by its plain version over that list, from phase 1's θ. Inside the
+    prefix max|Δθ| ≤ F32_TOL where both converge and the flags agree on
+    ≥ 0.999; outside it the kernel wrote nothing (θ bit-equal to phase
+    1's, converged, 0 iterations). Returns max|Δθ|."""
+    import torch
+    from gdmix_tpu_torch.ops import newton_lanes as nl
+    th0, X, y, w, off, cnt = inputs
+    B, n, d = X.shape
+    kw = dict(lam=1.0, unreg_bias=True, ftol=1e-12, pgtol=1e-5)
+    th1, conv1, _ = fn(th0, X, y, w, off, cnt, maxiter=phase1, **kw)
+    order, n_un = nl.two_phase_order(conv1)
+    lanes = dict(lanes=order, n_unconverged=n_un, maxiter=100, **kw)
+    k = lambda: fn(th1, X, y, w, off, cnt, **lanes)
+    thk, ck, ik = k()
+    thp, cp, _ = nl.newton_full_plain(th1, X, y, w, off, cnt, **lanes)
+    torch.cuda.synchronize()
+    P = nl.prefix_size(int(n_un[0]), B)
+    pre, rest = order[:P].long(), order[P:].long()
+    both = (ck & cp)[pre]
+    err = (float((thk - thp)[pre][both].abs().max()) if bool(both.any())
+           else 0.0)
+    agree = float((ck[pre] == cp[pre]).float().mean())
+    kept = bool((thk[rest] == th1[rest]).all() and ck[rest].all()
+                and (ik[rest] == 0).all())
+    ms = _time_ms(k, 3)
+    # the prefix's work alone, as _lanes_row counts a whole launch's
+    bound, by = _bound(
+        4 * (P * n * d + 3 * P * n + P + 2 * P * d) + 5 * P,
+        float(ik[pre].sum()) * (n * d * (d + 1) + _spd_solve_flops(d, 1)
+                                + 6 * n * d))
+    _say("two_phase", kernel=fn.__name__, tier=tag, phase1=phase1, B=B, n=n,
+         dim=d, form=nl.lanes_form(n, d), n_unconverged=int(n_un[0]),
+         prefix=P, max_abs_dtheta=f"{err:.3e}", converged_agree=f"{agree:.6f}",
+         converged=f"{float(ck.float().mean()):.6f}",
+         phase2_ms=f"{ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=by)
+    _check(err <= F32_TOL, f"two_phase {fn.__name__} {tag}: max|dθ| {err}")
+    _check(agree >= 0.999, f"two_phase {fn.__name__} {tag}: flags agree "
+                           f"on {agree}")
+    _check(kept, f"two_phase {fn.__name__} {tag}: an entity past the "
+                 f"prefix of {P} was written")
+    return err
+
+
+def _warm(inputs):
+    """`inputs` with θ0 the lanes kernel's solution, every
+    TWO_PHASE_WARM_EVERY-th entity back at 0: a warm sweep with a few
+    entities to move."""
+    from gdmix_tpu_torch.ops import newton_lanes as nl
+    th0, X, y, w, off, cnt = inputs
+    fn = (nl.newton_full if nl.lanes_form(*X.shape[1:]) == "warp"
+          else nl.newton_block)
+    th, _, _ = fn(th0, X, y, w, off, cnt, lam=1.0, unreg_bias=True,
+                  maxiter=100, ftol=1e-12, pgtol=1e-5)
+    th[::TWO_PHASE_WARM_EVERY] = 0.0
+    return (th, X, y, w, off, cnt)
+
+
+def _two_phase_times(tiers):
+    """Device ms of the primary's tier solves, summed over its tiers, one
+    phase (newton_lr_batch_lanes) against two (newton_two_phase_lanes), in
+    turns A B B A (means of 3 each), with each run's converged share."""
+    import torch
+    from gdmix_tpu_torch.ops import newton_lanes as nl
+    kw = dict(l2_reg_weight=1.0, unreg_bias=True, maxiter=100, ftol=1e-12,
+              pgtol=1e-5)
+    one = [lambda t=t: nl.newton_lr_batch_lanes(*t, **kw) for t in tiers]
+    two = [lambda t=t: nl.newton_two_phase_lanes(
+        *t, phase1_iters=TWO_PHASE_FIT_ITERS, **kw) for t in tiers]
+    run = lambda fns: [f() for f in fns]
+    ms = {"single": 0.0, "two_phase": 0.0}
+    for tag in ("single", "two_phase", "two_phase", "single"):
+        ms[tag] += _time_ms(lambda: run(one if tag == "single" else two),
+                            3) / 2
+    share = {}
+    for tag, fns in (("single", one), ("two_phase", two)):
+        res = run(fns)
+        share[tag] = float(sum(int(r.converged.sum()) for r in res)
+                           / sum(r.converged.numel() for r in res))
+    torch.cuda.synchronize()
+    return ms, share
+
+
+def _two_phase_syncs(fg, tmp):
+    """Host reads (sync debug mode, by Python line) of each of the primary
+    plan's bucket dispatches, single-phase and two-phase, each after one
+    warm run; the two must be the same on every bucket. Returns the
+    single-phase reads of one bucket."""
+    import torch
+    from gdmix_tpu_torch.bench import count_syncs
+    from gdmix_tpu_torch.data.bucketing import iter_bucketize_flat
+    one, schema = stage_model(24, os.path.join(tmp, "sync_one"))
+    two, _ = stage_model(24, os.path.join(tmp, "sync_two"),
+                         newton_phase1_iters=TWO_PHASE_FIT_ITERS)
+    dev = torch.device(DEV)
+    per_bucket = None
+    for b in iter_bucketize_flat(fg, schema,
+                                 one.model_params.offset_column_name,
+                                 has_intercept=one.has_intercept):
+        a = one._bucket_device_arrays(b)
+        shape = (b.u_cap, b.indices.shape[0], b.n_cap)
+        got = {}
+        for tag, m in (("single", one), ("two_phase", two)):
+            rung, solve = m._select_solver(*shape)
+            solve(a)
+            torch.cuda.synchronize()
+            _, lines = count_syncs(lambda: solve(a), dev)
+            torch.cuda.synchronize()
+            got[tag] = (rung, lines)
+        _say("two_phase", bucket=f"B{shape[1]}_n{shape[2]}",
+             rungs=[got[t][0] for t in got],
+             host_reads={t: got[t][1] for t in got})
+        _check(got["two_phase"][0] == "newton_two_phase",
+               f"two_phase: bucket {shape} took {got['two_phase'][0]}")
+        _check(got["two_phase"][1] == got["single"][1],
+               f"two_phase: bucket {shape} host reads {got}")
+        per_bucket = got["single"][1]
+    return per_bucket
+
+
+def phase_two_phase(card):
+    """Two-phase Newton on the card (newton_phase1_iters > 0; the JAX
+    package's _newton_two_phase_solver): K1 and K2 over lane lists against
+    their plain versions at each tier of the primary and the heavy tail,
+    the host reads of a bucket's dispatch against single-phase, fit_flat of
+    both on both planes against their single-phase fits, the primary's
+    tiers timed both ways, K1 without a lane list, and the bench with
+    BENCH_PHASE1. Returns ({kernel: max|Δθ|}, {kernel: launches})."""
+    import re
+    import torch
+    from gdmix_tpu_torch.ops import newton, newton_lanes as nl
+    phase_t0 = time.perf_counter()
+    errs = {"newton_full": 0.0, "newton_block": 0.0}
+    launches = {"newton_full": 0, "newton_block": 0}
+    counters = (nl.newton_full, nl.newton_block)
+    with tempfile.TemporaryDirectory(prefix="gdx_smoke_2p_") as tmp:
+        work = {"primary": make_workload_flat(100_000, seed=0),
+                "heavy_tail": heavy_tail_workload()}
+        # single-phase reference fits, their lanes inputs captured
+        ref, captured = {}, {}
+        for tag, fg in work.items():
+            model, schema = stage_model(24, os.path.join(tmp, tag))
+            captured[tag] = []
+            orig = _captured_lanes(captured[tag])
+            try:
+                ref[tag] = model.fit_flat(fg, {}, schema)
+            finally:
+                newton.newton_lr_batch_lanes = orig
+        # ---- the main path: fit_flat with two-phase, both planes ----
+        for tag, fg in work.items():
+            ids = np.asarray(fg.entity_ids)[_well_posed_rows(fg)]
+            for plane in ("host", "sharded"):
+                model, schema = stage_model(
+                    24, os.path.join(tmp, f"{tag}_{plane}"), re_mode=plane,
+                    newton_phase1_iters=TWO_PHASE_FIT_ITERS)
+                for c in counters:
+                    c.launches = 0
+                t0 = time.perf_counter()
+                table = model.fit_flat(fg, {}, schema)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                got = {c.__name__: c.launches for c in counters}
+                for k, v in got.items():
+                    launches[k] += v
+                share = _converged_share(model)
+                gap = _table_gap(table, ref[tag], ids)
+                # a launch a tier and shard, two where the tier passes 64
+                if plane == "host":
+                    tiers, shards = [t[1].shape for t in captured[tag]], 1
+                else:
+                    lay = model.last_fit_sharding
+                    tiers, shards = lay["tiers"], lay["shards"]
+                want = {"newton_full": 0, "newton_block": 0}
+                for B, n, d in tiers:
+                    k = ("newton_full" if nl.lanes_form(n, d) == "warp"
+                         else "newton_block")
+                    want[k] += (2 if B > 64 else 1) * shards
+                _say("two_phase", fit=tag, plane=plane, entities=len(fg),
+                     converged=f"{share:.6f}", fit_s=f"{wall:.3f}",
+                     rungs=model.last_fit_rungs, launches=got, want=want,
+                     max_abs_dtheta_vs_single=f"{gap:.3e}",
+                     compared=len(ids), card=repr(card))
+                _check(share >= 0.999, f"two_phase {tag} {plane}: converged "
+                                       f"{share}")
+                _check("newton_two_phase" in model.last_fit_rungs,
+                       f"two_phase {tag} {plane}: {model.last_fit_rungs}")
+                _check(gap <= F32_TOL, f"two_phase {tag} {plane}: "
+                                       f"max|dθ| vs single-phase {gap}")
+                _check(got == want, f"two_phase {tag} {plane}: launches "
+                                    f"{got}, want {want}")
+        # ----
+        _check(all(v > 0 for v in launches.values()),
+               f"two_phase: a kernel of the path never launched {launches}")
+        per_bucket = _two_phase_syncs(work["primary"], tmp)
+    # K1/K2 over lane lists on the fits' own tier inputs
+    for tag, tiers in captured.items():
+        for i, inputs in enumerate(tiers):
+            _, n, d = inputs[1].shape
+            fn = (nl.newton_full if nl.lanes_form(n, d) == "warp"
+                  else nl.newton_block)
+            for start, ins in (("cold", inputs), ("warm", _warm(inputs))):
+                for phase1 in TWO_PHASE_ITERS:
+                    err = _two_phase_row(fn, ins, phase1,
+                                         f"{tag}{i}_{start}")
+                    errs[fn.__name__] = max(errs[fn.__name__], err)
+    for start in ("cold", "warm"):
+        tiers = captured["primary"]
+        if start == "warm":
+            tiers = [_warm(t) for t in tiers]
+        ms, share = _two_phase_times(tiers)
+        _say("two_phase", primary_tiers=start,
+             single_ms=f"{ms['single']:.4f}",
+             two_phase_ms=f"{ms['two_phase']:.4f}",
+             converged={k: f"{v:.6f}" for k, v in share.items()},
+             card=repr(card))
+        _check(min(share.values()) >= 0.999,
+               f"two_phase: primary tiers {start} converged {share}")
+    null = _lanes_row(nl.newton_full, 65536, 8, 25, "B65536_null_list")
+    _say("two_phase", k1_null_list_ms=f"{null['ms']:.4f}", card=repr(card))
+    # the bench's RE cells with two-phase, in a fresh process
+    out, err, wall = _run([sys.executable, "-m", "gdmix_tpu_torch.bench"],
+                          "bench (BENCH_PHASE1)", BENCH_TIMEOUT_S,
+                          BENCH_PHASE1=str(TWO_PHASE_FIT_ITERS), BENCH_FE="0",
+                          BENCH_DETEXT="0", BENCH_STAGE_ENTITIES="0")
+    for ln in err.splitlines():
+        if ln.startswith("bench"):
+            print(f"  {ln}")
+    line = json.loads(out.strip().splitlines()[-1])
+    conv = [float(c) for c in re.findall(r"converged ([0-9.]+)", err)]
+    primary = re.search(r"bench\[movielens\]: .*?\((\d+) buckets.*?host "
+                        r"syncs a rep (\d+)", err)
+    _check(primary is not None, "bench (BENCH_PHASE1): no primary line")
+    buckets, syncs = int(primary.group(1)), int(primary.group(2))
+    child = _log_json(err, "bench[kernels]: ")
+    for k in launches:
+        launches[k] += child[k]
+    _say("two_phase", bench_models_per_s=line["value"],
+         bench_heavy_tail=line["submetrics"].get(
+             "re_heavy_tail_models_per_sec"), converged=conv,
+         host_syncs_a_rep=syncs, buckets=buckets, launches=child,
+         wall_s=f"{wall:.1f}", card=repr(card))
+    _check(line["value"] > 0, f"bench (BENCH_PHASE1): {line['value']}")
+    _check(len(conv) >= 4 and min(conv) >= 0.999,
+           f"bench (BENCH_PHASE1): converged {conv}")
+    _check(syncs == buckets * sum(per_bucket.values()),
+           f"bench (BENCH_PHASE1): {syncs} host syncs a rep over {buckets} "
+           f"buckets; single-phase {per_bucket} a bucket")
+    _check(child["newton_full"] > 0, f"bench (BENCH_PHASE1): {child}")
+    _say("two_phase", phase_s=f"{time.perf_counter() - phase_t0:.3f}")
+    return errs, launches
 
 
 def _re_counters():
@@ -4540,6 +4818,11 @@ def main():
     res = phase_kernels()
     res.update(phase_fe_kernels())
     launches = phase_fit(card)
+    errs, tp_launches = phase_two_phase(card)
+    for name, err in errs.items():
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+    for name, n in tp_launches.items():
+        launches[name] += n
     launches["spd_solve_batched_mrhs"] = phase_wide(card)[
         "spd_solve_batched_mrhs"]
     launches.update(phase_fe_fit(card))

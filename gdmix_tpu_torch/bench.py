@@ -47,8 +47,11 @@ or "cpu".
 Knobs (environment, the JAX bench's names and defaults): BENCH_ENTITIES,
 BENCH_HEAVY_ENTITIES, BENCH_WIDE_ENTITIES, BENCH_STAGE_ENTITIES, BENCH_FE,
 BENCH_FE_N, BENCH_FE_WIDE, BENCH_DETEXT, BENCH_SCORE_RECORDS, BENCH_REPS,
-BENCH_BUDGET_S, BENCH_DEVICE_TIMEOUT, BENCH_SOLVER, BENCH_RE_MODE.
-BENCH_PHASE1 > 0 raises: two-phase Newton is not ported.
+BENCH_BUDGET_S, BENCH_DEVICE_TIMEOUT, BENCH_SOLVER, BENCH_RE_MODE,
+BENCH_PHASE1. BENCH_PHASE1 > 0 solves the bucket solves' Newton buckets
+(BENCH_SOLVER newton, dim ≤ 128, more than 64 entities) by two-phase
+Newton with that many phase-1 iterations, the JAX bench's rule
+(bench.py:165-175).
 
 Once the primary is measured the line is printed even if BENCH_BUDGET_S
 runs out: a watchdog prints it with the submetrics done by then. Two lines
@@ -74,10 +77,9 @@ import torch
 from gdmix_tpu_torch.data.bucketing import FlatGroups, bucketize
 from gdmix_tpu_torch.device import pop_device_flag, resolve_device
 from gdmix_tpu_torch.io.input_pipeline import EntityGroup
-from gdmix_tpu_torch.models.random_effect_lr import (_lbfgs_dense_solver,
-                                                     _lbfgs_solver,
-                                                     _newton_dual_solver,
-                                                     _newton_solver)
+from gdmix_tpu_torch.models.random_effect_lr import (
+    _lbfgs_dense_solver, _lbfgs_solver, _newton_dual_solver, _newton_solver,
+    _newton_two_phase_solver)
 from gdmix_tpu_torch.util.convert import newton_inputs_from_numpy
 from gdmix_tpu_torch.util.timing import measure_dispatch_latency_s
 
@@ -196,16 +198,19 @@ def wide_support(num_entities: int):
 # ------------------------------------------------------------ RE solves --
 
 def bucket_solver(u_cap: int, batch_b: int, n_cap: int,
-                  solver: str = "newton"):
+                  solver: str = "newton", phase1: int = 0):
     """The solve of a [batch_b, n_cap] bucket by the JAX bench's ladder
-    (bench.py:143-162, REParams.batch_solver="auto"): primal Newton up to
-    dim 128, the sample-space dual Newton for n_cap < dim, densified
-    L-BFGS where the bucket fits, sparse L-BFGS last."""
+    (bench.py:143-175, REParams.batch_solver="auto"): primal Newton up to
+    dim 128 (two-phase with `phase1` > 0 past 64 entities), the
+    sample-space dual Newton for n_cap < dim, densified L-BFGS where the
+    bucket fits, sparse L-BFGS last."""
     k = _KEY
     key = (u_cap, k["has_intercept"], k["regularize_bias"], k["lam"],
            k["maxiter"], k["ftol"], k["pgtol"], k["m"], k["variance_mode"])
     dim = u_cap + 1
     elems = batch_b * n_cap * dim
+    if phase1 and solver == "newton" and dim <= 128 and batch_b > 64:
+        return _newton_two_phase_solver(*key, phase1)
     if solver == "newton" and dim <= 128:
         return _newton_solver(*key)
     if solver != "lbfgs" and 0 < n_cap < dim \
@@ -229,7 +234,7 @@ def upload_buckets(groups, device, dtype=torch.float32):
 
 
 def solve_buckets(buckets, arrays, eps: float = 0.0,
-                  solver: str = "newton"):
+                  solver: str = "newton", phase1: int = 0):
     """Every bucket's solve queued, none read back: [(θ, converged)]. θ₀
     moved by `eps` where it is not 0."""
     out = []
@@ -237,7 +242,8 @@ def solve_buckets(buckets, arrays, eps: float = 0.0,
         if eps:
             a = dict(a, theta0=a["theta0"] + eps)
         theta, _, conv = bucket_solver(b.u_cap, b.indices.shape[0],
-                                       b.indices.shape[1], solver)(a)
+                                       b.indices.shape[1], solver,
+                                       phase1)(a)
         out.append((theta, conv))
     return out
 
@@ -273,7 +279,7 @@ def count_syncs(fn, device: torch.device):
 
 
 def run_re(groups, tag: str, reps: int, device: torch.device,
-           solver: str = "newton") -> float:
+           solver: str = "newton", phase1: int = 0) -> float:
     """Models/sec of the bucket solves over `groups` (bench.py:197-258):
     bucketize and upload once, solve each bucket once to warm, then `reps`
     timed reps, each every bucket's solve queued and one synchronize; the
@@ -282,17 +288,20 @@ def run_re(groups, tag: str, reps: int, device: torch.device,
     buckets, arrays = upload_buckets(groups, device)
     _sync(device)
     setup_s = time.perf_counter() - t0
-    solve_buckets(buckets, arrays, solver=solver)   # warm: first launches
+    solve_buckets(buckets, arrays, solver=solver,   # warm: first launches
+                  phase1=phase1)
     _sync(device)
     rep_times, results = [], None
     for rep in range(reps):
         t0 = time.perf_counter()
-        results = solve_buckets(buckets, arrays, 1e-6 * (rep + 1), solver)
+        results = solve_buckets(buckets, arrays, 1e-6 * (rep + 1), solver,
+                                phase1)
         _sync(device)
         rep_times.append(time.perf_counter() - t0)
     # the same dispatch once more, its host reads counted (not timed)
     _, syncs = count_syncs(
-        lambda: solve_buckets(buckets, arrays, 1e-6 * (reps + 1), solver),
+        lambda: solve_buckets(buckets, arrays, 1e-6 * (reps + 1), solver,
+                              phase1),
         device)
     elapsed = min(rep_times)
     n_models = sum(len(b.entity_ids) for b in buckets)
@@ -738,15 +747,12 @@ def main(argv=None) -> None:
     if argv:
         raise SystemExit(f"bench: unknown arguments {argv} (the knobs are "
                          f"BENCH_* environment variables)")
-    if _env_int("BENCH_PHASE1", 0) > 0:
-        raise NotImplementedError(
-            "BENCH_PHASE1 > 0: two-phase Newton is on ROADMAP's "
-            "do-not-port list")
     device = _require_devices(device,
                               float(os.environ.get("BENCH_DEVICE_TIMEOUT",
                                                    900)))
     reps = _env_int("BENCH_REPS", 5)
     solver = os.environ.get("BENCH_SOLVER", "newton")
+    phase1 = _env_int("BENCH_PHASE1", 0)
     num_entities = _env_int("BENCH_ENTITIES", 100_000)
     heavy_n = _env_int("BENCH_HEAVY_ENTITIES", 20_000)
     wide_n = _env_int("BENCH_WIDE_ENTITIES", 4_096)
@@ -755,7 +761,7 @@ def main(argv=None) -> None:
     line = _Line(device)
 
     primary = run_re(make_workload(num_entities), "movielens", reps, device,
-                     solver)
+                     solver, phase1)
     submetrics = {}
 
     # once the primary exists the line is guaranteed: a timer thread
@@ -774,11 +780,11 @@ def main(argv=None) -> None:
     if heavy_n:
         submetrics["re_heavy_tail_models_per_sec"] = round(
             run_re(heavy_tail(heavy_n), "heavy-tail", max(reps - 2, 1), device,
-                   solver), 1)
+                   solver, phase1), 1)
     if wide_n:
         submetrics["re_wide_support_models_per_sec"] = round(
             run_re(wide_support(wide_n), "wide-support", max(reps - 2, 1),
-                   device, solver), 1)
+                   device, solver, phase1), 1)
     if stage_n:
         up_bw, down_bw, dispatch_lat = probe_link(device)
         submetrics["dispatch_latency_ms"] = round(dispatch_lat * 1e3, 4)

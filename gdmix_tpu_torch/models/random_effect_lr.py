@@ -7,7 +7,10 @@ selects (`_select_solver`, as in the JAX package):
 
   * primal damped Newton (dim ≤ newton_max_dim; ops/newton.py, whose
     float32 path runs the kernels of ops/newton_lanes.py for dim ≤ 64 and
-    the batched solve kernel K3 above it);
+    the batched solve kernel K3 above it), or, where newton_phase1_iters
+    asks for it, two-phase Newton with straggler compaction (the JAX
+    package's gate: no variance, more iterations than phase 1's, B > 64;
+    on the lanes path the compaction stays on the card);
   * sample-space (Woodbury) dual Newton (samples-per-entity < dim; its n×n
     solve is the multi-RHS kernel K4 for n ≤ 128);
   * L-BFGS on densified per-entity matrices, lockstep over the bucket
@@ -33,9 +36,9 @@ entity-sharded plane routes records to the mesh shard that owns their
 entity and groups and packs them on that shard's device
 (fit_records_sharded, parallel/entity_sharding.py). "auto" takes the
 sharded plane on a mesh of more than one device, as the JAX package does.
-
-Not ported (raises NotImplementedError naming the do-not-port list):
-two-phase Newton.
+The sharded plane solves each shard's slice of a tier on its own, so
+two-phase Newton orders and cuts each shard's lanes where the JAX package
+orders the tier across its shards: the same at P = 1.
 """
 from __future__ import annotations
 
@@ -64,7 +67,7 @@ from gdmix_tpu_torch.ops.logistic import (SparseBatch, _l2_mask,
                                           per_entity_value_and_grad,
                                           stable_bce)
 from gdmix_tpu_torch.ops.newton import (densify_bucket, dual_variance,
-                                        newton_lr_batch)
+                                        newton_lr_batch, newton_two_phase)
 from gdmix_tpu_torch.ops.segment import ENTITY_SENTINEL
 from gdmix_tpu_torch.parallel.entity_sharding import (pack_tier,
                                                       route_records,
@@ -159,6 +162,30 @@ def _newton_solver(u_cap, has_intercept, regularize_bias, lam, maxiter, ftol,
             regularize_bias=regularize_bias, lam=lam,
             variance_mode=variance_mode, X=X) if variance_mode else None
         return res.theta, var, res.converged
+    return solve
+
+
+def _newton_two_phase_solver(u_cap, has_intercept, regularize_bias, lam,
+                             maxiter, ftol, pgtol, m, variance_mode,
+                             phase1_iters):
+    """Two-phase Newton with straggler compaction
+    (gdmix_tpu/models/random_effect_lr.py:235-294; ops/newton.py
+    newton_two_phase): `phase1_iters` iterations on the whole bucket, then
+    the smallest ladder prefix holding the stragglers, stragglers first,
+    for `maxiter` from phase 1's θ. No variance: the gate admits it only
+    with variance_mode None."""
+    unreg_bias = has_intercept and not regularize_bias
+
+    def solve(a):
+        X = densify_bucket(a["indices"], a["values"], u_cap, has_intercept)
+        mask = _l2_mask(X.shape[2], has_intercept, regularize_bias, False,
+                        X.dtype, X.device)
+        res = newton_two_phase(
+            a["theta0"], X, a["labels"], a["weights"], a["offsets"],
+            a["sample_count"], l2_reg_weight=lam, l2_mask=mask,
+            phase1_iters=phase1_iters, maxiter=maxiter, ftol=ftol,
+            pgtol=pgtol, static_unreg_bias=unreg_bias)
+        return res.theta, None, res.converged
     return solve
 
 
@@ -656,8 +683,10 @@ class RandomEffectLRModel(Model):
     def _select_solver(self, u_cap: int, B: int, n_cap: int):
         """The solver ladder of the JAX package
         (gdmix_tpu/models/random_effect_lr.py:862-899): Newton (dim ≤
-        newton_max_dim) → sample-space dual Newton (n < dim, kernel fits) →
-        densified L-BFGS → sparse L-BFGS. Returns (rung name, solve)."""
+        newton_max_dim; two-phase where newton_phase1_iters > 0, no
+        variance is asked for, the iterations exceed phase 1's and B > 64)
+        → sample-space dual Newton (n < dim, kernel fits) → densified
+        L-BFGS → sparse L-BFGS. Returns (rung name, solve)."""
         p = self.model_params
         dim = u_cap + (1 if self.has_intercept else 0)
         use_newton = (p.batch_solver == "newton"
@@ -678,22 +707,21 @@ class RandomEffectLRModel(Model):
                 "to L-BFGS", B, n_cap, dim)
         use_dense = (not use_newton and not use_dual
                      and B * n_cap * dim <= p.dense_lbfgs_max_elems)
+        key = (u_cap, self.has_intercept, p.regularize_bias,
+               float(p.l2_reg_weight), p.num_of_lbfgs_iterations,
+               float(p.lbfgs_tolerance), float(p.lbfgs_pgtol),
+               p.num_of_lbfgs_curvature_pairs, self.variance_mode)
         if (use_newton and p.newton_phase1_iters > 0
                 and self.variance_mode is None
                 and p.num_of_lbfgs_iterations > p.newton_phase1_iters
                 and B > 64):
-            raise NotImplementedError(
-                "two-phase Newton (newton_phase1_iters > 0) is on ROADMAP's "
-                "do-not-port list")
+            return "newton_two_phase", _newton_two_phase_solver(
+                *key, p.newton_phase1_iters)
         rung, factory = (("newton", _newton_solver) if use_newton
                          else ("newton_dual", _newton_dual_solver) if use_dual
                          else ("lbfgs_dense", _lbfgs_dense_solver)
                          if use_dense else ("lbfgs", _lbfgs_solver))
-        return rung, factory(
-            u_cap, self.has_intercept, p.regularize_bias,
-            float(p.l2_reg_weight), p.num_of_lbfgs_iterations,
-            float(p.lbfgs_tolerance), float(p.lbfgs_pgtol),
-            p.num_of_lbfgs_curvature_pairs, self.variance_mode)
+        return rung, factory(*key)
 
     def _collect_bucket_table(self, bucket: EntityBucket, theta,
                               variance) -> ModelTable:

@@ -1,9 +1,10 @@
 """Batched damped Newton for per-entity logistic regression.
 
 Port of gdmix_tpu/ops/newton.py: newton_lr_batch (primal and sample-space
-dual), dual_variance and densify_bucket. Objective (the reference's MEAN
-form): f(θ) = (Σ wᵢ·bce(zᵢ) + λ/2·θᵀMθ)/n with z = Xθ + offset and M the
-bias-exclusion mask.
+dual), dual_variance and densify_bucket; beside them newton_two_phase, the
+two-phase Newton of gdmix_tpu/models/random_effect_lr.py:235-294.
+Objective (the reference's MEAN form): f(θ) = (Σ wᵢ·bce(zᵢ) +
+λ/2·θᵀMθ)/n with z = Xθ + offset and M the bias-exclusion mask.
 
 Dispatch, as in the JAX package:
   * primal, float32 on a card with dim ≤ 64 and a static mask layout: the
@@ -15,7 +16,11 @@ Dispatch, as in the JAX package:
     taken in sample space through the n×n kernel system, solved by the
     multi-RHS kernel (K4) on a card when n ≤ 128 and by a Cholesky solve
     otherwise — the rule of gdmix_tpu/ops/newton.py:168-172, chosen by shape
-    before any launch.
+    before any launch;
+  * two-phase (newton_two_phase): on the lanes path two launches of its
+    kernels, the second over a lane list kept on the card
+    (ops/newton_lanes.newton_two_phase_lanes); elsewhere the batch-major
+    loop twice, with one host read of the stragglers' count between.
 """
 from __future__ import annotations
 
@@ -25,7 +30,9 @@ import torch
 
 from gdmix_tpu_torch.ops.linsolve import (spd_solve_batched,
                                           spd_solve_batched_mrhs)
-from gdmix_tpu_torch.ops.newton_lanes import MAX_DIM, newton_lr_batch_lanes
+from gdmix_tpu_torch.ops.newton_lanes import (MAX_DIM, newton_lr_batch_lanes,
+                                              newton_two_phase_lanes,
+                                              prefix_size, two_phase_order)
 
 _ARMIJO_C1 = 1e-4
 _MAX_BACKTRACKS = 20
@@ -37,6 +44,17 @@ class NewtonResult(NamedTuple):
     theta: torch.Tensor           # [B, dim]
     converged: torch.Tensor       # [B] bool
     num_iterations: torch.Tensor  # [B] int32
+
+
+class TwoPhaseResult(NamedTuple):
+    """newton_two_phase's result: NewtonResult's fields, then phase 1's
+    lane order and straggler count, from which prefix_size gives the
+    entities solved again (order[:P])."""
+    theta: torch.Tensor           # [B, dim]
+    converged: torch.Tensor       # [B] bool
+    num_iterations: torch.Tensor  # [B] int32: phase 1 + phase 2
+    order: torch.Tensor           # [B] int32, stragglers first
+    n_unconverged: torch.Tensor   # [1] int32
 
 
 def _cholesky_solve(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -198,6 +216,49 @@ def newton_lr_batch(theta0: torch.Tensor,
         f = f_next
         k += 1
     return NewtonResult(theta=theta, converged=done, num_iterations=iters)
+
+
+def newton_two_phase(theta0: torch.Tensor, X: torch.Tensor,
+                     labels: torch.Tensor, weights: torch.Tensor,
+                     offsets: torch.Tensor, counts: torch.Tensor, *,
+                     l2_reg_weight: float, l2_mask: torch.Tensor,
+                     phase1_iters: int, maxiter: int = 50,
+                     ftol: float = 1e-12, pgtol: float = 1e-5,
+                     static_unreg_bias: Optional[bool] = None
+                     ) -> TwoPhaseResult:
+    """Two-phase Newton with straggler compaction
+    (gdmix_tpu/models/random_effect_lr.py:235-294): newton_lr_batch for
+    `phase1_iters` iterations on the whole bucket; the lanes ordered
+    stragglers first (two_phase_order); the smallest ladder prefix that
+    holds the stragglers (prefix_size) solved again from phase 1's θ for
+    `maxiter`, and scattered back. Arguments as newton_lr_batch (primal
+    only). On the lanes path (float32 on a card, dim ≤ MAX_DIM, a static
+    mask layout) both phases are kernel launches and the lane list stays
+    on the card; the batch-major loop, which reads the host every
+    iteration, reads the stragglers' count once to cut the prefix."""
+    B, _, dim = X.shape
+    if (static_unreg_bias is not None and theta0.dtype == torch.float32
+            and X.device.type == "cuda" and dim <= MAX_DIM):
+        return newton_two_phase_lanes(
+            theta0, X, labels, weights, offsets, counts,
+            l2_reg_weight=float(l2_reg_weight), unreg_bias=static_unreg_bias,
+            phase1_iters=phase1_iters, maxiter=maxiter, ftol=ftol,
+            pgtol=pgtol)
+    kw = dict(l2_reg_weight=l2_reg_weight, l2_mask=l2_mask, ftol=ftol,
+              pgtol=pgtol)
+    res1 = newton_lr_batch(theta0, X, labels, weights, offsets, counts,
+                           maxiter=phase1_iters, **kw)
+    order, n_un = two_phase_order(res1.converged)
+    pre = order[:prefix_size(int(n_un[0]), B)].long()
+    res2 = newton_lr_batch(res1.theta[pre], X[pre], labels[pre],
+                           weights[pre], offsets[pre], counts[pre],
+                           maxiter=maxiter, **kw)
+    theta, conv = res1.theta.clone(), res1.converged.clone()
+    iters = res1.num_iterations.clone()
+    theta[pre], conv[pre] = res2.theta, res2.converged
+    iters[pre] += res2.num_iterations
+    return TwoPhaseResult(theta=theta, converged=conv, num_iterations=iters,
+                          order=order, n_unconverged=n_un)
 
 
 def dual_variance(theta: torch.Tensor, X: torch.Tensor, labels: torch.Tensor,

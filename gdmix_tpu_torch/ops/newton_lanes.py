@@ -11,6 +11,15 @@ become whole solves, one launch per bucket (csrc/newton_lanes.cu):
    shared memory while it fits the block's opt-in, read again from device
    memory in chunks on each pass past it.
 
+Both also solve over a lane list that only the card knows (`lanes`,
+`n_unconverged`): phase 2 of two-phase Newton, `newton_two_phase_lanes`
+(gdmix_tpu/models/random_effect_lr.py:235-294 _newton_two_phase_solver).
+Phase 1 solves the bucket for `phase1_iters` iterations; its converged
+flags, stragglers first (`two_phase_order`), and their count stay on the
+card; phase 2 solves the entities of the smallest ladder prefix that holds
+the stragglers (`prefix_size`) from phase 1's θ. Two launches a bucket, no
+host read.
+
 `lanes_form(n, dim)` picks the form from the shape alone, before any
 launch: the warp form while four entities' shared memory leaves
 WARP_FORM_MIN_WARPS warps resident per SM, the block form past that, the
@@ -149,6 +158,50 @@ def _host_done(done: torch.Tensor) -> bool:
     return bool(done.all())
 
 
+def prefix_size(n_unconverged: int, B: int) -> int:
+    """Two-phase Newton's phase-2 prefix for n_unconverged stragglers in a
+    bucket of B: the smallest of the ladder 64, 128, … (< B) and B that
+    holds them (the JAX solver's searchsorted over its `sizes`;
+    csrc/newton_lanes.cu prefix_size). 64, or B below 64, when none is
+    left."""
+    p = 64
+    while p < n_unconverged and p < B:
+        p *= 2
+    return min(p, B)
+
+
+def two_phase_order(converged: torch.Tensor):
+    """(order [B] int32, n_unconverged [1] int32) on converged's device:
+    the entities with the stragglers first, each part in index order
+    (`torch.argsort(converged, stable=True)`, as the JAX solver orders
+    them), and the stragglers' count. A stable partition by two prefix sums
+    and a scatter: nothing is read back to the host."""
+    B = converged.shape[0]
+    un = ~converged
+    rank_un = torch.cumsum(un, 0, dtype=torch.int32)
+    n_un = (rank_un[-1:] if B else
+            torch.zeros(1, dtype=torch.int32, device=converged.device))
+    rank_conv = torch.cumsum(converged, 0, dtype=torch.int32)
+    pos = torch.where(un, rank_un - 1, n_un + rank_conv - 1)
+    order = torch.empty_like(pos).scatter_(
+        0, pos.long(), torch.arange(B, dtype=torch.int32,
+                                    device=converged.device))
+    return order, n_un
+
+
+def _lanes_plain(theta0, X, y, w, off, cnt, lanes, n_unconverged, **kw):
+    """newton_full_plain over a lane list: the entities of the prefix
+    solved, the others left at θ0 (one host read of the count, the plain
+    version's)."""
+    newton_lr_batch_lanes.host_syncs += 1
+    pre = lanes[:prefix_size(int(n_unconverged.reshape(-1)[0]),
+                             X.shape[0])].long()
+    th, conv, iters = _lane_outputs(theta0)
+    th[pre], conv[pre], iters[pre] = newton_full_plain(
+        theta0[pre], X[pre], y[pre], w[pre], off[pre], cnt[pre], **kw)
+    return th, conv, iters
+
+
 def _newton_loop(fgd, theta0, X, y, w, off, cnt, *, lam, unreg_bias,
                  maxiter, ftol, pgtol):
     """Damped Newton with the line search in plain PyTorch around `fgd`
@@ -192,9 +245,17 @@ def _newton_loop(fgd, theta0, X, y, w, off, cnt, *, lam, unreg_bias,
 
 def newton_full_plain(theta0, X, y, w, off, cnt, *, lam: float,
                       unreg_bias: bool, maxiter: int, ftol: float,
-                      pgtol: float):
+                      pgtol: float, lanes=None, n_unconverged=None):
     """The plain version of both kernels, any float type:
-    (θ [B, dim], converged [B] bool, iterations [B] int32)."""
+    (θ [B, dim], converged [B] bool, iterations [B] int32). With a lane
+    list (`lanes` [B], `n_unconverged` [1], int32) only the entities
+    lanes[:prefix_size(n_unconverged, B)] are solved; every other entity
+    keeps θ0, counts as converged (phase 1 converged all but the
+    prefix's) and took 0 iterations."""
+    if lanes is not None:
+        return _lanes_plain(theta0, X, y, w, off, cnt, lanes, n_unconverged,
+                            lam=lam, unreg_bias=unreg_bias, maxiter=maxiter,
+                            ftol=ftol, pgtol=pgtol)
     fgd = lambda th: newton_fgd_plain(X, y, w, off, cnt, th, lam=lam,
                                       unreg_bias=unreg_bias)
     return _newton_loop(fgd, theta0, X, y, w, off, cnt, lam=lam,
@@ -215,8 +276,9 @@ def _lib() -> ctypes.CDLL:
         scal = [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                 ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
                 ctypes.c_void_p]
-        lib.gdx_newton_full.argtypes = ptrs + scal
-        lib.gdx_newton_block.argtypes = (ptrs + [ctypes.c_void_p] * 2
+        # + LANES, NUN; newton_block also ZS, US before them and `streamed`
+        lib.gdx_newton_full.argtypes = ptrs + [ctypes.c_void_p] * 2 + scal
+        lib.gdx_newton_block.argtypes = (ptrs + [ctypes.c_void_p] * 4
                                          + [ctypes.c_int] + scal)
         for fn in (lib.gdx_newton_full, lib.gdx_newton_block,
                    lib.gdx_newton_group_floats):
@@ -237,9 +299,11 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_inputs(what, X, y, w, off, cnt, th):
-    """The kernels index every array from X's [B, n, dim]: anything else
-    would be read out of bounds, so it is refused here."""
+def _check_inputs(what, X, y, w, off, cnt, th, lanes=None, nun=None):
+    """The kernels index every array from X's [B, n, dim], and a lane
+    list's entries as entities: anything else would be read out of bounds,
+    so it is refused here. A lane list is both of `lanes` [B] and `nun`
+    [1], int32 on X's card, or neither."""
     _cuda.require_cuda(what, X, y, w, off, cnt, th)
     B, n, dim = X.shape
     form = lanes_form(n, dim)
@@ -248,6 +312,17 @@ def _check_inputs(what, X, y, w, off, cnt, th):
     if got != want:
         raise ValueError(f"{what}: shapes {got} for X {(B, n, dim)}; "
                          f"expected {want}")
+    if (lanes is None) != (nun is None):
+        raise ValueError(f"{what}: lanes and n_unconverged go together")
+    if lanes is not None:
+        _cuda.require_cuda(what, lanes, nun, dtypes=(torch.int32,))
+        if lanes.device != X.device or nun.device != X.device:
+            raise ValueError(f"{what}: the lane list is on "
+                             f"{lanes.device}/{nun.device}, X on {X.device}")
+        if tuple(lanes.shape) != (B,) or nun.numel() != 1:
+            raise ValueError(f"{what}: lanes {tuple(lanes.shape)}, "
+                             f"n_unconverged {tuple(nun.shape)}; expected "
+                             f"({B},) and one count")
     return form
 
 
@@ -257,22 +332,42 @@ def _outputs(theta0, B):
             torch.empty(B, dtype=torch.int32, device=theta0.device))
 
 
+def _lane_outputs(theta0):
+    """The outputs of a solve over a lane list, as the entities it does
+    not solve keep them: θ0, converged, 0 iterations."""
+    B = theta0.shape[0]
+    return (theta0.clone(),
+            torch.ones(B, dtype=torch.bool, device=theta0.device),
+            torch.zeros(B, dtype=torch.int32, device=theta0.device))
+
+
+def _lane_ptrs(lanes, nun):
+    return ((None, None) if lanes is None
+            else (_cuda.ptr(lanes), _cuda.ptr(nun)))
+
+
 def newton_full(theta0, X, y, w, off, cnt, *, lam: float, unreg_bias: bool,
-                maxiter: int, ftol: float, pgtol: float):
+                maxiter: int, ftol: float, pgtol: float, lanes=None,
+                n_unconverged=None):
     """The whole damped-Newton solve of every entity, one warp each:
     θ0 [B, dim], X [B, n, dim], y/w/off [B, n], cnt [B] →
-    (θ, converged, iterations). CUDA: float32 and lanes_form(n, dim) ==
-    "warp"; other shapes raise (newton_block takes them)."""
+    (θ, converged, iterations); over a lane list (`lanes`,
+    `n_unconverged`) as newton_full_plain. CUDA: float32 and
+    lanes_form(n, dim) == "warp"; other shapes raise (newton_block takes
+    them)."""
     if X.device.type == "cpu":
         return newton_full_plain(theta0, X, y, w, off, cnt, lam=lam,
                                  unreg_bias=unreg_bias, maxiter=maxiter,
-                                 ftol=ftol, pgtol=pgtol)
-    form = _check_inputs("newton_full", X, y, w, off, cnt, theta0)
+                                 ftol=ftol, pgtol=pgtol, lanes=lanes,
+                                 n_unconverged=n_unconverged)
+    form = _check_inputs("newton_full", X, y, w, off, cnt, theta0, lanes,
+                         n_unconverged)
     B, n, dim = X.shape
     if form != "warp":
         raise ValueError(f"newton_full: n {n}, dim {dim} take the {form} "
                          f"form; use newton_block")
-    th, conv, iters = _outputs(theta0, B)
+    th, conv, iters = (_outputs(theta0, B) if lanes is None
+                       else _lane_outputs(theta0))
     if B == 0:
         return th, conv, iters
     lib = _lib()
@@ -280,8 +375,8 @@ def newton_full(theta0, X, y, w, off, cnt, *, lam: float, unreg_bias: bool,
         err = lib.gdx_newton_full(
             *(_cuda.ptr(t) for t in (X, y, w, off, cnt, theta0, th, conv,
                                      iters)),
-            B, n, dim, float(lam), int(unreg_bias), int(maxiter),
-            float(ftol), float(pgtol), stream)
+            *_lane_ptrs(lanes, n_unconverged), B, n, dim, float(lam),
+            int(unreg_bias), int(maxiter), float(ftol), float(pgtol), stream)
     _cuda.check(lib, err, "newton_full")
     newton_full.launches += 1
     return th, conv, iters
@@ -291,7 +386,8 @@ newton_full.launches = 0
 
 
 def newton_block(theta0, X, y, w, off, cnt, *, lam: float, unreg_bias: bool,
-                 maxiter: int, ftol: float, pgtol: float):
+                 maxiter: int, ftol: float, pgtol: float, lanes=None,
+                 n_unconverged=None):
     """The whole damped-Newton solve of every entity, one block of four
     warps each; arguments and result as newton_full. CUDA: float32,
     dim ≤ MAX_DIM, any n: X in shared memory while one entity fits the
@@ -299,10 +395,13 @@ def newton_block(theta0, X, y, w, off, cnt, *, lam: float, unreg_bias: bool,
     if X.device.type == "cpu":
         return newton_full_plain(theta0, X, y, w, off, cnt, lam=lam,
                                  unreg_bias=unreg_bias, maxiter=maxiter,
-                                 ftol=ftol, pgtol=pgtol)
-    form = _check_inputs("newton_block", X, y, w, off, cnt, theta0)
+                                 ftol=ftol, pgtol=pgtol, lanes=lanes,
+                                 n_unconverged=n_unconverged)
+    form = _check_inputs("newton_block", X, y, w, off, cnt, theta0, lanes,
+                         n_unconverged)
     B, n, dim = X.shape
-    th, conv, iters = _outputs(theta0, B)
+    th, conv, iters = (_outputs(theta0, B) if lanes is None
+                       else _lane_outputs(theta0))
     if B == 0:
         return th, conv, iters
     streamed = form == "stream"
@@ -314,7 +413,8 @@ def newton_block(theta0, X, y, w, off, cnt, *, lam: float, unreg_bias: bool,
             *(_cuda.ptr(t) for t in (X, y, w, off, cnt, theta0, th, conv,
                                      iters)),
             None if zu is None else _cuda.ptr(zu[0]),
-            None if zu is None else _cuda.ptr(zu[1]), int(streamed),
+            None if zu is None else _cuda.ptr(zu[1]),
+            *_lane_ptrs(lanes, n_unconverged), int(streamed),
             B, n, dim, float(lam), int(unreg_bias), int(maxiter),
             float(ftol), float(pgtol), stream)
     _cuda.check(lib, err, "newton_block")
@@ -349,3 +449,35 @@ def newton_lr_batch_lanes(theta0, X, labels, weights, offsets, counts, *,
 
 
 newton_lr_batch_lanes.host_syncs = 0
+
+
+def newton_two_phase_lanes(theta0, X, labels, weights, offsets, counts, *,
+                           l2_reg_weight: float, unreg_bias: bool,
+                           phase1_iters: int, maxiter: int, ftol: float,
+                           pgtol: float):
+    """Two-phase Newton (the JAX package's _newton_two_phase_solver) on
+    the lanes path, float32, θ in θ0's type: phase 1 solves every entity
+    for `phase1_iters` iterations; phase 2 solves the prefix of
+    two_phase_order's lane list that prefix_size gives the stragglers'
+    count, from phase 1's θ, for `maxiter`. Two launches of the form
+    `lanes_form` picks; the lane list and its count never leave the card.
+    Returns ops/newton.TwoPhaseResult: a lane solved again took phase 1's
+    iterations plus phase 2's."""
+    from gdmix_tpu_torch.ops.newton import TwoPhaseResult
+
+    f32 = torch.float32
+    B, n, dim = X.shape
+    X32 = X.to(f32).contiguous()
+    y, w, off = (t.to(f32).contiguous() for t in (labels, weights, offsets))
+    cnt = torch.clamp_min(counts.to(f32), 1.0).contiguous()
+    solve = newton_full if lanes_form(n, dim) == "warp" else newton_block
+    kw = dict(lam=float(l2_reg_weight), unreg_bias=unreg_bias, ftol=ftol,
+              pgtol=pgtol)
+    th1, conv1, iters1 = solve(theta0.to(f32).contiguous(), X32, y, w, off,
+                               cnt, maxiter=phase1_iters, **kw)
+    order, n_un = two_phase_order(conv1)
+    th, conv, iters2 = solve(th1, X32, y, w, off, cnt, maxiter=maxiter,
+                             lanes=order, n_unconverged=n_un, **kw)
+    return TwoPhaseResult(theta=th.to(theta0.dtype), converged=conv,
+                          num_iterations=iters1 + iters2, order=order,
+                          n_unconverged=n_un)

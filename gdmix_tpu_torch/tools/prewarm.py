@@ -17,13 +17,18 @@ Usage:
       --entities_per_tier 1024 --support 24 --entry_width 8 \\
       [--num_features 10000] [--l2_reg_weight 1.0] [--regularize_bias false]
       [--num_of_lbfgs_iterations 100] [--batch_solver auto]
-      [--variance_mode none|simple|full] [--dtype float32] [--host_plane]
-      [--device cpu]
+      [--newton_phase1_iters 0] [--variance_mode none|simple|full]
+      [--dtype float32] [--host_plane] [--device cpu]
+
+With --newton_phase1_iters > 0 the ladder's Newton tiers of more than 64
+entities fit by two-phase Newton (the model's gate), its two launches a
+tier on a card.
 
 On the CPU (--device cpu) no CUDA library is built: the kernels' plain
 versions run there. The tool logs each library's build seconds (0.0 where
 it was built already) and the fit's wall, and ends with one line
-`prewarm: {json}` holding them and each kernel's launches.
+`prewarm: {json}` holding them, the solver rungs of the last fit and each
+kernel's launches.
 """
 from __future__ import annotations
 
@@ -235,6 +240,7 @@ def run(argv=None):
     from gdmix_tpu_torch.gdmix import kernel_launches
     report = dict(built, build_s=build_s, fit_s=fit_s, models=len(out),
                   plane=model.last_fit_plane, tiers=tiers,
+                  rungs=model.last_fit_rungs,
                   converged=model.last_fit_converged,
                   launches=kernel_launches())
     logger.info("prewarm: %d models over tiers %s in %.3fs on the %s plane",

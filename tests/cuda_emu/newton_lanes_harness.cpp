@@ -4,10 +4,15 @@
 // newton_lanes_emu.inc beside the inputs.
 //
 //   harness layout n d                        → group floats of forms 0 1 2
-//   harness solve form B n d lam unreg maxiter ftol pgtol
+//   harness solve form B n d lam unreg maxiter ftol pgtol [lanes]
 //     form 0 newton_full, 1 newton_block, 2 newton_block streamed. Reads
 //     X y w off cnt th0 (.f32, in the working directory), writes th.f32,
-//     conv.u8, iters.i32.
+//     conv.u8, iters.i32. With `lanes`, also reads lanes.i32 [B] and
+//     nun.i32 [1] (the lane list of two-phase Newton's phase 2) and fills
+//     the outputs with kUntouched* first, so that an entity the kernel
+//     must not write shows those bits.
+#include <algorithm>
+#include <cstdint>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
@@ -21,8 +26,13 @@ thread_local EmuDim3 threadIdx, blockIdx;
 thread_local float* g_smem;
 thread_local EmuBlock* g_block;
 
-static std::vector<float> load(const char* name, size_t count) {
-  std::vector<float> v(count);
+constexpr uint32_t kUntouchedTheta = 0x7fc0deadu;  // a NaN with a payload
+constexpr uint8_t kUntouchedConv = 0xab;
+constexpr int32_t kUntouchedIters = -12345;
+
+template <class T = float>
+static std::vector<T> load(const char* name, size_t count) {
+  std::vector<T> v(count);
   FILE* f = std::fopen(name, "rb");
   if (f == nullptr || std::fread(v.data(), 4, count, f) != count) {
     std::fprintf(stderr, "cannot read %s\n", name);
@@ -47,7 +57,8 @@ int main(int argc, char** argv) {
                 gdx_newton_group_floats(2, n, d));
     return 0;
   }
-  if (argc != 11 || std::strcmp(argv[1], "solve")) return 2;
+  const bool lanes = argc == 12 && !std::strcmp(argv[11], "lanes");
+  if ((argc != 11 && !lanes) || std::strcmp(argv[1], "solve")) return 2;
   const int form = std::atoi(argv[2]);
   const int64_t B = std::atoll(argv[3]);
   const int n = std::atoi(argv[4]), d = std::atoi(argv[5]);
@@ -59,7 +70,16 @@ int main(int argc, char** argv) {
              CNT = load("cnt.f32", B), TH0 = load("th0.f32", B * d);
   std::vector<float> TH(B * d), ZS(B * n), US(B * n);
   std::vector<uint8_t> CONV(B);
-  std::vector<int32_t> ITERS(B);
+  std::vector<int32_t> ITERS(B), LANES, NUN;
+  if (lanes) {
+    LANES = load<int32_t>("lanes.i32", B);
+    NUN = load<int32_t>("nun.i32", 1);
+    float untouched;
+    std::memcpy(&untouched, &kUntouchedTheta, 4);
+    std::fill(TH.begin(), TH.end(), untouched);
+    std::fill(CONV.begin(), CONV.end(), kUntouchedConv);
+    std::fill(ITERS.begin(), ITERS.end(), kUntouchedIters);
+  }
   const int warps = form == 0 ? 1 : kBlockWarps;
   const Layout L = make_layout(n, d, warps, form == 2);
   const KernelFn fn = form == 0   ? pick<1, false>(L.T)
@@ -81,7 +101,8 @@ int main(int argc, char** argv) {
         g_smem = smem.data();
         g_block = &block;
         fn(X.data(), Y.data(), W.data(), OFF.data(), CNT.data(), TH0.data(),
-           TH.data(), CONV.data(), ITERS.data(), ZS.data(), US.data(), B,
+           TH.data(), CONV.data(), ITERS.data(), ZS.data(), US.data(),
+           lanes ? LANES.data() : nullptr, lanes ? NUN.data() : nullptr, B,
            n, d, lam, unreg, maxiter, ftol, pgtol);
       });
     for (auto& th : threads) th.join();

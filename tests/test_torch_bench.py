@@ -247,9 +247,25 @@ def test_bench_budget_prints_the_primary():
 
 
 def test_two_phase_newton_raises(monkeypatch):
-    monkeypatch.setenv("BENCH_PHASE1", "2")
-    with pytest.raises(NotImplementedError, match="two-phase"):
-        bench.main(["--device", "cpu"])
+    """BENCH_PHASE1 > 0 once raised; it now takes two-phase Newton by the
+    JAX bench's rule (bench.py:168: solver newton, dim ≤ 128, B > 64) and
+    the ladder elsewhere."""
+    from gdmix_tpu_torch.models import random_effect_lr as port_re
+    two = port_re._newton_two_phase_solver
+    seen = []
+    monkeypatch.setattr(bench, "_newton_two_phase_solver",
+                        lambda *a: seen.append(a[-1]) or two(*a))
+    for args, solver, phase1, taken in (((24, 128, 8), "newton", 2, True),
+                                        ((24, 65, 8), "newton", 3, True),
+                                        ((24, 64, 8), "newton", 2, False),
+                                        ((127, 128, 8), "newton", 2, True),
+                                        ((128, 128, 8), "newton", 2, False),
+                                        ((24, 128, 8), "lbfgs", 2, False),
+                                        ((24, 128, 8), "newton", 0, False)):
+        seen.clear()
+        assert callable(bench.bucket_solver(*args, solver=solver,
+                                            phase1=phase1))
+        assert seen == ([phase1] if taken else []), (args, solver, phase1)
 
 
 # ---- the RE model's byte counters --------------------------------------------

@@ -343,14 +343,22 @@ def newton_emulator(tmp_path_factory):
 
 
 def _emulate(emu, form, arrays, *, lam, unreg, maxiter=100, ftol=1e-12,
-             pgtol=1e-5):
+             pgtol=1e-5, lanes=None, n_unconverged=None):
+    """The harness's solve of `arrays` (θ0, X, y, w, off, cnt); with
+    `lanes` [B] and `n_unconverged`, over that lane list (its outputs
+    filled with the harness's kUntouched* bits first)."""
     th0, X, y, w, off, cnt = arrays
     B, n, d = X.shape
     for name, a in zip(("th0", "X", "y", "w", "off", "cnt"), arrays):
         np.ascontiguousarray(a, np.float32).tofile(emu / f"{name}.f32")
+    extra = []
+    if lanes is not None:
+        np.asarray(lanes, np.int32).tofile(emu / "lanes.i32")
+        np.asarray([n_unconverged], np.int32).tofile(emu / "nun.i32")
+        extra = ["lanes"]
     subprocess.run([str(emu / "harness"), "solve", str(form), str(B), str(n),
                     str(d), repr(lam), str(int(unreg)), str(maxiter),
-                    repr(ftol), repr(pgtol)],
+                    repr(ftol), repr(pgtol)] + extra,
                    cwd=emu, check=True, capture_output=True, timeout=300)
     return (np.fromfile(emu / "th.f32", np.float32).reshape(B, d),
             np.fromfile(emu / "conv.u8", np.uint8).astype(bool),

@@ -284,17 +284,18 @@ def test_auto_ladder_takes_dual_and_dense(tmp_path):
 
 
 @pytest.mark.parametrize("over,item", [
-    # the A.6 and A.9 cases keep their ids: they now assert that the
-    # option trains
+    # the A.6, A.9 and two-phase cases keep their ids: they now assert that
+    # the option trains
     pytest.param(dict(re_mode="sharded"), None, id="over0-A.6"),
-    (dict(newton_phase1_iters=2), "two-phase"),
+    pytest.param(dict(newton_phase1_iters=2), None, id="over1-two-phase"),
     pytest.param(dict(stream_chunk_entities=4), None, id="over2-A.9"),
 ])
 def test_unported_rungs_raise(tmp_path, over, item):
     """Every path the port lacks raises, naming its ROADMAP item; no option
-    falls through to another path. The sharded plane and streaming (item
-    None), once on this list, now train: a model for each of the 70
-    entities, on the plane asked for."""
+    falls through to another path. The sharded plane, two-phase Newton and
+    streaming (item None), once on this list, now train: a model for each
+    of the 70 entities, on the plane asked for (two-phase on the host
+    plane's one bucket of more than 64)."""
     groups, _ = _make_groups(num_entities=70, seed=1)
     md_file, train_dir, feature_file = _write_dataset(tmp_path, groups)
     model, schema = _torch_model(md_file, train_dir, feature_file,
@@ -310,6 +311,8 @@ def test_unported_rungs_raise(tmp_path, over, item):
         assert set(models) == {g.entity_id for g in groups}
         assert model.last_fit_plane == (
             "sharded" if over.get("re_mode") == "sharded" else "host")
+        if "newton_phase1_iters" in over:
+            assert model.last_fit_rungs == {"newton_two_phase": 1}
         return
     with pytest.raises(NotImplementedError, match=item):
         train()
