@@ -55,10 +55,16 @@ Phases, each printing one result line; any failure exits non-zero:
                 20th entity cold): inside the prefix within F32_TOL,
                 outside it untouched; a bucket's two-phase dispatch makes
                 the host reads of the single-phase one (sync debug mode),
-                on every bucket of the primary; fit_flat of both workloads
-                on both planes: converged ≥ 0.999, well-posed entities
-                within F32_TOL of the single-phase fit, two launches a
-                tier past 64 entities on the host plane; the primary's
+                on every bucket of the primary, and a tier's dispatch cut
+                over 2 and 4 shards no more than the single-phase one;
+                fit_flat of both workloads on the host plane and on the
+                sharded plane at P = 1, 2 and 4 (the card repeated):
+                converged ≥ 0.999, well-posed entities within F32_TOL of
+                the single-phase fit, two launches a shard of a tier past
+                64 entities; on the mesh of 4 each shard's phase-2 inputs
+                and lane list captured, the lists equal to a numpy cut of
+                the tier's flags and K1/K2 over them against their plain
+                versions; the primary's
                 four tiers timed with and without two-phase, cold and
                 warm, and K1 at B = 65,536, n = 8 without a lane list;
                 `BENCH_PHASE1=2 python -m gdmix_tpu_torch.bench` (its RE
@@ -1454,51 +1460,166 @@ TWO_PHASE_WARM_EVERY = 20  # the warm rows start every 20th entity cold
 TWO_PHASE_FIT_ITERS = 2    # newton_phase1_iters of the fits and the bench
 
 
-def _two_phase_row(fn, inputs, phase1, tag):
-    """K1 or K2 (`fn`) over a lane list on one tier's inputs (θ0, X, y, w,
-    off, counts): phase 1 by the kernel for `phase1` iterations and its
-    lane list on the card (two_phase_order), then phase 2 by the kernel
-    and by its plain version over that list, from phase 1's θ. Inside the
-    prefix max|Δθ| ≤ F32_TOL where both converge and the flags agree on
-    ≥ 0.999; outside it the kernel wrote nothing (θ bit-equal to phase
-    1's, converged, 0 iterations). Returns max|Δθ|."""
+def _lanes_check(fn, th1, inputs, lanes, n_lanes, tag, solver, **extra):
+    """K1 or K2 (`fn`) over the lane list (`lanes`, `n_lanes`) from phase
+    1's θ on one tier's (or shard's) inputs (θ0, X, y, w, off, counts),
+    against its plain version over the same list; `solver`: the kernels'
+    lam, unreg_bias, ftol, pgtol and maxiter. Over the count max|Δθ|
+    ≤ F32_TOL where both converge and the flags agree on ≥ 0.999; past it
+    the kernel wrote nothing (θ bit-equal to phase 1's, converged, 0
+    iterations). Returns max|Δθ|."""
     import torch
     from gdmix_tpu_torch.ops import newton_lanes as nl
-    th0, X, y, w, off, cnt = inputs
+    _, X, y, w, off, cnt = inputs
     B, n, d = X.shape
-    kw = dict(lam=1.0, unreg_bias=True, ftol=1e-12, pgtol=1e-5)
-    th1, conv1, _ = fn(th0, X, y, w, off, cnt, maxiter=phase1, **kw)
-    order, n_un = nl.two_phase_order(conv1)
-    lanes = dict(lanes=order, n_unconverged=n_un, maxiter=100, **kw)
-    k = lambda: fn(th1, X, y, w, off, cnt, **lanes)
+    kw = dict(solver, lanes=lanes, n_lanes=n_lanes)
+    k = lambda: fn(th1, X, y, w, off, cnt, **kw)
     thk, ck, ik = k()
-    thp, cp, _ = nl.newton_full_plain(th1, X, y, w, off, cnt, **lanes)
+    thp, cp, _ = nl.newton_full_plain(th1, X, y, w, off, cnt, **kw)
     torch.cuda.synchronize()
-    P = nl.prefix_size(int(n_un[0]), B)
-    pre, rest = order[:P].long(), order[P:].long()
+    P = int(n_lanes[0])
+    pre, rest = lanes[:P].long(), lanes[P:].long()
     both = (ck & cp)[pre]
     err = (float((thk - thp)[pre][both].abs().max()) if bool(both.any())
            else 0.0)
-    agree = float((ck[pre] == cp[pre]).float().mean())
+    agree = (float((ck[pre] == cp[pre]).float().mean()) if P else 1.0)
     kept = bool((thk[rest] == th1[rest]).all() and ck[rest].all()
                 and (ik[rest] == 0).all())
     ms = _time_ms(k, 3)
-    # the prefix's work alone, as _lanes_row counts a whole launch's
+    # the solved lanes' work alone, as _lanes_row counts a whole launch's
     bound, by = _bound(
         4 * (P * n * d + 3 * P * n + P + 2 * P * d) + 5 * P,
         float(ik[pre].sum()) * (n * d * (d + 1) + _spd_solve_flops(d, 1)
                                 + 6 * n * d))
-    _say("two_phase", kernel=fn.__name__, tier=tag, phase1=phase1, B=B, n=n,
-         dim=d, form=nl.lanes_form(n, d), n_unconverged=int(n_un[0]),
-         prefix=P, max_abs_dtheta=f"{err:.3e}", converged_agree=f"{agree:.6f}",
+    _say("two_phase", kernel=fn.__name__, tier=tag, B=B, n=n, dim=d,
+         form=nl.lanes_form(n, d), **extra, lanes=P,
+         max_abs_dtheta=f"{err:.3e}", converged_agree=f"{agree:.6f}",
          converged=f"{float(ck.float().mean()):.6f}",
          phase2_ms=f"{ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=by)
     _check(err <= F32_TOL, f"two_phase {fn.__name__} {tag}: max|dθ| {err}")
     _check(agree >= 0.999, f"two_phase {fn.__name__} {tag}: flags agree "
                            f"on {agree}")
     _check(kept, f"two_phase {fn.__name__} {tag}: an entity past the "
-                 f"prefix of {P} was written")
+                 f"{P} lanes of its list was written")
     return err
+
+
+def _two_phase_row(fn, inputs, phase1, tag):
+    """K1 or K2 (`fn`) on one tier's inputs: phase 1 by the kernel for
+    `phase1` iterations and the tier's cut on the card (a tier of one
+    shard: two_phase_order and prefix_size_on_card), its count held to the
+    host's prefix_size; then phase 2 over that list, _lanes_check. Returns
+    max|Δθ|."""
+    from gdmix_tpu_torch.ops import newton_lanes as nl
+    solver = dict(lam=1.0, unreg_bias=True, ftol=1e-12, pgtol=1e-5)
+    th0, X, y, w, off, cnt = inputs
+    th1, conv1, _ = fn(th0, X, y, w, off, cnt, maxiter=phase1, **solver)
+    _, n_un, [(lanes, n_lanes)] = nl.two_phase_shard_lanes([conv1],
+                                                           X.shape[0])
+    P = nl.prefix_size(int(n_un[0]), X.shape[0])
+    _check(int(n_lanes[0]) == P, f"two_phase {tag}: {int(n_lanes[0])} "
+                                 f"lanes, the host's prefix {P}")
+    return _lanes_check(fn, th1, inputs, lanes, n_lanes, tag,
+                        dict(solver, maxiter=100), phase1=phase1,
+                        n_unconverged=int(n_un[0]))
+
+
+def _numpy_cut(flags, b_cap):
+    """The JAX solver's cut of a tier's phase-1 flags in numpy (a stable
+    argsort, the ladder prefix over all its lanes), split by owning shard
+    into local slots."""
+    order = np.argsort(flags, kind="stable")
+    n_un = int((~flags).sum())
+    P = 64
+    while P < n_un and P < flags.size:
+        P *= 2
+    pre = order[:min(P, flags.size)]
+    return [pre[pre // b_cap == s] - s * b_cap
+            for s in range(flags.size // b_cap)]
+
+
+def _captured_cuts(record):
+    """ops.newton's newton_two_phase_lanes wrapped to append, for
+    each tier it solves, its shards' kernel inputs (as the wrapper
+    converts them), the phase-1 flags the cut got and the lists it handed
+    the shards. Returns a function that restores both."""
+    import torch
+    from gdmix_tpu_torch.ops import newton, newton_lanes as nl
+    orig, orig_cut = newton.newton_two_phase_lanes, \
+        nl.two_phase_shard_lanes
+
+    def cut(converged, b_cap):
+        out = orig_cut(converged, b_cap)
+        record[-1]["flags"] = [c.clone() for c in converged]
+        record[-1]["lists"] = [(lanes.clone(), n.clone())
+                               for lanes, n in out[2]]
+        return out
+
+    def solve(shards, **kw):
+        f32 = torch.float32
+        record.append(dict(shards=[tuple(
+            [t.to(f32).contiguous() for t in sh[:5]]
+            + [torch.clamp_min(sh[5].to(f32), 1.0).contiguous()])
+            for sh in shards], kw=kw))
+        return orig(shards, **kw)
+    newton.newton_two_phase_lanes = solve
+    nl.two_phase_shard_lanes = cut
+
+    def restore():
+        newton.newton_two_phase_lanes = orig
+        nl.two_phase_shard_lanes = orig_cut
+    return restore
+
+
+def _shard_rows(record, tag):
+    """K1/K2 over the lane lists of the tiers a sharded two-phase fit cut
+    (_captured_cuts), each tier twice. Cold: the fit's own lists, held to
+    _numpy_cut of the flags the cut got (integers equal), and each shard's
+    phase 1 by the kernel again giving those flags. Warm (_warm: a few
+    entities to move, so shards hold part of the prefix or none of it):
+    phase 1 on each shard, two_phase_shard_lanes, the lists held to the
+    numpy cut. Then each shard's phase 2 over its list, _lanes_check.
+    Returns ({kernel: max|Δθ|}, tiers checked)."""
+    import torch
+    from gdmix_tpu_torch.ops import newton_lanes as nl
+    errs = {"newton_full": 0.0, "newton_block": 0.0}
+    for i, tier in enumerate(record):
+        b_cap, n, d = tier["shards"][0][1].shape
+        fn = (nl.newton_full if nl.lanes_form(n, d) == "warp"
+              else nl.newton_block)
+        kw = tier["kw"]
+        solver = dict(lam=kw["l2_reg_weight"], unreg_bias=kw["unreg_bias"],
+                      ftol=kw["ftol"], pgtol=kw["pgtol"])
+        for start in ("cold", "warm"):
+            shards = (tier["shards"] if start == "cold"
+                      else [_warm(sh) for sh in tier["shards"]])
+            first = [fn(*sh, maxiter=kw["phase1_iters"], **solver)
+                     for sh in shards]
+            flags = [conv for _, conv, _ in first]
+            if start == "cold":
+                lists = tier["lists"]
+                _check(all(torch.equal(a, b)
+                           for a, b in zip(flags, tier["flags"])),
+                       f"two_phase {tag} tier {i}: phase 1 again gave "
+                       f"other flags")
+            else:
+                lists = nl.two_phase_shard_lanes(flags, b_cap)[2]
+            want = _numpy_cut(torch.cat(flags).cpu().numpy(), b_cap)
+            got = [lanes[:int(c[0])].cpu().numpy() for lanes, c in lists]
+            _check(len(got) == len(want) and all(
+                np.array_equal(g, w) for g, w in zip(got, want)),
+                f"two_phase {tag} tier {i} {start}: the shards' lists are "
+                f"not the numpy cut ({[g.size for g in got]} against "
+                f"{[w.size for w in want]})")
+            for s, (sh, (th1, conv, _), (lanes, c)) in enumerate(zip(
+                    shards, first, lists)):
+                err = _lanes_check(fn, th1, sh, lanes, c,
+                                   f"{tag}{i}_{start}_s{s}",
+                                   dict(solver, maxiter=kw["maxiter"]),
+                                   shard=s, shards=len(shards),
+                                   shard_stragglers=int((~conv).sum()))
+                errs[fn.__name__] = max(errs[fn.__name__], err)
+    return errs, len(record)
 
 
 def _warm(inputs):
@@ -1525,7 +1646,7 @@ def _two_phase_times(tiers):
               pgtol=1e-5)
     one = [lambda t=t: nl.newton_lr_batch_lanes(*t, **kw) for t in tiers]
     two = [lambda t=t: nl.newton_two_phase_lanes(
-        *t, phase1_iters=TWO_PHASE_FIT_ITERS, **kw) for t in tiers]
+        [t], phase1_iters=TWO_PHASE_FIT_ITERS, **kw)[0] for t in tiers]
     run = lambda fns: [f() for f in fns]
     ms = {"single": 0.0, "two_phase": 0.0}
     for tag in ("single", "two_phase", "two_phase", "single"):
@@ -1543,8 +1664,11 @@ def _two_phase_times(tiers):
 def _two_phase_syncs(fg, tmp):
     """Host reads (sync debug mode, by Python line) of each of the primary
     plan's bucket dispatches, single-phase and two-phase, each after one
-    warm run; the two must be the same on every bucket. Returns the
-    single-phase reads of one bucket."""
+    warm run; the two must be the same on every bucket. Each bucket past
+    64 entities is also cut into SHARDED_MESHES shards, as a tier of the
+    sharded plane: the two-phase rung's solve.tier over them may read no
+    more than single-phase's solve of each shard. Returns the single-phase
+    reads of one bucket."""
     import torch
     from gdmix_tpu_torch.bench import count_syncs
     from gdmix_tpu_torch.data.bucketing import iter_bucketize_flat
@@ -1553,19 +1677,24 @@ def _two_phase_syncs(fg, tmp):
                          newton_phase1_iters=TWO_PHASE_FIT_ITERS)
     dev = torch.device(DEV)
     per_bucket = None
+
+    def reads(fn):
+        fn()
+        torch.cuda.synchronize()
+        _, lines = count_syncs(fn, dev)
+        torch.cuda.synchronize()
+        return lines
+
     for b in iter_bucketize_flat(fg, schema,
                                  one.model_params.offset_column_name,
                                  has_intercept=one.has_intercept):
         a = one._bucket_device_arrays(b)
         shape = (b.u_cap, b.indices.shape[0], b.n_cap)
-        got = {}
+        got, solvers = {}, {}
         for tag, m in (("single", one), ("two_phase", two)):
             rung, solve = m._select_solver(*shape)
-            solve(a)
-            torch.cuda.synchronize()
-            _, lines = count_syncs(lambda: solve(a), dev)
-            torch.cuda.synchronize()
-            got[tag] = (rung, lines)
+            solvers[tag] = solve
+            got[tag] = (rung, reads(lambda: solve(a)))
         _say("two_phase", bucket=f"B{shape[1]}_n{shape[2]}",
              rungs=[got[t][0] for t in got],
              host_reads={t: got[t][1] for t in got})
@@ -1574,6 +1703,18 @@ def _two_phase_syncs(fg, tmp):
         _check(got["two_phase"][1] == got["single"][1],
                f"two_phase: bucket {shape} host reads {got}")
         per_bucket = got["single"][1]
+        for p in SHARDED_MESHES:
+            if shape[1] % p:
+                continue
+            shards = [{k: v.view(p, -1, *v.shape[1:])[s]
+                       for k, v in a.items()} for s in range(p)]
+            single = reads(lambda: [solvers["single"](sh) for sh in shards])
+            tier = reads(lambda: solvers["two_phase"].tier(shards))
+            _say("two_phase", tier=f"B{shape[1]}_n{shape[2]}", shards=p,
+                 host_reads={"single": single, "two_phase": tier})
+            _check(all(single.get(k, 0) >= v for k, v in tier.items()),
+                   f"two_phase: tier {shape} over {p} shards host reads "
+                   f"{tier}, single-phase {single}")
     return per_bucket
 
 
@@ -1581,10 +1722,12 @@ def phase_two_phase(card):
     """Two-phase Newton on the card (newton_phase1_iters > 0; the JAX
     package's _newton_two_phase_solver): K1 and K2 over lane lists against
     their plain versions at each tier of the primary and the heavy tail,
-    the host reads of a bucket's dispatch against single-phase, fit_flat of
-    both on both planes against their single-phase fits, the primary's
-    tiers timed both ways, K1 without a lane list, and the bench with
-    BENCH_PHASE1. Returns ({kernel: max|Δθ|}, {kernel: launches})."""
+    the host reads of a bucket's and a sharded tier's dispatch against
+    single-phase, fit_flat of both on the host plane and on the sharded
+    plane at P = 1, 2 and 4 against their single-phase fits, K1/K2 over
+    the lists the mesh of 4 handed its shards, the primary's tiers timed
+    both ways, K1 without a lane list, and the bench with BENCH_PHASE1.
+    Returns ({kernel: max|Δθ|}, {kernel: launches})."""
     import re
     import torch
     from gdmix_tpu_torch.ops import newton, newton_lanes as nl
@@ -1592,6 +1735,7 @@ def phase_two_phase(card):
     errs = {"newton_full": 0.0, "newton_block": 0.0}
     launches = {"newton_full": 0, "newton_block": 0}
     counters = (nl.newton_full, nl.newton_block)
+    captured_cuts = {}
     with tempfile.TemporaryDirectory(prefix="gdx_smoke_2p_") as tmp:
         work = {"primary": make_workload_flat(100_000, seed=0),
                 "heavy_tail": heavy_tail_workload()}
@@ -1605,20 +1749,44 @@ def phase_two_phase(card):
                 ref[tag] = model.fit_flat(fg, {}, schema)
             finally:
                 newton.newton_lr_batch_lanes = orig
-        # ---- the main path: fit_flat with two-phase, both planes ----
+        # ---- the main path: fit_flat with two-phase, host plane and
+        # sharded plane at P = 1, 2, 4; single-phase beside each mesh ----
         for tag, fg in work.items():
             ids = np.asarray(fg.entity_ids)[_well_posed_rows(fg)]
-            for plane in ("host", "sharded"):
-                model, schema = stage_model(
-                    24, os.path.join(tmp, f"{tag}_{plane}"), re_mode=plane,
-                    newton_phase1_iters=TWO_PHASE_FIT_ITERS)
-                for c in counters:
-                    c.launches = 0
-                t0 = time.perf_counter()
-                table = model.fit_flat(fg, {}, schema)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-                got = {c.__name__: c.launches for c in counters}
+            for plane, p in (("host", 1), ("sharded", 1)) + tuple(
+                    ("sharded", p) for p in SHARDED_MESHES):
+                mesh = (_mesh_of(_repeated_mesh(p)) if p > 1
+                        else contextlib.nullcontext())
+                single_s = None
+                with mesh:
+                    if p > 1:
+                        one, schema = stage_model(
+                            24, os.path.join(tmp, f"{tag}_{plane}{p}_one"),
+                            re_mode=plane)
+                        t0 = time.perf_counter()
+                        one.fit_flat(fg, {}, schema)
+                        torch.cuda.synchronize()
+                        single_s = time.perf_counter() - t0
+                    model, schema = stage_model(
+                        24, os.path.join(tmp, f"{tag}_{plane}{p}"),
+                        re_mode=plane,
+                        newton_phase1_iters=TWO_PHASE_FIT_ITERS)
+                    record = []
+                    restore = (_captured_cuts(record)
+                               if p == max(SHARDED_MESHES) else None)
+                    try:
+                        for c in counters:
+                            c.launches = 0
+                        t0 = time.perf_counter()
+                        table = model.fit_flat(fg, {}, schema)
+                        torch.cuda.synchronize()
+                        wall = time.perf_counter() - t0
+                        got = {c.__name__: c.launches for c in counters}
+                    finally:
+                        if restore is not None:
+                            restore()
+                if restore is not None:
+                    captured_cuts[tag] = record
                 for k, v in got.items():
                     launches[k] += v
                 share = _converged_share(model)
@@ -1629,28 +1797,38 @@ def phase_two_phase(card):
                 else:
                     lay = model.last_fit_sharding
                     tiers, shards = lay["tiers"], lay["shards"]
+                _check(shards == p, f"two_phase {tag}: {shards} shards, "
+                                    f"not {p}")
                 want = {"newton_full": 0, "newton_block": 0}
                 for B, n, d in tiers:
                     k = ("newton_full" if nl.lanes_form(n, d) == "warp"
                          else "newton_block")
                     want[k] += (2 if B > 64 else 1) * shards
-                _say("two_phase", fit=tag, plane=plane, entities=len(fg),
-                     converged=f"{share:.6f}", fit_s=f"{wall:.3f}",
+                _say("two_phase", fit=tag, plane=plane, shards=p,
+                     entities=len(fg), converged=f"{share:.6f}",
+                     fit_s=f"{wall:.3f}",
+                     single_phase_fit_s=(None if single_s is None
+                                         else f"{single_s:.3f}"),
                      rungs=model.last_fit_rungs, launches=got, want=want,
                      max_abs_dtheta_vs_single=f"{gap:.3e}",
                      compared=len(ids), card=repr(card))
-                _check(share >= 0.999, f"two_phase {tag} {plane}: converged "
-                                       f"{share}")
+                what = f"two_phase {tag} {plane} P={p}"
+                _check(share >= 0.999, f"{what}: converged {share}")
                 _check("newton_two_phase" in model.last_fit_rungs,
-                       f"two_phase {tag} {plane}: {model.last_fit_rungs}")
-                _check(gap <= F32_TOL, f"two_phase {tag} {plane}: "
-                                       f"max|dθ| vs single-phase {gap}")
-                _check(got == want, f"two_phase {tag} {plane}: launches "
-                                    f"{got}, want {want}")
+                       f"{what}: {model.last_fit_rungs}")
+                _check(gap <= F32_TOL, f"{what}: max|dθ| vs single-phase "
+                                       f"{gap}")
+                _check(got == want, f"{what}: launches {got}, want {want}")
         # ----
         _check(all(v > 0 for v in launches.values()),
                f"two_phase: a kernel of the path never launched {launches}")
         per_bucket = _two_phase_syncs(work["primary"], tmp)
+    # K1/K2 over the lists the mesh of 4 handed its shards
+    for tag, record in captured_cuts.items():
+        got, n_tiers = _shard_rows(record, f"{tag}_P{max(SHARDED_MESHES)}")
+        _check(n_tiers > 0, f"two_phase {tag}: no sharded tier captured")
+        for k, v in got.items():
+            errs[k] = max(errs[k], v)
     # K1/K2 over lane lists on the fits' own tier inputs
     for tag, tiers in captured.items():
         for i, inputs in enumerate(tiers):

@@ -50,14 +50,16 @@
 //
 // Phase 2 of two-phase Newton (gdmix_tpu/models/random_effect_lr.py:
 // 235-294 _newton_two_phase_solver) runs the same kernels over a lane list
-// that only the card knows: LANES [B] (phase 1's converged flags argsorted,
-// stragglers first) and NUN (their count). The group of slot i solves
-// entity LANES[i] while i is inside the prefix the JAX solver picks with
-// lax.switch, the smallest of 64, 128, … (< B) and B that holds the NUN
-// stragglers (`prefix_size`), and returns past it; entities outside the
-// prefix keep whatever their outputs held. The grid still spans B slots:
-// the groups past the prefix read one integer and exit, and no host read
-// sizes the launch. With LANES null, slot i is entity i.
+// that only the card knows: LANES [B], the entities to solve first, and
+// NLANES, how many of them to solve. The group of slot i solves entity
+// LANES[i] while i < NLANES and returns past it; entities it does not
+// solve keep whatever their outputs held. The caller makes the list and
+// its count on the card (ops/newton_lanes.py): on one bucket the
+// stragglers first and the JAX solver's ladder prefix that holds them; on
+// a shard of the entity-sharded plane, that shard's own lanes of the
+// prefix cut across the whole tier. The grid still spans B slots: the
+// groups past the count read one integer and exit, and no host read sizes
+// the launch. With LANES null, slot i is entity i.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -72,15 +74,6 @@ constexpr int kBlockWarps = 4;    // warps of one entity in newton_block
 constexpr int kStreamRows = 256;  // rows of X per chunk in the streamed form
 
 __host__ __device__ inline int align4(int x) { return (x + 3) & ~3; }
-
-// The phase-2 prefix for n_un stragglers in a bucket of B: the smallest
-// ladder size ≥ n_un, the ladder 64, 128, … below B, then B (JAX's
-// searchsorted over `sizes`; 64, or B when B < 64, at n_un = 0).
-__host__ __device__ inline int64_t prefix_size(int64_t n_un, int64_t B) {
-  int64_t p = 64;
-  while (p < n_un && p < B) p *= 2;
-  return p < B ? p : B;
-}
 
 // Shared-memory layout of one group (one entity), in floats. Every array
 // starts on a multiple of 4 floats (16-byte loads of X rows, θ, δ and the
@@ -505,7 +498,7 @@ __global__ void __launch_bounds__(kThreads, T == 1 ? 4 : 1) newton_kernel(
     float* __restrict__ TH, uint8_t* __restrict__ CONV,
     int32_t* __restrict__ ITERS, float* __restrict__ ZS,
     float* __restrict__ US, const int32_t* __restrict__ LANES,
-    const int32_t* __restrict__ NUN, int64_t B, int n, int d, float lam,
+    const int32_t* __restrict__ NLANES, int64_t B, int n, int d, float lam,
     int unreg_bias, int maxiter, float ftol, float pgtol) {
   constexpr int kGroups = kThreads / 32 / W;
   extern __shared__ __align__(16) float smem[];
@@ -552,8 +545,8 @@ __global__ void __launch_bounds__(kThreads, T == 1 ? 4 : 1) newton_kernel(
 
   const int64_t slot = (int64_t)blockIdx.x * kGroups + warp / W;
   if (slot >= B) return;  // its group alone: a warp (W = 1) or the block
-  // a slot of a lane list past the prefix has nothing to solve
-  if (LANES != nullptr && slot >= prefix_size(*NUN, B)) return;
+  // a slot of a lane list past its count has nothing to solve
+  if (LANES != nullptr && slot >= *NLANES) return;
   const int64_t b = LANES != nullptr ? LANES[slot] : slot;  // the entity
 
   c.Xg = X + b * n * d;
@@ -659,7 +652,7 @@ int launch(KernelFn fn, size_t smem, int groups_per_block, const float* X,
            const float* Y, const float* Wt, const float* OFF,
            const float* CNT, const float* TH0, float* TH, uint8_t* CONV,
            int32_t* ITERS, float* ZS, float* US, const int32_t* LANES,
-           const int32_t* NUN, int64_t B, int n, int d, float lam,
+           const int32_t* NLANES, int64_t B, int n, int d, float lam,
            int unreg_bias, int maxiter, float ftol, float pgtol,
            void* stream) {
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
@@ -671,8 +664,8 @@ int launch(KernelFn fn, size_t smem, int groups_per_block, const float* X,
   }
   const int64_t blocks = (B + groups_per_block - 1) / groups_per_block;
   fn<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      X, Y, Wt, OFF, CNT, TH0, TH, CONV, ITERS, ZS, US, LANES, NUN, B, n, d,
-      lam, unreg_bias, maxiter, ftol, pgtol);
+      X, Y, Wt, OFF, CNT, TH0, TH, CONV, ITERS, ZS, US, LANES, NLANES, B, n,
+      d, lam, unreg_bias, maxiter, ftol, pgtol);
   return (int)cudaGetLastError();
 }
 
@@ -687,29 +680,29 @@ int gdx_newton_group_floats(int form, int n, int d) {
 }
 
 // θ [B, d] f32, converged [B] (one byte), iterations [B] int32.
-// `LANES` [B] and `NUN` [1] int32: the lane list of two-phase Newton's
-// phase 2 (only the prefix's entities are solved and written), or both
-// null (every entity).
+// `LANES` [B] and `NLANES` [1] int32: a lane list, the entities
+// LANES[0 .. NLANES) solved and written and no other (two-phase Newton's
+// phase 2), or both null (every entity).
 int gdx_newton_full(const float* X, const float* Y, const float* Wt,
                     const float* OFF, const float* CNT, const float* TH0,
                     float* TH, uint8_t* CONV, int32_t* ITERS,
-                    const int32_t* LANES, const int32_t* NUN, int64_t B,
+                    const int32_t* LANES, const int32_t* NLANES, int64_t B,
                     int n, int d, float lam, int unreg_bias, int maxiter,
                     float ftol, float pgtol, void* stream) {
   const Layout L = make_layout(n, d, 1, false);
   const size_t smem = sizeof(float) * (size_t)(kThreads / 32) * L.total;
   return launch(pick<1, false>(L.T), smem, kThreads / 32, X, Y, Wt, OFF, CNT,
-                TH0, TH, CONV, ITERS, nullptr, nullptr, LANES, NUN, B, n, d,
-                lam, unreg_bias, maxiter, ftol, pgtol, stream);
+                TH0, TH, CONV, ITERS, nullptr, nullptr, LANES, NLANES, B, n,
+                d, lam, unreg_bias, maxiter, ftol, pgtol, stream);
 }
 
 // The same, one block per entity. `ZS`/`US`: [B, n] f32 device-memory
 // scratch for z and u in the streamed form (`streamed` = 1), else null;
-// `LANES`/`NUN` as gdx_newton_full's.
+// `LANES`/`NLANES` as gdx_newton_full's.
 int gdx_newton_block(const float* X, const float* Y, const float* Wt,
                      const float* OFF, const float* CNT, const float* TH0,
                      float* TH, uint8_t* CONV, int32_t* ITERS, float* ZS,
-                     float* US, const int32_t* LANES, const int32_t* NUN,
+                     float* US, const int32_t* LANES, const int32_t* NLANES,
                      int streamed, int64_t B, int n, int d, float lam,
                      int unreg_bias, int maxiter, float ftol, float pgtol,
                      void* stream) {
@@ -718,7 +711,7 @@ int gdx_newton_block(const float* X, const float* Y, const float* Wt,
   const KernelFn fn =
       streamed ? pick<kBlockWarps, true>(L.T) : pick<kBlockWarps, false>(L.T);
   return launch(fn, smem, 1, X, Y, Wt, OFF, CNT, TH0, TH, CONV, ITERS, ZS, US,
-                LANES, NUN, B, n, d, lam, unreg_bias, maxiter, ftol, pgtol,
+                LANES, NLANES, B, n, d, lam, unreg_bias, maxiter, ftol, pgtol,
                 stream);
 }
 

@@ -36,9 +36,10 @@ entity-sharded plane routes records to the mesh shard that owns their
 entity and groups and packs them on that shard's device
 (fit_records_sharded, parallel/entity_sharding.py). "auto" takes the
 sharded plane on a mesh of more than one device, as the JAX package does.
-The sharded plane solves each shard's slice of a tier on its own, so
-two-phase Newton orders and cuts each shard's lanes where the JAX package
-orders the tier across its shards: the same at P = 1.
+The sharded plane solves each shard's slice of a tier on its own device;
+two-phase Newton, whose phase-2 cut spans the whole tier in the JAX
+package, takes the tier's shards at once, orders and cuts their lanes
+together, and then solves each shard's own lanes of that cut.
 """
 from __future__ import annotations
 
@@ -170,22 +171,33 @@ def _newton_two_phase_solver(u_cap, has_intercept, regularize_bias, lam,
                              phase1_iters):
     """Two-phase Newton with straggler compaction
     (gdmix_tpu/models/random_effect_lr.py:235-294; ops/newton.py
-    newton_two_phase): `phase1_iters` iterations on the whole bucket, then
-    the smallest ladder prefix holding the stragglers, stragglers first,
-    for `maxiter` from phase 1's θ. No variance: the gate admits it only
-    with variance_mode None."""
+    newton_two_phase): `phase1_iters` iterations on the whole tier, then
+    the smallest ladder prefix holding the tier's stragglers, stragglers
+    first, for `maxiter` from phase 1's θ. `solve(a)` takes one bucket;
+    `solve.tier(arrays)` the shards of one tier of the entity-sharded
+    plane at once, cut across all of them as the JAX solver cuts its
+    sharded array, and returns one result a shard. No variance: the gate
+    admits it only with variance_mode None."""
     unreg_bias = has_intercept and not regularize_bias
 
-    def solve(a):
-        X = densify_bucket(a["indices"], a["values"], u_cap, has_intercept)
+    def tier(arrays):
+        shards = [(a["theta0"],
+                   densify_bucket(a["indices"], a["values"], u_cap,
+                                  has_intercept),
+                   a["labels"], a["weights"], a["offsets"],
+                   a["sample_count"]) for a in arrays]
+        X = shards[0][1]
         mask = _l2_mask(X.shape[2], has_intercept, regularize_bias, False,
                         X.dtype, X.device)
-        res = newton_two_phase(
-            a["theta0"], X, a["labels"], a["weights"], a["offsets"],
-            a["sample_count"], l2_reg_weight=lam, l2_mask=mask,
-            phase1_iters=phase1_iters, maxiter=maxiter, ftol=ftol,
-            pgtol=pgtol, static_unreg_bias=unreg_bias)
-        return res.theta, None, res.converged
+        return [(res.theta, None, res.converged)
+                for res in newton_two_phase(
+                    shards, l2_reg_weight=lam, l2_mask=mask,
+                    phase1_iters=phase1_iters, maxiter=maxiter, ftol=ftol,
+                    pgtol=pgtol, static_unreg_bias=unreg_bias)]
+
+    def solve(a):
+        return tier([a])[0]
+    solve.tier = tier
     return solve
 
 
@@ -1086,13 +1098,20 @@ class RandomEffectLRModel(Model):
             rungs[rung] = rungs.get(rung, 0) + 1
             theta0_s = up(shard_rows(mesh, theta0, dt))
             count_s = up(shard_rows(mesh, sample_count, dt))
-            solved = []
-            for s, dev in enumerate(mesh.devices):
+            arrays = []
+            for s in range(P):
                 a = {k: v[s] for k, v in blocks.items()}
                 a["indices"] = a["indices"].long()
                 a["sample_count"], a["theta0"] = count_s[s], theta0_s[s]
-                with on_device(dev):
-                    solved.append(solve(a))
+                arrays.append(a)
+            if rung == "newton_two_phase":
+                # the tier's shards at once: the cut spans all of them
+                solved = solve.tier(arrays)
+            else:
+                solved = []
+                for a, dev in zip(arrays, mesh.devices):
+                    with on_device(dev):
+                        solved.append(solve(a))
             pending.append((ti, solved, pack_dropped))
         if tier_static is not None:
             self.static_upload_count += 1

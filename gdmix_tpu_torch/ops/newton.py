@@ -17,22 +17,24 @@ Dispatch, as in the JAX package:
     multi-RHS kernel (K4) on a card when n ≤ 128 and by a Cholesky solve
     otherwise — the rule of gdmix_tpu/ops/newton.py:168-172, chosen by shape
     before any launch;
-  * two-phase (newton_two_phase): on the lanes path two launches of its
-    kernels, the second over a lane list kept on the card
-    (ops/newton_lanes.newton_two_phase_lanes); elsewhere the batch-major
-    loop twice, with one host read of the stragglers' count between.
+  * two-phase (newton_two_phase, over one tier's shards; a bucket is a
+    tier of one shard): on the lanes path two launches of its kernels a
+    shard, the second over the lane list the tier's cut hands the shard on
+    the card (ops/newton_lanes.newton_two_phase_lanes); elsewhere the
+    batch-major loop twice, with one host read of the shards' counts
+    between.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional
 
 import torch
 
 from gdmix_tpu_torch.ops.linsolve import (spd_solve_batched,
                                           spd_solve_batched_mrhs)
-from gdmix_tpu_torch.ops.newton_lanes import (MAX_DIM, newton_lr_batch_lanes,
-                                              newton_two_phase_lanes,
-                                              prefix_size, two_phase_order)
+from gdmix_tpu_torch.ops.newton_lanes import (
+    MAX_DIM, newton_lr_batch_lanes, newton_two_phase_lanes,
+    two_phase_shard_lanes)
 
 _ARMIJO_C1 = 1e-4
 _MAX_BACKTRACKS = 20
@@ -47,9 +49,10 @@ class NewtonResult(NamedTuple):
 
 
 class TwoPhaseResult(NamedTuple):
-    """newton_two_phase's result: NewtonResult's fields, then phase 1's
-    lane order and straggler count, from which prefix_size gives the
-    entities solved again (order[:P])."""
+    """newton_two_phase's result for one shard: NewtonResult's fields,
+    then phase 1's lane order and straggler count over the whole tier (all
+    its shards), from which prefix_size gives the lanes solved again
+    (order[:P])."""
     theta: torch.Tensor           # [B, dim]
     converged: torch.Tensor       # [B] bool
     num_iterations: torch.Tensor  # [B] int32: phase 1 + phase 2
@@ -218,47 +221,56 @@ def newton_lr_batch(theta0: torch.Tensor,
     return NewtonResult(theta=theta, converged=done, num_iterations=iters)
 
 
-def newton_two_phase(theta0: torch.Tensor, X: torch.Tensor,
-                     labels: torch.Tensor, weights: torch.Tensor,
-                     offsets: torch.Tensor, counts: torch.Tensor, *,
-                     l2_reg_weight: float, l2_mask: torch.Tensor,
-                     phase1_iters: int, maxiter: int = 50,
-                     ftol: float = 1e-12, pgtol: float = 1e-5,
+def newton_two_phase(shards, *, l2_reg_weight: float,
+                     l2_mask: torch.Tensor, phase1_iters: int,
+                     maxiter: int = 50, ftol: float = 1e-12,
+                     pgtol: float = 1e-5,
                      static_unreg_bias: Optional[bool] = None
-                     ) -> TwoPhaseResult:
+                     ) -> List[TwoPhaseResult]:
     """Two-phase Newton with straggler compaction
-    (gdmix_tpu/models/random_effect_lr.py:235-294): newton_lr_batch for
-    `phase1_iters` iterations on the whole bucket; the lanes ordered
-    stragglers first (two_phase_order); the smallest ladder prefix that
-    holds the stragglers (prefix_size) solved again from phase 1's θ for
+    (gdmix_tpu/models/random_effect_lr.py:235-294) over one tier's shards,
+    each a (θ0, X, labels, weights, offsets, counts) of the same shape on
+    its own device (a bucket of the host plane is a tier of one shard):
+    newton_lr_batch for `phase1_iters` iterations on every shard; the
+    tier's lanes ordered stragglers first across its shards and
+    the smallest ladder prefix that holds the tier's stragglers cut
+    (two_phase_shard_lanes), as the JAX solver cuts its sharded array;
+    each shard's lanes of that prefix solved again from phase 1's θ for
     `maxiter`, and scattered back. Arguments as newton_lr_batch (primal
     only). On the lanes path (float32 on a card, dim ≤ MAX_DIM, a static
-    mask layout) both phases are kernel launches and the lane list stays
+    mask layout) both phases are kernel launches and the lane lists stay
     on the card; the batch-major loop, which reads the host every
-    iteration, reads the stragglers' count once to cut the prefix."""
-    B, _, dim = X.shape
+    iteration, reads the shards' counts once to cut their lists. Returns
+    one TwoPhaseResult a shard, with the tier's order and count."""
+    theta0, X0 = shards[0][:2]
     if (static_unreg_bias is not None and theta0.dtype == torch.float32
-            and X.device.type == "cuda" and dim <= MAX_DIM):
+            and X0.device.type == "cuda" and X0.shape[2] <= MAX_DIM):
         return newton_two_phase_lanes(
-            theta0, X, labels, weights, offsets, counts,
-            l2_reg_weight=float(l2_reg_weight), unreg_bias=static_unreg_bias,
-            phase1_iters=phase1_iters, maxiter=maxiter, ftol=ftol,
-            pgtol=pgtol)
-    kw = dict(l2_reg_weight=l2_reg_weight, l2_mask=l2_mask, ftol=ftol,
-              pgtol=pgtol)
-    res1 = newton_lr_batch(theta0, X, labels, weights, offsets, counts,
-                           maxiter=phase1_iters, **kw)
-    order, n_un = two_phase_order(res1.converged)
-    pre = order[:prefix_size(int(n_un[0]), B)].long()
-    res2 = newton_lr_batch(res1.theta[pre], X[pre], labels[pre],
-                           weights[pre], offsets[pre], counts[pre],
-                           maxiter=maxiter, **kw)
-    theta, conv = res1.theta.clone(), res1.converged.clone()
-    iters = res1.num_iterations.clone()
-    theta[pre], conv[pre] = res2.theta, res2.converged
-    iters[pre] += res2.num_iterations
-    return TwoPhaseResult(theta=theta, converged=conv, num_iterations=iters,
-                          order=order, n_unconverged=n_un)
+            shards, l2_reg_weight=float(l2_reg_weight),
+            unreg_bias=static_unreg_bias, phase1_iters=phase1_iters,
+            maxiter=maxiter, ftol=ftol, pgtol=pgtol)
+    kw = [dict(l2_reg_weight=l2_reg_weight, ftol=ftol, pgtol=pgtol,
+               l2_mask=l2_mask.to(shard[1].device)) for shard in shards]
+    first = [newton_lr_batch(*shard, maxiter=phase1_iters, **k)
+             for shard, k in zip(shards, kw)]
+    order, n_un, lists = two_phase_shard_lanes(
+        [res1.converged for res1 in first], X0.shape[0])
+    taken = torch.cat([n.to(order.device) for _, n in lists]).tolist()
+    out = []
+    for (_, X, labels, weights, offsets, counts), res1, (lanes, _), n, k \
+            in zip(shards, first, lists, taken, kw):
+        theta, conv = res1.theta.clone(), res1.converged.clone()
+        iters = res1.num_iterations.clone()
+        pre = lanes[:n].long()
+        res2 = newton_lr_batch(res1.theta[pre], X[pre], labels[pre],
+                               weights[pre], offsets[pre], counts[pre],
+                               maxiter=maxiter, **k)
+        theta[pre], conv[pre] = res2.theta, res2.converged
+        iters[pre] += res2.num_iterations
+        out.append(TwoPhaseResult(theta=theta, converged=conv,
+                                  num_iterations=iters, order=order,
+                                  n_unconverged=n_un))
+    return out
 
 
 def dual_variance(theta: torch.Tensor, X: torch.Tensor, labels: torch.Tensor,

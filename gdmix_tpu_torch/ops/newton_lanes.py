@@ -11,14 +11,18 @@ become whole solves, one launch per bucket (csrc/newton_lanes.cu):
    shared memory while it fits the block's opt-in, read again from device
    memory in chunks on each pass past it.
 
-Both also solve over a lane list that only the card knows (`lanes`,
-`n_unconverged`): phase 2 of two-phase Newton, `newton_two_phase_lanes`
-(gdmix_tpu/models/random_effect_lr.py:235-294 _newton_two_phase_solver).
-Phase 1 solves the bucket for `phase1_iters` iterations; its converged
-flags, stragglers first (`two_phase_order`), and their count stay on the
-card; phase 2 solves the entities of the smallest ladder prefix that holds
-the stragglers (`prefix_size`) from phase 1's θ. Two launches a bucket, no
-host read.
+Both also solve over a lane list that only the card knows: `lanes`, the
+entities in the order to solve them, and `n_lanes`, how many to solve.
+That is phase 2 of two-phase Newton (gdmix_tpu/models/random_effect_lr.py:
+235-294 _newton_two_phase_solver), `newton_two_phase_lanes`.
+Phase 1 solves every shard of a tier for `phase1_iters` iterations; the
+cut (`two_phase_shard_lanes`) orders the whole tier's lanes stragglers
+first (`two_phase_order`), takes the smallest ladder prefix that holds the
+tier's stragglers (`prefix_size_on_card`), as the JAX solver does over its
+sharded array, and hands each shard the lanes of that prefix it owns and
+their count; phase 2 solves each shard's list from phase 1's θ. Two
+launches a shard, no host read. A bucket of the host plane is a tier of
+one shard.
 
 `lanes_form(n, dim)` picks the form from the shape alone, before any
 launch: the warp form while four entities' shared memory leaves
@@ -39,6 +43,7 @@ converged lanes frozen, a lane whose line search fails is done.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -161,41 +166,98 @@ def _host_done(done: torch.Tensor) -> bool:
 def prefix_size(n_unconverged: int, B: int) -> int:
     """Two-phase Newton's phase-2 prefix for n_unconverged stragglers in a
     bucket of B: the smallest of the ladder 64, 128, … (< B) and B that
-    holds them (the JAX solver's searchsorted over its `sizes`;
-    csrc/newton_lanes.cu prefix_size). 64, or B below 64, when none is
-    left."""
+    holds them (the JAX solver's searchsorted over its `sizes`). 64, or B
+    below 64, when none is left. The host's form; prefix_size_on_card
+    computes it where the count stays on its device."""
     p = 64
     while p < n_unconverged and p < B:
         p *= 2
     return min(p, B)
 
 
+@functools.lru_cache(maxsize=64)
+def _ladder(B: int, device: torch.device) -> torch.Tensor:
+    """The JAX solver's `sizes` for a bucket of B on `device`, int32: 64,
+    128, … (< B), then B. Made there by a kernel (no upload) and kept: a
+    fit's tiers take a few sizes, and each two-phase dispatch would
+    otherwise launch four small kernels more to make them."""
+    steps, p = 1, 64
+    while p < B:
+        steps, p = steps + 1, p * 2
+    return torch.clamp_max(64 * 2 ** torch.arange(
+        steps, dtype=torch.int32, device=device), B)
+
+
+def prefix_size_on_card(n_unconverged: torch.Tensor, B: int):
+    """prefix_size of a count [1] int32 that stays on its device, as [1]
+    int32 there: the JAX solver's searchsorted over its ladder. No host
+    read and no upload."""
+    sizes = _ladder(B, n_unconverged.device)
+    return sizes[torch.searchsorted(sizes, n_unconverged)]
+
+
 def two_phase_order(converged: torch.Tensor):
-    """(order [B] int32, n_unconverged [1] int32) on converged's device:
-    the entities with the stragglers first, each part in index order
-    (`torch.argsort(converged, stable=True)`, as the JAX solver orders
-    them), and the stragglers' count. A stable partition by two prefix sums
-    and a scatter: nothing is read back to the host."""
-    B = converged.shape[0]
+    """(order [..., B] int32, n_unconverged [..., 1] int32) on converged's
+    device, along its last axis: the entities with the stragglers first,
+    each part in index order (`torch.argsort(converged, stable=True)`, as
+    the JAX solver orders them), and the stragglers' count. A stable
+    partition by two prefix sums and a scatter: nothing is read back to
+    the host."""
+    B = converged.shape[-1]
     un = ~converged
-    rank_un = torch.cumsum(un, 0, dtype=torch.int32)
-    n_un = (rank_un[-1:] if B else
-            torch.zeros(1, dtype=torch.int32, device=converged.device))
-    rank_conv = torch.cumsum(converged, 0, dtype=torch.int32)
-    pos = torch.where(un, rank_un - 1, n_un + rank_conv - 1)
+    rank_un = torch.cumsum(un, -1, dtype=torch.int32)
+    n_un = (rank_un[..., -1:] if B else
+            torch.zeros(converged.shape[:-1] + (1,), dtype=torch.int32,
+                        device=converged.device))
+    index = torch.arange(B, dtype=torch.int32, device=converged.device)
+    # a converged entity goes after every straggler, at its rank among the
+    # converged: its index less the stragglers before it
+    pos = torch.where(un, rank_un - 1, n_un + index - rank_un)
     order = torch.empty_like(pos).scatter_(
-        0, pos.long(), torch.arange(B, dtype=torch.int32,
-                                    device=converged.device))
+        -1, pos.long(), index.expand(pos.shape).contiguous())
     return order, n_un
 
 
-def _lanes_plain(theta0, X, y, w, off, cnt, lanes, n_unconverged, **kw):
-    """newton_full_plain over a lane list: the entities of the prefix
-    solved, the others left at θ0 (one host read of the count, the plain
-    version's)."""
+def two_phase_shard_lanes(converged, b_cap: int):
+    """The phase-2 cut of one tier of the entity-sharded plane, on the
+    card. `converged`: each shard's phase-1 flags, [b_cap] bool on its own
+    device; the tier's slot s·b_cap + i is shard s's lane i
+    (parallel/entity_sharding.py shard_rows). The whole tier is cut as the
+    JAX solver cuts its sharded array: its lanes stragglers first, the
+    smallest ladder prefix over its P·b_cap lanes that holds all its
+    stragglers. Returns (order [P·b_cap] int32, n_unconverged [1] int32):
+    the tier's, on the first shard's device; and for each shard
+    (lanes [b_cap] int32, n_lanes [1] int32) on its own device: its lanes
+    in the tier's order as its own slots, the first n_lanes of them inside
+    the prefix. No host read.
+
+    The prefix holds every straggler, then the tier's first converged
+    lanes in slot order, which is shard-major; and a shard's lanes in the
+    tier's order are its own stragglers first (two_phase_order of its
+    flags). So a shard's count is its stragglers plus the converged lanes
+    the prefix takes from it."""
+    P = len(converged)
+    flat = (converged[0] if P == 1 else
+            torch.cat([c.to(converged[0].device) for c in converged]))
+    order, n_un = two_phase_order(flat)
+    prefix = prefix_size_on_card(n_un, P * b_cap)
+    if P == 1:
+        # one shard: its list is the tier's order, its count the prefix
+        return order, n_un, [(order, prefix)]
+    lanes, un = two_phase_order(flat.view(P, b_cap))      # [P, b_cap], [P, 1]
+    conv = b_cap - un
+    before = torch.cumsum(conv, 0, dtype=torch.int32) - conv
+    taken = torch.minimum(torch.clamp_min(prefix - n_un - before, 0), conv)
+    n_lanes = un + taken
+    return order, n_un, [(lanes[s].to(c.device), n_lanes[s].to(c.device))
+                         for s, c in enumerate(converged)]
+
+
+def _lanes_plain(theta0, X, y, w, off, cnt, lanes, n_lanes, **kw):
+    """newton_full_plain over a lane list: lanes[:n_lanes] solved, the
+    others left at θ0 (one host read of the count, the plain version's)."""
     newton_lr_batch_lanes.host_syncs += 1
-    pre = lanes[:prefix_size(int(n_unconverged.reshape(-1)[0]),
-                             X.shape[0])].long()
+    pre = lanes[:int(n_lanes.reshape(-1)[0])].long()
     th, conv, iters = _lane_outputs(theta0)
     th[pre], conv[pre], iters[pre] = newton_full_plain(
         theta0[pre], X[pre], y[pre], w[pre], off[pre], cnt[pre], **kw)
@@ -245,15 +307,15 @@ def _newton_loop(fgd, theta0, X, y, w, off, cnt, *, lam, unreg_bias,
 
 def newton_full_plain(theta0, X, y, w, off, cnt, *, lam: float,
                       unreg_bias: bool, maxiter: int, ftol: float,
-                      pgtol: float, lanes=None, n_unconverged=None):
+                      pgtol: float, lanes=None, n_lanes=None):
     """The plain version of both kernels, any float type:
     (θ [B, dim], converged [B] bool, iterations [B] int32). With a lane
-    list (`lanes` [B], `n_unconverged` [1], int32) only the entities
-    lanes[:prefix_size(n_unconverged, B)] are solved; every other entity
-    keeps θ0, counts as converged (phase 1 converged all but the
-    prefix's) and took 0 iterations."""
+    list (`lanes` [B], `n_lanes` [1], int32) only the entities
+    lanes[:n_lanes] are solved; every other entity keeps θ0, counts as
+    converged (phase 1 converged all but the prefix's) and took 0
+    iterations."""
     if lanes is not None:
-        return _lanes_plain(theta0, X, y, w, off, cnt, lanes, n_unconverged,
+        return _lanes_plain(theta0, X, y, w, off, cnt, lanes, n_lanes,
                             lam=lam, unreg_bias=unreg_bias, maxiter=maxiter,
                             ftol=ftol, pgtol=pgtol)
     fgd = lambda th: newton_fgd_plain(X, y, w, off, cnt, th, lam=lam,
@@ -276,7 +338,8 @@ def _lib() -> ctypes.CDLL:
         scal = [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                 ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
                 ctypes.c_void_p]
-        # + LANES, NUN; newton_block also ZS, US before them and `streamed`
+        # + LANES, NLANES; newton_block also ZS, US before them and
+        # `streamed` after
         lib.gdx_newton_full.argtypes = ptrs + [ctypes.c_void_p] * 2 + scal
         lib.gdx_newton_block.argtypes = (ptrs + [ctypes.c_void_p] * 4
                                          + [ctypes.c_int] + scal)
@@ -299,11 +362,11 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_inputs(what, X, y, w, off, cnt, th, lanes=None, nun=None):
+def _check_inputs(what, X, y, w, off, cnt, th, lanes=None, n_lanes=None):
     """The kernels index every array from X's [B, n, dim], and a lane
     list's entries as entities: anything else would be read out of bounds,
-    so it is refused here. A lane list is both of `lanes` [B] and `nun`
-    [1], int32 on X's card, or neither."""
+    so it is refused here. A lane list is both of `lanes` [B] and
+    `n_lanes` [1], int32 on X's card, or neither."""
     _cuda.require_cuda(what, X, y, w, off, cnt, th)
     B, n, dim = X.shape
     form = lanes_form(n, dim)
@@ -312,17 +375,17 @@ def _check_inputs(what, X, y, w, off, cnt, th, lanes=None, nun=None):
     if got != want:
         raise ValueError(f"{what}: shapes {got} for X {(B, n, dim)}; "
                          f"expected {want}")
-    if (lanes is None) != (nun is None):
-        raise ValueError(f"{what}: lanes and n_unconverged go together")
+    if (lanes is None) != (n_lanes is None):
+        raise ValueError(f"{what}: lanes and n_lanes go together")
     if lanes is not None:
-        _cuda.require_cuda(what, lanes, nun, dtypes=(torch.int32,))
-        if lanes.device != X.device or nun.device != X.device:
-            raise ValueError(f"{what}: the lane list is on "
-                             f"{lanes.device}/{nun.device}, X on {X.device}")
-        if tuple(lanes.shape) != (B,) or nun.numel() != 1:
+        _cuda.require_cuda(what, lanes, n_lanes, dtypes=(torch.int32,))
+        if lanes.device != X.device or n_lanes.device != X.device:
+            raise ValueError(f"{what}: the lane list is on {lanes.device}/"
+                             f"{n_lanes.device}, X on {X.device}")
+        if tuple(lanes.shape) != (B,) or tuple(n_lanes.shape) != (1,):
             raise ValueError(f"{what}: lanes {tuple(lanes.shape)}, "
-                             f"n_unconverged {tuple(nun.shape)}; expected "
-                             f"({B},) and one count")
+                             f"n_lanes {tuple(n_lanes.shape)}; expected "
+                             f"({B},) and one count (1,)")
     return form
 
 
@@ -341,27 +404,27 @@ def _lane_outputs(theta0):
             torch.zeros(B, dtype=torch.int32, device=theta0.device))
 
 
-def _lane_ptrs(lanes, nun):
+def _lane_ptrs(lanes, n_lanes):
     return ((None, None) if lanes is None
-            else (_cuda.ptr(lanes), _cuda.ptr(nun)))
+            else (_cuda.ptr(lanes), _cuda.ptr(n_lanes)))
 
 
 def newton_full(theta0, X, y, w, off, cnt, *, lam: float, unreg_bias: bool,
                 maxiter: int, ftol: float, pgtol: float, lanes=None,
-                n_unconverged=None):
+                n_lanes=None):
     """The whole damped-Newton solve of every entity, one warp each:
     θ0 [B, dim], X [B, n, dim], y/w/off [B, n], cnt [B] →
-    (θ, converged, iterations); over a lane list (`lanes`,
-    `n_unconverged`) as newton_full_plain. CUDA: float32 and
+    (θ, converged, iterations); over a lane list (`lanes`, `n_lanes`) as
+    newton_full_plain. CUDA: float32 and
     lanes_form(n, dim) == "warp"; other shapes raise (newton_block takes
     them)."""
     if X.device.type == "cpu":
         return newton_full_plain(theta0, X, y, w, off, cnt, lam=lam,
                                  unreg_bias=unreg_bias, maxiter=maxiter,
                                  ftol=ftol, pgtol=pgtol, lanes=lanes,
-                                 n_unconverged=n_unconverged)
+                                 n_lanes=n_lanes)
     form = _check_inputs("newton_full", X, y, w, off, cnt, theta0, lanes,
-                         n_unconverged)
+                         n_lanes)
     B, n, dim = X.shape
     if form != "warp":
         raise ValueError(f"newton_full: n {n}, dim {dim} take the {form} "
@@ -375,7 +438,7 @@ def newton_full(theta0, X, y, w, off, cnt, *, lam: float, unreg_bias: bool,
         err = lib.gdx_newton_full(
             *(_cuda.ptr(t) for t in (X, y, w, off, cnt, theta0, th, conv,
                                      iters)),
-            *_lane_ptrs(lanes, n_unconverged), B, n, dim, float(lam),
+            *_lane_ptrs(lanes, n_lanes), B, n, dim, float(lam),
             int(unreg_bias), int(maxiter), float(ftol), float(pgtol), stream)
     _cuda.check(lib, err, "newton_full")
     newton_full.launches += 1
@@ -387,7 +450,7 @@ newton_full.launches = 0
 
 def newton_block(theta0, X, y, w, off, cnt, *, lam: float, unreg_bias: bool,
                  maxiter: int, ftol: float, pgtol: float, lanes=None,
-                 n_unconverged=None):
+                 n_lanes=None):
     """The whole damped-Newton solve of every entity, one block of four
     warps each; arguments and result as newton_full. CUDA: float32,
     dim ≤ MAX_DIM, any n: X in shared memory while one entity fits the
@@ -396,9 +459,9 @@ def newton_block(theta0, X, y, w, off, cnt, *, lam: float, unreg_bias: bool,
         return newton_full_plain(theta0, X, y, w, off, cnt, lam=lam,
                                  unreg_bias=unreg_bias, maxiter=maxiter,
                                  ftol=ftol, pgtol=pgtol, lanes=lanes,
-                                 n_unconverged=n_unconverged)
+                                 n_lanes=n_lanes)
     form = _check_inputs("newton_block", X, y, w, off, cnt, theta0, lanes,
-                         n_unconverged)
+                         n_lanes)
     B, n, dim = X.shape
     th, conv, iters = (_outputs(theta0, B) if lanes is None
                        else _lane_outputs(theta0))
@@ -414,7 +477,7 @@ def newton_block(theta0, X, y, w, off, cnt, *, lam: float, unreg_bias: bool,
                                      iters)),
             None if zu is None else _cuda.ptr(zu[0]),
             None if zu is None else _cuda.ptr(zu[1]),
-            *_lane_ptrs(lanes, n_unconverged), int(streamed),
+            *_lane_ptrs(lanes, n_lanes), int(streamed),
             B, n, dim, float(lam), int(unreg_bias), int(maxiter),
             float(ftol), float(pgtol), stream)
     _cuda.check(lib, err, "newton_block")
@@ -451,33 +514,43 @@ def newton_lr_batch_lanes(theta0, X, labels, weights, offsets, counts, *,
 newton_lr_batch_lanes.host_syncs = 0
 
 
-def newton_two_phase_lanes(theta0, X, labels, weights, offsets, counts, *,
-                           l2_reg_weight: float, unreg_bias: bool,
-                           phase1_iters: int, maxiter: int, ftol: float,
-                           pgtol: float):
+def newton_two_phase_lanes(shards, *, l2_reg_weight: float,
+                           unreg_bias: bool, phase1_iters: int, maxiter: int,
+                           ftol: float, pgtol: float):
     """Two-phase Newton (the JAX package's _newton_two_phase_solver) on
-    the lanes path, float32, θ in θ0's type: phase 1 solves every entity
-    for `phase1_iters` iterations; phase 2 solves the prefix of
-    two_phase_order's lane list that prefix_size gives the stragglers'
-    count, from phase 1's θ, for `maxiter`. Two launches of the form
-    `lanes_form` picks; the lane list and its count never leave the card.
-    Returns ops/newton.TwoPhaseResult: a lane solved again took phase 1's
-    iterations plus phase 2's."""
+    the lanes path, float32, θ in θ0's type, over one tier's shards: each
+    a (θ0, X, labels, weights, offsets, counts) of the same shape, on its
+    own device (a bucket of the host plane is a tier of one shard). Phase
+    1 solves every shard for `phase1_iters` iterations;
+    two_phase_shard_lanes cuts the tier on the card; phase 2 solves each
+    shard's lanes of the prefix from phase 1's θ for `maxiter`. Two
+    launches a shard of the form `lanes_form` picks; the lane lists and
+    their counts never leave the card. Returns one
+    ops/newton.TwoPhaseResult a shard, with the tier's order and straggler
+    count: a lane solved again took phase 1's iterations plus phase 2's."""
     from gdmix_tpu_torch.ops.newton import TwoPhaseResult
 
     f32 = torch.float32
-    B, n, dim = X.shape
-    X32 = X.to(f32).contiguous()
-    y, w, off = (t.to(f32).contiguous() for t in (labels, weights, offsets))
-    cnt = torch.clamp_min(counts.to(f32), 1.0).contiguous()
-    solve = newton_full if lanes_form(n, dim) == "warp" else newton_block
     kw = dict(lam=float(l2_reg_weight), unreg_bias=unreg_bias, ftol=ftol,
               pgtol=pgtol)
-    th1, conv1, iters1 = solve(theta0.to(f32).contiguous(), X32, y, w, off,
-                               cnt, maxiter=phase1_iters, **kw)
-    order, n_un = two_phase_order(conv1)
-    th, conv, iters2 = solve(th1, X32, y, w, off, cnt, maxiter=maxiter,
-                             lanes=order, n_unconverged=n_un, **kw)
-    return TwoPhaseResult(theta=th.to(theta0.dtype), converged=conv,
-                          num_iterations=iters1 + iters2, order=order,
-                          n_unconverged=n_un)
+    staged, first = [], []
+    for theta0, X, labels, weights, offsets, counts in shards:
+        _, n, dim = X.shape
+        solve = newton_full if lanes_form(n, dim) == "warp" else newton_block
+        args = (X.to(f32).contiguous(),
+                *(t.to(f32).contiguous() for t in (labels, weights, offsets)),
+                torch.clamp_min(counts.to(f32), 1.0).contiguous())
+        staged.append((solve, args))
+        first.append(solve(theta0.to(f32).contiguous(), *args,
+                           maxiter=phase1_iters, **kw))
+    order, n_un, lists = two_phase_shard_lanes(
+        [conv for _, conv, _ in first], shards[0][1].shape[0])
+    out = []
+    for shard, (solve, args), (th1, _, iters1), (lanes, n_lanes) in zip(
+            shards, staged, first, lists):
+        th, conv, iters2 = solve(th1, *args, maxiter=maxiter, lanes=lanes,
+                                 n_lanes=n_lanes, **kw)
+        out.append(TwoPhaseResult(theta=th.to(shard[0].dtype), converged=conv,
+                                  num_iterations=iters1 + iters2,
+                                  order=order, n_unconverged=n_un))
+    return out

@@ -8,9 +8,9 @@
 //     form 0 newton_full, 1 newton_block, 2 newton_block streamed. Reads
 //     X y w off cnt th0 (.f32, in the working directory), writes th.f32,
 //     conv.u8, iters.i32. With `lanes`, also reads lanes.i32 [B] and
-//     nun.i32 [1] (the lane list of two-phase Newton's phase 2) and fills
-//     the outputs with kUntouched* first, so that an entity the kernel
-//     must not write shows those bits.
+//     nlanes.i32 [1] (a lane list and how many of its entities to solve:
+//     two-phase Newton's phase 2) and fills the outputs with kUntouched*
+//     first, so that an entity the kernel must not write shows those bits.
 #include <algorithm>
 #include <cstdint>
 #include <cstdio>
@@ -70,10 +70,10 @@ int main(int argc, char** argv) {
              CNT = load("cnt.f32", B), TH0 = load("th0.f32", B * d);
   std::vector<float> TH(B * d), ZS(B * n), US(B * n);
   std::vector<uint8_t> CONV(B);
-  std::vector<int32_t> ITERS(B), LANES, NUN;
+  std::vector<int32_t> ITERS(B), LANES, NLANES;
   if (lanes) {
     LANES = load<int32_t>("lanes.i32", B);
-    NUN = load<int32_t>("nun.i32", 1);
+    NLANES = load<int32_t>("nlanes.i32", 1);
     float untouched;
     std::memcpy(&untouched, &kUntouchedTheta, 4);
     std::fill(TH.begin(), TH.end(), untouched);
@@ -102,7 +102,7 @@ int main(int argc, char** argv) {
         g_block = &block;
         fn(X.data(), Y.data(), W.data(), OFF.data(), CNT.data(), TH0.data(),
            TH.data(), CONV.data(), ITERS.data(), ZS.data(), US.data(),
-           lanes ? LANES.data() : nullptr, lanes ? NUN.data() : nullptr, B,
+           lanes ? LANES.data() : nullptr, lanes ? NLANES.data() : nullptr, B,
            n, d, lam, unreg, maxiter, ftol, pgtol);
       });
     for (auto& th : threads) th.join();

@@ -343,10 +343,10 @@ def newton_emulator(tmp_path_factory):
 
 
 def _emulate(emu, form, arrays, *, lam, unreg, maxiter=100, ftol=1e-12,
-             pgtol=1e-5, lanes=None, n_unconverged=None):
+             pgtol=1e-5, lanes=None, n_lanes=None):
     """The harness's solve of `arrays` (θ0, X, y, w, off, cnt); with
-    `lanes` [B] and `n_unconverged`, over that lane list (its outputs
-    filled with the harness's kUntouched* bits first)."""
+    `lanes` [B] and `n_lanes`, over the first n_lanes of that lane list
+    (its outputs filled with the harness's kUntouched* bits first)."""
     th0, X, y, w, off, cnt = arrays
     B, n, d = X.shape
     for name, a in zip(("th0", "X", "y", "w", "off", "cnt"), arrays):
@@ -354,7 +354,7 @@ def _emulate(emu, form, arrays, *, lam, unreg, maxiter=100, ftol=1e-12,
     extra = []
     if lanes is not None:
         np.asarray(lanes, np.int32).tofile(emu / "lanes.i32")
-        np.asarray([n_unconverged], np.int32).tofile(emu / "nun.i32")
+        np.asarray([n_lanes], np.int32).tofile(emu / "nlanes.i32")
         extra = ["lanes"]
     subprocess.run([str(emu / "harness"), "solve", str(form), str(B), str(n),
                     str(d), repr(lam), str(int(unreg)), str(maxiter),

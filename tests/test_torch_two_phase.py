@@ -6,6 +6,7 @@ solved again in every case of the prefix ladder; the lane-list form of
 the K1/K2 source under tests/cuda_emu against its plain version; train()
 on both planes; the gate; the bench and the prewarm tool with two-phase
 on."""
+import contextlib
 import json
 import os
 import subprocess
@@ -57,12 +58,13 @@ def _few_threads():
 
 # ---- (a) the solver against JAX's, every case of the ladder ---------------
 
-def _bucket(B, n_cap, u_cap, n_cold, seed):
+def _bucket(B, n_cap, u_cap, n_cold, seed, warm_key=_KEY):
     """A bucket's solver arrays (float64, numpy): ragged entities over
     u_cap features, K = 3 entries a record, both classes in every entity.
     All but `n_cold` entities (chosen at random) start at their own
-    optimum, so they pass the gradient test before any iteration; the cold
-    ones start at 0 and stay stragglers through a few phase-1 iterations."""
+    optimum (solved with `warm_key`), so they pass the gradient test before
+    any iteration; the cold ones start at 0 and stay stragglers through a
+    few phase-1 iterations."""
     rng = np.random.RandomState(seed)
     K = 3
     counts = rng.randint(6, n_cap + 1, B)
@@ -76,7 +78,7 @@ def _bucket(B, n_cap, u_cap, n_cold, seed):
              offsets=rng.randn(B, n_cap) * 0.3 * real,
              sample_count=counts.astype(np.float64),
              theta0=np.zeros((B, u_cap + 1)))
-    warm = port_re._newton_solver(u_cap, *_KEY.values())(_port(a))[0]
+    warm = port_re._newton_solver(u_cap, *warm_key.values())(_port(a))[0]
     cold = rng.choice(B, n_cold, replace=False)
     a["theta0"] = warm.numpy().copy()
     a["theta0"][cold] = 0.0
@@ -87,9 +89,24 @@ def _port(a):
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in a.items()}
 
 
+_key = _KEY
+
+
+@contextlib.contextmanager
+def _jax_key(key):
+    """_jax_order's solver settings are `key` inside the block."""
+    global _key
+    _key, old = key, _key
+    try:
+        yield
+    finally:
+        _key = old
+
+
 def _jax_order(a, u_cap, phase1):
     """JAX's phase 1 on the bucket, then its order and prefix, as its
-    solver computes them (random_effect_lr.py:257-289)."""
+    solver computes them (random_effect_lr.py:257-289), with the solver
+    settings of `_key` (_KEY unless _jax_key says otherwise)."""
     from gdmix_tpu.ops.newton import densify_bucket as jax_densify
     X = jax_densify(jnp.asarray(a["indices"]), jnp.asarray(a["values"]),
                     u_cap, True)
@@ -98,9 +115,9 @@ def _jax_order(a, u_cap, phase1):
     res1 = jax_newton(jnp.asarray(a["theta0"]), X, jnp.asarray(a["labels"]),
                       jnp.asarray(a["weights"]), jnp.asarray(a["offsets"]),
                       jnp.asarray(a["sample_count"]),
-                      l2_reg_weight=_KEY["lam"],
+                      l2_reg_weight=_key["lam"],
                       l2_mask=jnp.asarray(mask), maxiter=phase1,
-                      ftol=_KEY["ftol"], pgtol=_KEY["pgtol"],
+                      ftol=_key["ftol"], pgtol=_key["pgtol"],
                       static_unreg_bias=True)
     B = X.shape[0]
     order = np.asarray(jnp.argsort(res1.converged))
@@ -145,9 +162,10 @@ def test_solver_matches_jax_in_every_ladder_case(B, phase1, n_cold, case):
     t = _port(a)
     mask = torch.ones(u_cap + 1, dtype=torch.float64)
     mask[0] = 0.0
-    res = newton_two_phase(
-        t["theta0"], densify_bucket(t["indices"], t["values"], u_cap, True),
-        t["labels"], t["weights"], t["offsets"], t["sample_count"],
+    [res] = newton_two_phase(
+        [(t["theta0"],
+          densify_bucket(t["indices"], t["values"], u_cap, True),
+          t["labels"], t["weights"], t["offsets"], t["sample_count"])],
         l2_reg_weight=_KEY["lam"], l2_mask=mask, phase1_iters=phase1,
         maxiter=_KEY["maxiter"], ftol=_KEY["ftol"], pgtol=_KEY["pgtol"],
         static_unreg_bias=True)
@@ -167,6 +185,135 @@ def test_solver_matches_jax_in_every_ladder_case(B, phase1, n_cold, case):
                                   res1.theta.numpy()[rest])
 
 
+# no gradient stop: every lane phase 2 solves again takes one iteration
+# more at least, so which lanes the cut takes shows in the iteration
+# counts. The warm entities start at |g| ≤ 1e-13, where that iteration
+# moves them by rounding noise alone
+_CUT_KEY = dict(_KEY, ftol=1e-6, pgtol=0.0)
+_CUT_WARM = dict(_KEY, pgtol=1e-13)
+
+# (shards, tier B, phase-1 iterations, cold entities, the ladder case)
+_SHARDED_LADDER = [(2, 130, 2, 0, "0"), (2, 200, 1, 40, "<=64"),
+                   (8, 200, 3, 100, "65-128"), (8, 320, 2, 320, "B"),
+                   (8, 520, 1, 30, "<=64")]
+
+
+@pytest.mark.parametrize("P,B,phase1,n_cold,case", _SHARDED_LADDER)
+def test_sharded_solver_matches_jax_on_the_whole_tier(P, B, phase1, n_cold,
+                                                      case):
+    """The port's two-phase rung over a tier of P shards (solve.tier, each
+    shard's B / P slots its own arrays) against JAX's solver on the whole
+    tier's array in float64, decrease stop 1e-6: θ to 1e-8 and converged
+    flags equal; the tier's order and straggler count are JAX's, the
+    ladder case is the one asked for, and the lanes the shards solved
+    again are JAX's order[:P], no more and no fewer."""
+    u_cap = 6
+    a = _bucket(B, 12, u_cap, n_cold, seed=P + B + phase1 + n_cold,
+                warm_key=_CUT_WARM)
+    key = tuple(_CUT_KEY.values())
+    want = jax_re._newton_two_phase_solver(u_cap, *key, phase1)(
+        {k: jnp.asarray(v) for k, v in a.items()})
+    solve = port_re._newton_two_phase_solver(u_cap, *key, phase1)
+    t = _port(a)
+    got = solve.tier([{k: v.view(P, B // P, *v.shape[1:])[s]
+                       for k, v in t.items()} for s in range(P)])
+    assert all(var is None for _, var, _ in got)
+    th = torch.cat([g[0] for g in got]).numpy()
+    conv = torch.cat([g[2] for g in got]).numpy()
+    np.testing.assert_allclose(th, np.asarray(want[0]), rtol=0,
+                               atol=_F64_TOL)
+    np.testing.assert_array_equal(conv, np.asarray(want[2]))
+
+    mask = torch.ones(u_cap + 1, dtype=torch.float64)
+    mask[0] = 0.0
+    X = densify_bucket(t["indices"], t["values"], u_cap, True)
+    cols = (t["theta0"], X, t["labels"], t["weights"], t["offsets"],
+            t["sample_count"])
+    res = newton_two_phase(
+        [tuple(c.view(P, B // P, *c.shape[1:])[s] for c in cols)
+         for s in range(P)], l2_reg_weight=_CUT_KEY["lam"], l2_mask=mask,
+        phase1_iters=phase1, maxiter=_CUT_KEY["maxiter"],
+        ftol=_CUT_KEY["ftol"], pgtol=_CUT_KEY["pgtol"],
+        static_unreg_bias=True)
+    np.testing.assert_array_equal(
+        torch.cat([r.theta for r in res]).numpy(), th)
+    with _jax_key(_CUT_KEY):
+        order, n_un, pre = _jax_order(a, u_cap, phase1)
+    assert {"0": n_un == 0, "<=64": 0 < n_un <= 64,
+            "65-128": 64 < n_un <= 128, "B": pre == B}[case], (n_un, pre)
+    for r in res:
+        assert int(r.n_unconverged[0]) == n_un
+        np.testing.assert_array_equal(r.order.numpy(), order)
+    first = newton_lr_batch(*cols, l2_reg_weight=_CUT_KEY["lam"],
+                            l2_mask=mask, maxiter=phase1,
+                            ftol=_CUT_KEY["ftol"], pgtol=_CUT_KEY["pgtol"])
+    again = torch.cat([r.num_iterations for r in res]) > first.num_iterations
+    np.testing.assert_array_equal(np.flatnonzero(again.numpy()),
+                                  np.sort(order[:pre]))
+
+
+def _ladder_cut(flags, b_cap):
+    """JAX's cut of a tier in numpy: its stable argsort of the flags and
+    its ladder prefix, split by owning shard into local slots."""
+    order = np.argsort(flags, kind="stable")
+    n_un = int((~flags).sum())
+    sizes, s = [], 64
+    while s < flags.size:
+        sizes.append(s)
+        s *= 2
+    sizes.append(flags.size)
+    pre = order[:sizes[int(np.searchsorted(sizes, n_un))]]
+    return order, n_un, [pre[pre // b_cap == s] - s * b_cap
+                         for s in range(flags.size // b_cap)]
+
+
+# (shards, b_cap, stragglers: how many and where)
+_CUTS = [(1, 40, 0, "spread"), (1, 200, 50, "spread"), (1, 200, 100, "spread"),
+         (1, 200, 200, "spread"), (2, 13, 0, "spread"), (2, 13, 26, "spread"),
+         (2, 100, 60, "spread"), (2, 100, 70, "last"), (2, 100, 130, "spread"),
+         (8, 13, 0, "spread"), (8, 13, 5, "first"), (8, 40, 64, "last"),
+         (8, 40, 65, "spread"), (8, 40, 128, "first"), (8, 40, 129, "spread"),
+         (8, 40, 320, "spread"), (8, 24, 3, "last")]
+
+
+@pytest.mark.parametrize("P,b_cap,n_un,where", _CUTS)
+def test_shard_lanes_are_the_jax_cut(P, b_cap, n_un, where):
+    """two_phase_shard_lanes against JAX's cut of the concatenated flags
+    (numpy's stable argsort and the ladder), integers equal: the tier's
+    order and count, and for each shard its lanes of the prefix in prefix
+    order, as local slots, and their count; the whole list is a
+    permutation of its slots. Every ladder case (n_un 0, ≤ 64, 65–128, all
+    of B_t), b_cap not a power of two, and shards that own no lane of the
+    prefix (stragglers all on the first or the last shards)."""
+    B = P * b_cap
+    rng = np.random.RandomState(P * 1000 + b_cap + n_un)
+    pick = {"spread": rng.permutation(B)[:n_un], "first": np.arange(n_un),
+            "last": np.arange(B - n_un, B)}[where]
+    flags = np.ones(B, bool)
+    flags[pick] = False
+    order, count, lists = nl.two_phase_shard_lanes(
+        [torch.from_numpy(f) for f in flags.reshape(P, b_cap)], b_cap)
+    want_order, want_n, want_lists = _ladder_cut(flags, b_cap)
+    assert order.dtype == count.dtype == torch.int32 and count.shape == (1,)
+    np.testing.assert_array_equal(order.numpy(), want_order)
+    assert int(count[0]) == want_n == n_un
+    assert len(lists) == P
+    for (lanes, n_lanes), want in zip(lists, want_lists):
+        assert lanes.dtype == n_lanes.dtype == torch.int32
+        assert lanes.shape == (b_cap,) and n_lanes.shape == (1,)
+        assert int(n_lanes[0]) == want.size
+        np.testing.assert_array_equal(lanes.numpy()[:want.size], want)
+        np.testing.assert_array_equal(np.sort(lanes.numpy()),
+                                      np.arange(b_cap))
+    if where != "spread" and n_un <= 64 < B:
+        assert any(int(n[0]) == 0 for _, n in lists), "every shard took lanes"
+    if P == 1:
+        # one shard: two_phase_order's list and prefix_size's count
+        o1, n1 = nl.two_phase_order(torch.from_numpy(flags))
+        np.testing.assert_array_equal(lists[0][0].numpy(), o1.numpy())
+        assert int(lists[0][1][0]) == nl.prefix_size(int(n1[0]), B)
+
+
 def test_two_phase_order_is_a_stable_argsort():
     """two_phase_order is torch.argsort(converged, stable=True) and the
     stragglers' count, at sizes around a block of the scan."""
@@ -179,6 +326,13 @@ def test_two_phase_order_is_a_stable_argsort():
         np.testing.assert_array_equal(
             order.numpy(), torch.argsort(conv.to(torch.uint8),
                                          stable=True).numpy())
+        # rows at once (the cut's per-shard form): each row on its own
+        rows = torch.from_numpy(rng.uniform(size=(3, B)) < 0.7)
+        order, n_un = nl.two_phase_order(rows)
+        assert order.shape == (3, B) and n_un.shape == (3, 1)
+        for r in range(3):
+            o, n = nl.two_phase_order(rows[r])
+            assert torch.equal(order[r], o) and torch.equal(n_un[r], n)
 
 
 @pytest.mark.parametrize("B,n_un,P", [(10, 0, 10), (64, 64, 64),
@@ -194,6 +348,10 @@ def test_prefix_size_is_the_jax_ladder(B, n_un, P):
     sizes.append(B)
     assert sizes[int(np.searchsorted(sizes, n_un))] == P
     assert nl.prefix_size(n_un, B) == P
+    on_card = nl.prefix_size_on_card(torch.tensor([n_un], dtype=torch.int32),
+                                     B)
+    assert on_card.dtype == torch.int32 and on_card.shape == (1,)
+    assert int(on_card[0]) == P
 
 
 def test_batch_major_two_phase_matches_lanes_plain_f32():
@@ -207,8 +365,8 @@ def test_batch_major_two_phase_matches_lanes_plain_f32():
               pgtol=1e-5)
     mask = torch.ones(7)
     mask[0] = 0.0
-    bm = newton_two_phase(*args, l2_mask=mask, **kw)
-    ln = nl.newton_two_phase_lanes(*args, unreg_bias=True, **kw)
+    [bm] = newton_two_phase([args], l2_mask=mask, **kw)
+    [ln] = nl.newton_two_phase_lanes([args], unreg_bias=True, **kw)
     assert int(bm.n_unconverged[0]) == int(ln.n_unconverged[0]) > 64
     np.testing.assert_array_equal(bm.order.numpy(), ln.order.numpy())
     np.testing.assert_array_equal(bm.converged.numpy(),
@@ -226,43 +384,48 @@ def test_batch_major_two_phase_matches_lanes_plain_f32():
 _UNTOUCHED = (0x7fc0dead, 0xab, -12345)   # the harness's kUntouched*
 
 
-@pytest.mark.parametrize("n_un", [0, 37, 66])
+# how many of the 70 lanes to solve: none; fewer than any ladder size, as
+# a shard's own share of a tier's prefix may be; the ladder's 64 (the
+# bucket's prefix for up to 64 stragglers); 66; all of them (B, the
+# prefix past 64 stragglers)
+@pytest.mark.parametrize("n_lanes", [0, 37, 64, 66, 70])
 @pytest.mark.parametrize("form,n,dim", [(0, 8, 25), (1, 40, 9),
                                         (2, 300, 9)])
 def test_kernel_lanes_emulated_matches_plain(newton_emulator, form, n, dim,
-                                             n_un):
+                                             n_lanes):
     """K1 (form 0) and K2 (1 resident, 2 streamed) from their CUDA source
-    over a permuted lane list of 70 entities, against the plain version
-    over the same list: at n_un 0 and 37 the prefix is 64 and 6 entities
-    stay out, at 66 it is all 70. Inside the prefix: models within the f32
-    bound, converged flags equal, iterations within 1. Outside it: the
+    over the first n_lanes of a permuted lane list of 70 entities, against
+    the plain version over the same list. Inside the count: models within
+    the f32 bound, converged flags equal, iterations within 1. Past it: the
     kernel writes nothing (the harness's sentinel bits stay, bit for bit),
     and the plain version returns θ0, converged, 0 iterations."""
     B = 70
-    X, y, w, off, cnt = _problem(B, n, dim, seed=form + n_un,
+    X, y, w, off, cnt = _problem(B, n, dim, seed=form + n_lanes,
                                  dtype=np.float32)
-    th0 = (np.random.RandomState(n_un).randn(B, dim) * 0.2).astype(np.float32)
+    th0 = (np.random.RandomState(n_lanes).randn(B, dim) * 0.2).astype(
+        np.float32)
     # most entities padding (count 0, weight 0, θ0 0: done at the gradient
     # test), 8 real ones spread through the list, 3 of them past slot 64
     lanes = np.random.RandomState(form).permutation(B).astype(np.int32)
     real = np.zeros(B, bool)
     real[lanes[[0, 9, 31, 50, 63, 64, 67, 69]]] = True
     X[~real], w[~real], cnt[~real], th0[~real] = 0.0, 0.0, 0.0, 0.0
-    P = nl.prefix_size(n_un, B)
     th, conv, iters = _emulate(newton_emulator, form,
                                (th0, X, y, w, off, cnt), lam=0.8, unreg=True,
-                               lanes=lanes, n_unconverged=n_un)
+                               lanes=lanes, n_lanes=n_lanes)
     conv = np.fromfile(newton_emulator / "conv.u8", np.uint8)
     want, wconv, witers = nl.newton_full_plain(
         *_torch(th0, X, y, w, off, cnt), lam=0.8, unreg_bias=True,
         maxiter=100, ftol=1e-12, pgtol=1e-5,
         lanes=torch.from_numpy(lanes),
-        n_unconverged=torch.tensor([n_un], dtype=torch.int32))
-    pre, rest = lanes[:P], lanes[P:]
+        n_lanes=torch.tensor([n_lanes], dtype=torch.int32))
+    pre, rest = lanes[:n_lanes], lanes[n_lanes:]
     np.testing.assert_array_equal(conv[pre].astype(bool), wconv.numpy()[pre])
     ok = pre[(_well_posed(X, w, cnt) | (cnt == 0))[pre] & wconv.numpy()[pre]]
-    assert np.abs(th[ok] - want.numpy()[ok]).max() <= _F32_TOL
-    assert np.abs(iters[pre] - witers.numpy()[pre]).max() <= 1
+    if ok.size:
+        assert np.abs(th[ok] - want.numpy()[ok]).max() <= _F32_TOL
+    if pre.size:
+        assert np.abs(iters[pre] - witers.numpy()[pre]).max() <= 1
     assert (iters[pre][real[pre]] > 0).all()
     assert (th[rest].view(np.uint32) == _UNTOUCHED[0]).all()
     assert (conv[rest] == _UNTOUCHED[1]).all()
@@ -275,25 +438,27 @@ def test_wrappers_refuse_a_bad_lane_list(monkeypatch):
     """The lane list's checks (_check_inputs, before any launch): CPU
     tensors are not the kernels'; past the device check, a list comes
     whole (lanes and their count) or not at all, with B lanes and one
-    count."""
+    count of shape (1,)."""
     X, y, w, off, cnt = _torch(*_problem(4, 8, 5, seed=1, dtype=np.float32))
     th0 = torch.zeros(4, 5)
     lanes = torch.arange(4, dtype=torch.int32)
-    nun = torch.zeros(1, dtype=torch.int32)
+    n_lanes = torch.zeros(1, dtype=torch.int32)
     check = lambda *ln: nl._check_inputs("newton_full", X, y, w, off, cnt,
                                          th0, *ln)
     with pytest.raises(ValueError, match="expected CUDA"):
-        check(lanes, nun)
+        check(lanes, n_lanes)
     monkeypatch.setattr(nl._cuda, "require_cuda", lambda *a, **k: None)
-    assert check(lanes, nun) == check() == "warp"
+    assert check(lanes, n_lanes) == check() == "warp"
     with pytest.raises(ValueError, match="go together"):
         check(lanes, None)
     with pytest.raises(ValueError, match="go together"):
-        check(None, nun)
+        check(None, n_lanes)
     with pytest.raises(ValueError, match="one count"):
-        check(lanes[:3], nun)
+        check(lanes[:3], n_lanes)
     with pytest.raises(ValueError, match="one count"):
         check(lanes, torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="one count"):
+        check(lanes, torch.zeros((), dtype=torch.int32))
 
 
 # ---- (c) train() on both planes -------------------------------------------
@@ -373,6 +538,51 @@ def test_train_two_phase_on_the_sharded_plane(tmp_path, monkeypatch):
         assert model.last_fit_rungs.get("newton_two_phase", 0) > 0
         assert model.last_fit_converged == (400, 400)
         _assert_close(got, want if p == 1 else single, _MODEL_TOL)
+
+
+# (settings, bound) of the sharded two-phase fits against the JAX
+# package's. With a loose decrease stop (1e-6, 1e-4; no gradient stop) a
+# lane phase 1 stopped on it moves by up to ~1e-4 when the tier's prefix
+# solves it again, so a cut other than JAX's shows. At the fixture's own
+# tolerances (decrease 1e-14, gradient 1e-10) the stop falls on rounding
+# noise: there the port's host plane already sits 1.1e-8 from JAX's, with
+# two-phase and without, so it is held to the packages' model bound
+_SHARDED_TWO_PHASE = [(dict(lbfgs_tolerance=0.0, lbfgs_pgtol=1e-7), 1e-8),
+                      (dict(lbfgs_tolerance=1e-6, lbfgs_pgtol=0.0), 1e-8),
+                      (dict(lbfgs_tolerance=1e-4, lbfgs_pgtol=0.0), 1e-8),
+                      (dict(), _MODEL_TOL)]
+
+
+@pytest.mark.parametrize("over,tol", _SHARDED_TWO_PHASE,
+                         ids=["stop_on_gradient", "ftol_1e-6", "ftol_1e-4",
+                              "fixture_tolerances"])
+def test_sharded_two_phase_matches_jax_sharded(tmp_path, over, tol):
+    """fit_records_sharded with two-phase at P = 8 (the port's mesh of
+    eight cpu entries, JAX's on eight of its devices) on the 400-entity
+    fixture, float64: the port's models equal JAX's, to 1e-8 where the
+    stop is clear of rounding noise. The tier's prefix is cut across its
+    shards in both packages, so the converged lanes solved again are the
+    same ones."""
+    from test_sharded_re import _groups_to_records
+    from test_torch_sharded_re import (_assert_models_close, _cpu_mesh,
+                                       _port_records)
+    from gdmix_tpu.parallel.mesh import get_mesh as jax_get_mesh
+    import jax
+    groups, _ = _make_groups(num_entities=400, seed=12)
+    md_file, train_dir, feature_file = _write_dataset(tmp_path, groups)
+    files = (md_file, train_dir, feature_file)
+    over = dict(_TWO_PHASE, **over)
+    jm, jschema = _build_model(*files, tmp_path / "jax", **over)
+    tm, tschema = _torch_model(*files, str(tmp_path / "torch"), **over)
+    data = _groups_to_records(groups)
+    got = tm.fit_records_sharded(_port_records(data), tschema,
+                                 model_weights={}, mesh=_cpu_mesh(8))
+    want = jm.fit_records_sharded(data, jschema, model_weights={},
+                                  mesh=jax_get_mesh(jax.devices()[:8]))
+    assert tm.last_fit_sharding["shards"] == 8
+    assert tm.last_fit_rungs == {"newton_two_phase": 3}
+    assert tm.last_fit_converged == (400, 400)
+    _assert_models_close(got, want, tol)
 
 
 # ---- (d) the gate ---------------------------------------------------------
