@@ -1,0 +1,7 @@
+"""mfu.criteo: the fits' counted FLOPs (the reference's funcalls over every
+entry) at the chip's float32 peak over the fits' walls."""
+from benchmark.readers import mfu
+
+
+def read(ctx):
+    return mfu(ctx, "fit")
