@@ -70,6 +70,7 @@ from gdmix_tpu_torch.parallel.process_group import (all_reduce_sum,
 from gdmix_tpu_torch.params import FixedLRParams, Params, from_argv
 from gdmix_tpu_torch.util.convert import fe_coefficients_from_numpy
 from gdmix_tpu_torch.util.model_utils import threshold_coefficients
+from gdmix_tpu_torch.util.timing import span
 
 logger = logging.getLogger(__name__)
 
@@ -470,12 +471,15 @@ class FixedEffectLRModel(Model):
         p = self.model_params
         aux = self.build_hybrid_aux_for(batch, device_cache)
         self._allreduce = [0, 0.0]
-        t0 = time.perf_counter()
-        res = lbfgs(self._objective_fun(batch, aux), x0,
-                    m=p.num_of_lbfgs_curvature_pairs, ftol=p.lbfgs_tolerance,
-                    pgtol=p.lbfgs_pgtol, maxiter=p.num_of_lbfgs_iterations)
-        coeffs = res.x.to("cpu", torch.float64).numpy()
-        seconds = time.perf_counter() - t0
+        # the solve and its answer's copy to the host; inside, ops/lbfgs.py's
+        # spans (`lbfgs`, `lbfgs.objective`, `lbfgs.fetch`)
+        with span("lbfgs.fe_fit") as fit:
+            res = lbfgs(self._objective_fun(batch, aux), x0,
+                        m=p.num_of_lbfgs_curvature_pairs,
+                        ftol=p.lbfgs_tolerance, pgtol=p.lbfgs_pgtol,
+                        maxiter=p.num_of_lbfgs_iterations)
+            coeffs = res.x.to("cpu", torch.float64).numpy()
+        seconds = fit.seconds
         self.last_fit = dict(
             f=res.f, iterations=res.num_iterations,
             funcalls=res.num_funcalls, converged=res.converged,

@@ -43,9 +43,9 @@ together, and then solves each shard's own lanes of that cut.
 """
 from __future__ import annotations
 
+import itertools
 import logging
 import os
-import time
 from functools import partial
 from typing import Dict, Mapping
 
@@ -77,6 +77,7 @@ from gdmix_tpu_torch.parallel.mesh import get_mesh, local_mesh, on_device
 from gdmix_tpu_torch.parallel.process_group import process_index_and_count
 from gdmix_tpu_torch.params import Params, REParams, from_argv
 from gdmix_tpu_torch.util.convert import newton_inputs_from_numpy
+from gdmix_tpu_torch.util.timing import span
 
 logger = logging.getLogger(__name__)
 
@@ -537,26 +538,27 @@ class RandomEffectLRModel(Model):
         if not use_sharded:
             return self.fit_groups(fg, model_weights, schema_params,
                                    device_cache=device_cache)
-        t0 = time.time()
-        counts = np.asarray(fg.counts, np.int64)
-        uniq, ginv = factorize_entities(np.asarray(fg.entity_ids, object))
-        inv = np.repeat(ginv, counts)
-        ecounts = np.bincount(ginv, weights=counts,
-                              minlength=len(uniq)).astype(np.int64)
-        # each entity's records are one run of fg, at its group's start, in
-        # fg's order (not factorize's sorted order); an entity repeated in
-        # fg (a capped entity's overflow groups) has no one run
-        rec_starts = None
-        if len(uniq) == len(fg):
-            rec_starts = np.zeros(len(uniq), np.int64)
-            rec_starts[ginv] = np.cumsum(counts) - counts
-        factorize_s = time.time() - t0
+        with span("re.factorize") as factorize:
+            counts = np.asarray(fg.counts, np.int64)
+            uniq, ginv = factorize_entities(np.asarray(fg.entity_ids,
+                                                       object))
+            inv = np.repeat(ginv, counts)
+            ecounts = np.bincount(ginv, weights=counts,
+                                  minlength=len(uniq)).astype(np.int64)
+            # each entity's records are one run of fg, at its group's
+            # start, in fg's order (not factorize's sorted order); an
+            # entity repeated in fg (a capped entity's overflow groups) has
+            # no one run
+            rec_starts = None
+            if len(uniq) == len(fg):
+                rec_starts = np.zeros(len(uniq), np.int64)
+                rec_starts[ginv] = np.cumsum(counts) - counts
         out = self.fit_records_sharded(
             self._flat_records_view(fg), schema_params,
             model_weights=model_weights, mesh=mesh,
             entity_groups=(uniq, inv, ecounts, rec_starts),
             device_cache=device_cache)
-        self.last_fit_phases = dict(factorize=factorize_s,
+        self.last_fit_phases = dict(factorize=factorize.seconds,
                                     **self.last_fit_phases)
         return out
 
@@ -570,72 +572,93 @@ class RandomEffectLRModel(Model):
         mixes variance presence).
 
         `device_cache`: a dict the caller keeps across coordinate-descent
-        sweeps over the same records (_bucket_device_arrays)."""
+        sweeps over the same records (_bucket_device_arrays).
+
+        last_fit_phases holds the seconds of the fit's three spans:
+        `re.marshal_dispatch` (each step of the bucketizer, `re.bucketize`;
+        each bucket's upload, `re.upload`; its solve's launch, `re.launch`),
+        `re.solve_fetch_collect` (`re.fetch` in _fetch, `re.collect`) and
+        `re.merge`."""
         from gdmix_tpu_torch.data.bucketing import (FlatGroups,
                                                     iter_bucketize_flat)
         logger.info("Training %d entities", len(groups))
-        tt = [("start", time.time())]  # per-phase wall marks
         self.last_fit_plane = "host"
         self.last_fit_bytes_up = self.last_fit_bytes_down = 0
         bucketize_fn = (iter_bucketize_flat if isinstance(groups, FlatGroups)
                         else bucketize)
-        buckets = bucketize_fn(groups, schema_params,
-                               self.model_params.offset_column_name,
-                               has_intercept=self.has_intercept,
-                               prior_models=model_weights)
         # every bucket's solve is queued before any result is fetched; the
         # bucketizer is a generator, so tier t+1 marshals on the host while
         # tier t solves (the float32 kernels run asynchronously; the
         # per-iteration forms synchronize once per iteration)
         pending = []
         rungs: Dict[str, int] = {}
-        for i, bucket in enumerate(buckets):
-            arrays = self._bucket_device_arrays(bucket, cache=device_cache,
-                                                cache_key=i)
-            rung, solve = self._select_solver(bucket.u_cap,
-                                              bucket.indices.shape[0],
-                                              bucket.n_cap)
-            rungs[rung] = rungs.get(rung, 0) + 1
-            # the device θ0 stays for the downlink skip's probe
-            pending.append((bucket, solve(arrays), arrays["theta0"]))
-        tt.append(("marshal_dispatch", time.time()))
-        # warm-sweep downlink skip (gdmix_tpu/models/random_effect_lr.py:
-        # 685-701): a bucket whose solve moved no coefficient (every entity
-        # stopped at its warm start) takes its models from the host θ0
-        if self.variance_mode is None and len(model_weights):
-            moved = _moved_flags([(solved[0], th0)
-                                  for _, solved, th0 in pending])
-            self.last_fit_bytes_down += len(pending)  # one bool a bucket
-        else:
-            moved = [True] * len(pending)
-        self.last_fit_skipped = moved.count(False)
-        n_conv = n_real = 0
-        tables = []
-        for (bucket, (theta, variance, converged), _), mv in zip(pending,
-                                                                 moved):
-            b_real = len(bucket.entity_ids)
-            n_conv += int(self._fetch(converged[:b_real].sum()))
-            n_real += b_real
-            tables.append(self._collect_bucket_table(
-                bucket, self._fetch(theta[:b_real]) if mv else bucket.theta0,
-                None if variance is None
-                else self._fetch(variance[:b_real])))
-        self.last_fit_converged = (n_conv, n_real)
-        self.last_fit_rungs = rungs
-        new = ModelTable.concat(tables, has_intercept=self.has_intercept,
-                                with_variance=self.variance_mode is not None)
-        tt.append(("solve_fetch_collect", time.time()))
-        # a capped entity's overflow groups each solve a model; keep the last
-        new = new.deduped_last()
-        prior = ModelTable.from_models(model_weights, self.has_intercept)
-        if prior is None:  # mixed variance presence in the prior dict
-            merged = dict(model_weights)
-            merged.update(new)
-        else:
-            merged = prior.merged_with(new)
-        tt.append(("merge", time.time()))
-        self.last_fit_phases = {nm: tb - ta for (_, ta), (nm, tb)
-                                in zip(tt, tt[1:])}
+        with span("re.marshal_dispatch") as marshal:
+            with span("re.bucketize"):
+                buckets = iter(bucketize_fn(
+                    groups, schema_params,
+                    self.model_params.offset_column_name,
+                    has_intercept=self.has_intercept,
+                    prior_models=model_weights))
+            for i in itertools.count():
+                with span("re.bucketize"):
+                    bucket = next(buckets, None)
+                if bucket is None:
+                    break
+                with span("re.upload"):
+                    arrays = self._bucket_device_arrays(
+                        bucket, cache=device_cache, cache_key=i)
+                rung, solve = self._select_solver(bucket.u_cap,
+                                                  bucket.indices.shape[0],
+                                                  bucket.n_cap)
+                rungs[rung] = rungs.get(rung, 0) + 1
+                with span("re.launch"):
+                    solved = solve(arrays)
+                # the device θ0 stays for the downlink skip's probe
+                pending.append((bucket, solved, arrays["theta0"]))
+        with span("re.solve_fetch_collect") as solve_fetch_collect:
+            # warm-sweep downlink skip (gdmix_tpu/models/random_effect_lr.py:
+            # 685-701): a bucket whose solve moved no coefficient (every
+            # entity stopped at its warm start) takes its models from the
+            # host θ0
+            if self.variance_mode is None and len(model_weights):
+                moved = _moved_flags([(solved[0], th0)
+                                      for _, solved, th0 in pending])
+                self.last_fit_bytes_down += len(pending)  # one bool a bucket
+            else:
+                moved = [True] * len(pending)
+            self.last_fit_skipped = moved.count(False)
+            n_conv = n_real = 0
+            tables = []
+            for (bucket, (theta, variance, converged), _), mv in zip(pending,
+                                                                    moved):
+                b_real = len(bucket.entity_ids)
+                n_conv += int(self._fetch(converged[:b_real].sum()))
+                n_real += b_real
+                theta = self._fetch(theta[:b_real]) if mv else bucket.theta0
+                variance = (None if variance is None
+                            else self._fetch(variance[:b_real]))
+                with span("re.collect"):
+                    tables.append(self._collect_bucket_table(bucket, theta,
+                                                             variance))
+            self.last_fit_converged = (n_conv, n_real)
+            self.last_fit_rungs = rungs
+            new = ModelTable.concat(tables, has_intercept=self.has_intercept,
+                                    with_variance=self.variance_mode
+                                    is not None)
+        with span("re.merge") as merge:
+            # a capped entity's overflow groups each solve a model; keep the
+            # last
+            new = new.deduped_last()
+            prior = ModelTable.from_models(model_weights, self.has_intercept)
+            if prior is None:  # mixed variance presence in the prior dict
+                merged = dict(model_weights)
+                merged.update(new)
+            else:
+                merged = prior.merged_with(new)
+        self.last_fit_phases = dict(
+            marshal_dispatch=marshal.seconds,
+            solve_fetch_collect=solve_fetch_collect.seconds,
+            merge=merge.seconds)
         logger.info("%d models in total after training/refreshing. | %s",
                     len(merged),
                     " ".join(f"{nm}={dt:.3f}s"
@@ -688,9 +711,11 @@ class RandomEffectLRModel(Model):
         return tensors
 
     def _fetch(self, t: torch.Tensor) -> torch.Tensor:
-        """`t` on the host, its bytes added to last_fit_bytes_down."""
+        """`t` on the host, its bytes added to last_fit_bytes_down: the
+        model's one device→host path, each call a `re.fetch` span."""
         self.last_fit_bytes_down += _nbytes([t])
-        return t.to("cpu")
+        with span("re.fetch"):
+            return t.to("cpu")
 
     def _select_solver(self, u_cap: int, B: int, n_cap: int):
         """The solver ladder of the JAX package
@@ -911,270 +936,278 @@ class RandomEffectLRModel(Model):
         columns stay on the devices."""
         from gdmix_tpu_torch.data.bucketing import _next_pow2, _sample_caps
         from gdmix_tpu_torch.data.partitioner import factorize_entities
-        tt = [("start", time.time())]  # per-phase wall marks
-        self.last_fit_plane = "sharded"
-        self.last_fit_skipped = 0
-        self.last_fit_bytes_up = self.last_fit_bytes_down = 0
-        up = self._uploaded
-        model_weights = model_weights if model_weights is not None else {}
-        mesh = mesh if mesh is not None else get_mesh(device=self.device)
-        P = mesh.size
-        p = self.model_params
-        n = data.num_samples
-        dt = self.dtype
-        off = 1 if self.has_intercept else 0
+        with span("re.host_prep") as host_prep:
+            self.last_fit_plane = "sharded"
+            self.last_fit_skipped = 0
+            self.last_fit_bytes_up = self.last_fit_bytes_down = 0
+            up = self._uploaded
+            model_weights = model_weights if model_weights is not None else {}
+            mesh = mesh if mesh is not None else get_mesh(device=self.device)
+            P = mesh.size
+            p = self.model_params
+            n = data.num_samples
+            dt = self.dtype
+            off = 1 if self.has_intercept else 0
 
-        if entity_groups is not None:
-            uniq, inv, counts, rec_starts = entity_groups
-        else:
-            uniq, inv = factorize_entities(data.columns[p.partition_entity])
-            counts = np.bincount(inv, minlength=len(uniq))
-            rec_starts = None
-        E = len(uniq)
-        prior_table = ModelTable.from_models(model_weights,
-                                             self.has_intercept)
-        if E == 0:
-            self.last_fit_phases = {}
-            return (prior_table if prior_table is not None
-                    else dict(model_weights))
-
-        # the sweep cache (fit_groups' device_cache contract): a hit needs
-        # the same records count, entities, shards, counts and entry width;
-        # the caller owns the invariant that only offsets change
-        k_now = data.indices.shape[1] if data.indices is not None else 0
-        chit = None
-        if device_cache is not None:
-            ent_c = device_cache.get("sharded")
-            if (ent_c is not None and ent_c["n"] == n and ent_c["E"] == E
-                    and ent_c["num_shards"] == P and ent_c["k"] == k_now
-                    and np.array_equal(ent_c["counts"], counts)
-                    and np.array_equal(ent_c["uniq"], uniq)):
-                chit = ent_c
-        # round-robin ownership over the sorted entity ids (any balanced
-        # deterministic assignment works)
-        owner_of_entity = (np.arange(E) % P).astype(np.int32)
-        offsets = (data.columns[p.offset_column_name].astype(np.float64)
-                   if p.offset_column_name in data.columns else np.zeros(n))
-        if chit is None:
-            labels = (data.columns[schema_params.label_column_name]
-                      .astype(np.float64)
-                      if schema_params.label_column_name in data.columns
-                      else np.zeros(n))
-            weights = (data.columns[schema_params.weight_column_name]
-                       .astype(np.float64)
-                       if schema_params.weight_column_name
-                       and schema_params.weight_column_name in data.columns
-                       else np.ones(n))
-            if data.indices is not None:
-                indices, values = data.indices, data.values
+            if entity_groups is not None:
+                uniq, inv, counts, rec_starts = entity_groups
             else:
-                indices = np.zeros((n, 1), np.int32)
-                values = np.zeros((n, 1))
-            local_indices, sup_keys, sup_feat, sup_offs, u_counts = \
-                self._local_supports(data, inv, counts, rec_starts, indices,
-                                     values)
-            u_eff = np.maximum(u_counts, 1)
-            caps = np.asarray(_sample_caps(np.asarray(counts), 8))
-            tier_of_entity = np.searchsorted(caps, counts,
-                                             side="left").astype(np.int32)
-            tt.append(("host_prep", time.time()))
+                uniq, inv = factorize_entities(
+                    data.columns[p.partition_entity])
+                counts = np.bincount(inv, minlength=len(uniq))
+                rec_starts = None
+            E = len(uniq)
+            prior_table = ModelTable.from_models(model_weights,
+                                                 self.has_intercept)
+            if E == 0:
+                self.last_fit_phases = {}
+                return (prior_table if prior_table is not None
+                        else dict(model_weights))
 
-            # pad the record axis to split evenly; padding rows carry weight
-            # 0 and the entity sentinel (they never enter a block)
-            n_pad = pad_to_multiple(max(n, 1), P * 8)
-            rows_per_shard = n_pad // P
-            extra = n_pad - n
-
-            def padr(a, fill=0.0):
-                if not extra:
-                    return a
-                block = np.full((extra,) + a.shape[1:], fill, a.dtype)
-                return np.concatenate([a, block], axis=0)
-
-            ent_rows = padr(inv.astype(np.int32), int(ENTITY_SENTINEL))
-            owner_pad = padr(owner_of_entity[inv], 0)
-            if extra:  # padding rows round-robin (they carry the sentinel)
-                owner_pad[n:] = np.arange(extra) % P
-            tier_rows = padr(tier_of_entity[inv], 0)
-
-            # exact capacity: the most records a source shard sends anywhere
-            src = np.arange(n_pad) // rows_per_shard
-            pair = np.bincount(src * P + owner_pad, minlength=P * P)
-            capacity = pad_to_multiple(max(int(pair.max()), 1), 8)
-            per_shard_rows = P * capacity
-
-            # ONE exchange of every payload column, entity/tier tags included
-            routed = route_records(
-                mesh,
-                dict(indices=up(shard_rows(mesh, padr(local_indices))),
-                     values=up(shard_rows(mesh, padr(values), dt)),
-                     offsets=up(shard_rows(mesh, padr(offsets), dt)),
-                     labels=up(shard_rows(mesh, padr(labels), dt)),
-                     weights=up(shard_rows(mesh, padr(weights), dt)),
-                     _ent=up(shard_rows(mesh, ent_rows)),
-                     _tier=up(shard_rows(mesh, tier_rows))),
-                up(shard_rows(mesh, owner_pad)), capacity=capacity)
-            r_ent = routed.arrays["_ent"]
-            r_tier = routed.arrays["_tier"]
-            tt.append(("route", time.time()))
-
-            # host-predicted slots: build_entity_blocks packs each shard's
-            # tier members in ascending entity order, so slot =
-            # owner·b_cap + rank within the owner
-            tiers = []
-            slot_of_entity = np.full(E, -1, np.int64)  # within its own tier
-            for t in range(len(caps)):
-                members = np.flatnonzero(tier_of_entity == t)
-                if members.size == 0:
-                    continue
-                own_m = owner_of_entity[members]
-                per_shard = np.bincount(own_m, minlength=P)
-                b_cap_t = min(max(8, _next_pow2(int(per_shard.max()))),
-                              per_shard_rows)
-                u_cap_t = pad_to_multiple(max(int(u_eff[members].max()), 1),
-                                          8)
-                order = np.argsort(own_m, kind="stable")   # members already ↑
-                sorted_members = members[order]
-                shard_of = own_m[order]
-                shard_starts = np.searchsorted(shard_of, np.arange(P))
-                rank = np.arange(members.size) - shard_starts[shard_of]
-                slots = shard_of.astype(np.int64) * b_cap_t + rank
-                slot_of_entity[sorted_members] = slots
-                tiers.append(dict(t=t, n_cap=int(caps[t]), b_cap=b_cap_t,
-                                  u_cap=u_cap_t, members=sorted_members,
-                                  slots=slots))
-        else:
-            (sup_keys, sup_feat, sup_offs, u_counts, tier_of_entity,
-             slot_of_entity, tiers, owner_pad, capacity, extra) = (
-                chit["sup_keys"], chit["sup_feat"], chit["sup_offs"],
-                chit["u_counts"], chit["tier_of_entity"],
-                chit["slot_of_entity"], chit["tiers"], chit["owner_pad"],
-                chit["capacity"], chit["extra"])
-            tt.append(("host_prep", time.time()))
-            off_pad = (np.concatenate([offsets, np.zeros(extra)])
-                       if extra else offsets)
-            routed = route_records(
-                mesh, dict(offsets=up(shard_rows(mesh, off_pad, dt))),
-                up(shard_rows(mesh, owner_pad)), capacity=capacity)
-            r_ent, r_tier = chit["r_ent"], chit["r_tier"]
-            tt.append(("route", time.time()))
-        tier_static = {} if device_cache is not None and chit is None \
-            else None
-
-        warm_icpt, warm_coef = self._warm_start_local(
-            model_weights, prior_table, uniq, sup_keys, sup_feat, sup_offs)
-        tt.append(("plan_warm", time.time()))
-
-        # every tier's pack + solve is queued before anything is read back
-        pending = []
-        rungs: Dict[str, int] = {}
-        for ti in tiers:
-            dim_t = ti["u_cap"] + off
-            theta0 = np.zeros((P * ti["b_cap"], dim_t))
-            if warm_icpt is not None:
-                we, wv = warm_icpt
-                sel = tier_of_entity[we] == ti["t"]
-                theta0[slot_of_entity[we[sel]], 0] = wv[sel]
-            if warm_coef is not None:
-                ce, cl, cv = warm_coef
-                sel = tier_of_entity[ce] == ti["t"]
-                theta0[slot_of_entity[ce[sel]], off + cl[sel]] = cv[sel]
-            sample_count = np.zeros(P * ti["b_cap"])
-            sample_count[ti["slots"]] = counts[ti["members"]]
-            blocks, _, _, pack_dropped = pack_tier(
-                mesh, routed, r_ent, r_tier, ti["t"], b_cap=ti["b_cap"],
-                n_cap=ti["n_cap"])
-            if chit is not None:
-                # sweep 2+: only offsets were routed; the static packed
-                # columns are the cached device tensors
-                blocks = dict(chit["tier_static"][ti["t"]],
-                              offsets=blocks["offsets"])
-            elif tier_static is not None:
-                tier_static[ti["t"]] = {
-                    k: blocks[k]
-                    for k in ("indices", "values", "labels", "weights")}
-            rung, solve = self._select_solver(
-                ti["u_cap"], P * ti["b_cap"], ti["n_cap"])
-            rungs[rung] = rungs.get(rung, 0) + 1
-            theta0_s = up(shard_rows(mesh, theta0, dt))
-            count_s = up(shard_rows(mesh, sample_count, dt))
-            arrays = []
-            for s in range(P):
-                a = {k: v[s] for k, v in blocks.items()}
-                a["indices"] = a["indices"].long()
-                a["sample_count"], a["theta0"] = count_s[s], theta0_s[s]
-                arrays.append(a)
-            if rung == "newton_two_phase":
-                # the tier's shards at once: the cut spans all of them
-                solved = solve.tier(arrays)
+            # the sweep cache (fit_groups' device_cache contract): a hit
+            # needs the same records count, entities, shards, counts and
+            # entry width; the caller owns the invariant that only offsets
+            # change
+            k_now = data.indices.shape[1] if data.indices is not None else 0
+            chit = None
+            if device_cache is not None:
+                ent_c = device_cache.get("sharded")
+                if (ent_c is not None and ent_c["n"] == n and ent_c["E"] == E
+                        and ent_c["num_shards"] == P and ent_c["k"] == k_now
+                        and np.array_equal(ent_c["counts"], counts)
+                        and np.array_equal(ent_c["uniq"], uniq)):
+                    chit = ent_c
+            # round-robin ownership over the sorted entity ids (any balanced
+            # deterministic assignment works)
+            owner_of_entity = (np.arange(E) % P).astype(np.int32)
+            offsets = (data.columns[p.offset_column_name].astype(np.float64)
+                       if p.offset_column_name in data.columns
+                       else np.zeros(n))
+            if chit is None:
+                labels = (data.columns[schema_params.label_column_name]
+                          .astype(np.float64)
+                          if schema_params.label_column_name in data.columns
+                          else np.zeros(n))
+                weights = (data.columns[schema_params.weight_column_name]
+                           .astype(np.float64)
+                           if schema_params.weight_column_name
+                           and schema_params.weight_column_name
+                           in data.columns
+                           else np.ones(n))
+                if data.indices is not None:
+                    indices, values = data.indices, data.values
+                else:
+                    indices = np.zeros((n, 1), np.int32)
+                    values = np.zeros((n, 1))
+                local_indices, sup_keys, sup_feat, sup_offs, u_counts = \
+                    self._local_supports(data, inv, counts, rec_starts,
+                                         indices, values)
+                u_eff = np.maximum(u_counts, 1)
+                caps = np.asarray(_sample_caps(np.asarray(counts), 8))
+                tier_of_entity = np.searchsorted(
+                    caps, counts, side="left").astype(np.int32)
             else:
-                solved = []
-                for a, dev in zip(arrays, mesh.devices):
-                    with on_device(dev):
-                        solved.append(solve(a))
-            pending.append((ti, solved, pack_dropped))
-        if tier_static is not None:
-            self.static_upload_count += 1
-            device_cache["sharded"] = dict(
-                n=n, E=E, k=k_now, num_shards=P,
-                counts=np.array(counts, copy=True),
-                uniq=np.array(uniq, copy=True),
-                sup_keys=sup_keys, sup_feat=sup_feat, sup_offs=sup_offs,
-                u_counts=u_counts, tier_of_entity=tier_of_entity,
-                slot_of_entity=slot_of_entity, tiers=tiers,
-                owner_pad=owner_pad, capacity=capacity, extra=extra,
-                r_ent=r_ent, r_tier=r_tier, tier_static=tier_static)
-        tt.append(("dispatch", time.time()))
+                (sup_keys, sup_feat, sup_offs, u_counts, tier_of_entity,
+                 slot_of_entity, tiers, owner_pad, capacity, extra) = (
+                    chit["sup_keys"], chit["sup_feat"], chit["sup_offs"],
+                    chit["u_counts"], chit["tier_of_entity"],
+                    chit["slot_of_entity"], chit["tiers"], chit["owner_pad"],
+                    chit["capacity"], chit["extra"])
+        with span("re.route") as route:
+            if chit is None:
+                # pad the record axis to split evenly; padding rows carry
+                # weight 0 and the entity sentinel (they never enter a block)
+                n_pad = pad_to_multiple(max(n, 1), P * 8)
+                rows_per_shard = n_pad // P
+                extra = n_pad - n
 
-        # columnar collection: each tier's support coefficients gathered
-        # straight into ModelTable columns (no per-entity python)
-        with_var = self.variance_mode is not None
-        host = lambda ts: torch.cat([self._fetch(t).double()
-                                     for t in ts]).numpy()
-        dropped = sum(int(self._fetch(o.sum())) for o in routed.overflow)
-        tables = []
-        n_conv = 0
-        for ti, solved, pack_dropped in pending:
-            thetas = host([s[0] for s in solved])
-            variances = host([s[1] for s in solved]) if with_var else None
-            conv = torch.cat([self._fetch(s[2]) for s in solved]).numpy()
-            dropped += sum(int(self._fetch(d.sum())) for d in pack_dropped)
-            thetas = np.where(np.abs(thetas) <= p.sparsity_threshold, 0.0,
-                              thetas)
-            ents_t, slots_t = ti["members"], ti["slots"]
-            n_conv += int(conv[slots_t].sum())
-            lens = u_counts[ents_t]
-            src = flat_positions(sup_offs[ents_t], lens)
-            inner = np.arange(int(lens.sum())) \
-                - np.repeat(np.cumsum(lens) - lens, lens)
-            rows = np.repeat(slots_t, lens)
-            offs_out = np.zeros(len(ents_t) + 1, np.int64)
-            np.cumsum(lens, out=offs_out[1:])
-            tables.append(ModelTable(
-                ids=uniq[ents_t].astype(object), offs=offs_out,
-                coef_ids=sup_feat[src],
-                coef_vals=thetas[rows, off + inner],
-                icpt=thetas[slots_t, 0].copy() if off else None,
-                coef_vars=(variances[rows, off + inner] if with_var
-                           else None),
-                icpt_vars=(variances[slots_t, 0].copy()
-                           if with_var and off else None)))
-        assert dropped == 0, (
-            f"entity routing dropped {dropped} records (capacity={capacity}, "
-            f"tiers={[(ti['b_cap'], ti['n_cap']) for ti in tiers]}) — "
-            f"capacities are planned exactly, this is a bug")
-        self.last_fit_converged = (n_conv, E)
-        self.last_fit_rungs = rungs
-        new = ModelTable.concat(tables, has_intercept=self.has_intercept,
-                                with_variance=with_var)
-        if prior_table is not None:
-            merged = prior_table.merged_with(new)
-        else:  # mixed variance presence in the prior dict
-            merged = dict(model_weights)
-            merged.update(new)
-        tt.append(("fetch_collect", time.time()))
-        self.last_fit_phases = {nm: tb - ta for (_, ta), (nm, tb)
-                                in zip(tt, tt[1:])}
+                def padr(a, fill=0.0):
+                    if not extra:
+                        return a
+                    block = np.full((extra,) + a.shape[1:], fill, a.dtype)
+                    return np.concatenate([a, block], axis=0)
+
+                ent_rows = padr(inv.astype(np.int32), int(ENTITY_SENTINEL))
+                owner_pad = padr(owner_of_entity[inv], 0)
+                if extra:  # padding rows round-robin (with the sentinel)
+                    owner_pad[n:] = np.arange(extra) % P
+                tier_rows = padr(tier_of_entity[inv], 0)
+
+                # exact capacity: the most records a source shard sends
+                # anywhere
+                src = np.arange(n_pad) // rows_per_shard
+                pair = np.bincount(src * P + owner_pad, minlength=P * P)
+                capacity = pad_to_multiple(max(int(pair.max()), 1), 8)
+                per_shard_rows = P * capacity
+
+                # ONE exchange of every payload column, entity/tier tags
+                # included
+                routed = route_records(
+                    mesh,
+                    dict(indices=up(shard_rows(mesh, padr(local_indices))),
+                         values=up(shard_rows(mesh, padr(values), dt)),
+                         offsets=up(shard_rows(mesh, padr(offsets), dt)),
+                         labels=up(shard_rows(mesh, padr(labels), dt)),
+                         weights=up(shard_rows(mesh, padr(weights), dt)),
+                         _ent=up(shard_rows(mesh, ent_rows)),
+                         _tier=up(shard_rows(mesh, tier_rows))),
+                    up(shard_rows(mesh, owner_pad)), capacity=capacity)
+                r_ent = routed.arrays["_ent"]
+                r_tier = routed.arrays["_tier"]
+            else:
+                off_pad = (np.concatenate([offsets, np.zeros(extra)])
+                           if extra else offsets)
+                routed = route_records(
+                    mesh, dict(offsets=up(shard_rows(mesh, off_pad, dt))),
+                    up(shard_rows(mesh, owner_pad)), capacity=capacity)
+                r_ent, r_tier = chit["r_ent"], chit["r_tier"]
+        with span("re.plan_warm") as plan_warm:
+            if chit is None:
+                # host-predicted slots: build_entity_blocks packs each
+                # shard's tier members in ascending entity order, so slot =
+                # owner·b_cap + rank within the owner
+                tiers = []
+                # within its own tier
+                slot_of_entity = np.full(E, -1, np.int64)
+                for t in range(len(caps)):
+                    members = np.flatnonzero(tier_of_entity == t)
+                    if members.size == 0:
+                        continue
+                    own_m = owner_of_entity[members]
+                    per_shard = np.bincount(own_m, minlength=P)
+                    b_cap_t = min(max(8, _next_pow2(int(per_shard.max()))),
+                                  per_shard_rows)
+                    u_cap_t = pad_to_multiple(
+                        max(int(u_eff[members].max()), 1), 8)
+                    # members already ↑
+                    order = np.argsort(own_m, kind="stable")
+                    sorted_members = members[order]
+                    shard_of = own_m[order]
+                    shard_starts = np.searchsorted(shard_of, np.arange(P))
+                    rank = np.arange(members.size) - shard_starts[shard_of]
+                    slots = shard_of.astype(np.int64) * b_cap_t + rank
+                    slot_of_entity[sorted_members] = slots
+                    tiers.append(dict(t=t, n_cap=int(caps[t]), b_cap=b_cap_t,
+                                      u_cap=u_cap_t, members=sorted_members,
+                                      slots=slots))
+            tier_static = {} if device_cache is not None and chit is None \
+                else None
+
+            warm_icpt, warm_coef = self._warm_start_local(
+                model_weights, prior_table, uniq, sup_keys, sup_feat, sup_offs)
+        with span("re.dispatch") as dispatch:
+            # every tier's pack + solve is queued before anything is read back
+            pending = []
+            rungs: Dict[str, int] = {}
+            for ti in tiers:
+                dim_t = ti["u_cap"] + off
+                theta0 = np.zeros((P * ti["b_cap"], dim_t))
+                if warm_icpt is not None:
+                    we, wv = warm_icpt
+                    sel = tier_of_entity[we] == ti["t"]
+                    theta0[slot_of_entity[we[sel]], 0] = wv[sel]
+                if warm_coef is not None:
+                    ce, cl, cv = warm_coef
+                    sel = tier_of_entity[ce] == ti["t"]
+                    theta0[slot_of_entity[ce[sel]], off + cl[sel]] = cv[sel]
+                sample_count = np.zeros(P * ti["b_cap"])
+                sample_count[ti["slots"]] = counts[ti["members"]]
+                blocks, _, _, pack_dropped = pack_tier(
+                    mesh, routed, r_ent, r_tier, ti["t"], b_cap=ti["b_cap"],
+                    n_cap=ti["n_cap"])
+                if chit is not None:
+                    # sweep 2+: only offsets were routed; the static packed
+                    # columns are the cached device tensors
+                    blocks = dict(chit["tier_static"][ti["t"]],
+                                  offsets=blocks["offsets"])
+                elif tier_static is not None:
+                    tier_static[ti["t"]] = {
+                        k: blocks[k]
+                        for k in ("indices", "values", "labels", "weights")}
+                rung, solve = self._select_solver(
+                    ti["u_cap"], P * ti["b_cap"], ti["n_cap"])
+                rungs[rung] = rungs.get(rung, 0) + 1
+                theta0_s = up(shard_rows(mesh, theta0, dt))
+                count_s = up(shard_rows(mesh, sample_count, dt))
+                arrays = []
+                for s in range(P):
+                    a = {k: v[s] for k, v in blocks.items()}
+                    a["indices"] = a["indices"].long()
+                    a["sample_count"], a["theta0"] = count_s[s], theta0_s[s]
+                    arrays.append(a)
+                if rung == "newton_two_phase":
+                    # the tier's shards at once: the cut spans all of them
+                    solved = solve.tier(arrays)
+                else:
+                    solved = []
+                    for a, dev in zip(arrays, mesh.devices):
+                        with on_device(dev):
+                            solved.append(solve(a))
+                pending.append((ti, solved, pack_dropped))
+            if tier_static is not None:
+                self.static_upload_count += 1
+                device_cache["sharded"] = dict(
+                    n=n, E=E, k=k_now, num_shards=P,
+                    counts=np.array(counts, copy=True),
+                    uniq=np.array(uniq, copy=True),
+                    sup_keys=sup_keys, sup_feat=sup_feat, sup_offs=sup_offs,
+                    u_counts=u_counts, tier_of_entity=tier_of_entity,
+                    slot_of_entity=slot_of_entity, tiers=tiers,
+                    owner_pad=owner_pad, capacity=capacity, extra=extra,
+                    r_ent=r_ent, r_tier=r_tier, tier_static=tier_static)
+        with span("re.fetch_collect") as fetch_collect:
+            # columnar collection: each tier's support coefficients gathered
+            # straight into ModelTable columns (no per-entity python)
+            with_var = self.variance_mode is not None
+            host = lambda ts: torch.cat([self._fetch(t).double()
+                                         for t in ts]).numpy()
+            dropped = sum(int(self._fetch(o.sum())) for o in routed.overflow)
+            tables = []
+            n_conv = 0
+            for ti, solved, pack_dropped in pending:
+                thetas = host([s[0] for s in solved])
+                variances = host([s[1] for s in solved]) if with_var else None
+                conv = torch.cat([self._fetch(s[2]) for s in solved]).numpy()
+                dropped += sum(int(self._fetch(d.sum()))
+                               for d in pack_dropped)
+                thetas = np.where(np.abs(thetas) <= p.sparsity_threshold, 0.0,
+                                  thetas)
+                ents_t, slots_t = ti["members"], ti["slots"]
+                n_conv += int(conv[slots_t].sum())
+                lens = u_counts[ents_t]
+                src = flat_positions(sup_offs[ents_t], lens)
+                inner = np.arange(int(lens.sum())) \
+                    - np.repeat(np.cumsum(lens) - lens, lens)
+                rows = np.repeat(slots_t, lens)
+                offs_out = np.zeros(len(ents_t) + 1, np.int64)
+                np.cumsum(lens, out=offs_out[1:])
+                tables.append(ModelTable(
+                    ids=uniq[ents_t].astype(object), offs=offs_out,
+                    coef_ids=sup_feat[src],
+                    coef_vals=thetas[rows, off + inner],
+                    icpt=thetas[slots_t, 0].copy() if off else None,
+                    coef_vars=(variances[rows, off + inner] if with_var
+                               else None),
+                    icpt_vars=(variances[slots_t, 0].copy()
+                               if with_var and off else None)))
+            assert dropped == 0, (
+                f"entity routing dropped {dropped} records "
+                f"(capacity={capacity}, "
+                f"tiers={[(ti['b_cap'], ti['n_cap']) for ti in tiers]}) — "
+                f"capacities are planned exactly, this is a bug")
+            self.last_fit_converged = (n_conv, E)
+            self.last_fit_rungs = rungs
+            new = ModelTable.concat(tables, has_intercept=self.has_intercept,
+                                    with_variance=with_var)
+            if prior_table is not None:
+                merged = prior_table.merged_with(new)
+            else:  # mixed variance presence in the prior dict
+                merged = dict(model_weights)
+                merged.update(new)
+        self.last_fit_phases = dict(
+            host_prep=host_prep.seconds, route=route.seconds,
+            plan_warm=plan_warm.seconds, dispatch=dispatch.seconds,
+            fetch_collect=fetch_collect.seconds)
         self.last_fit_sharding = dict(
             shards=P, capacity=capacity,
             tiers=[(P * ti["b_cap"], ti["n_cap"], ti["u_cap"] + off)
@@ -1309,18 +1342,22 @@ class RandomEffectLRModel(Model):
         model table — one binary-search join over all records, no grouping
         (the in-memory pipeline's path). Entities without a model hit the
         implicit zero row → logits = offsets (reference
-        job_consumers.py:144-152)."""
+        job_consumers.py:144-152). Two spans: `re.score.factorize` (the
+        entity column's ids) and `re.score.join` (the table, the id→row
+        lookup and the scoring)."""
         from gdmix_tpu_torch.data.partitioner import factorize_entities
-        uniq_str, inv = factorize_entities(
-            data.columns[self.model_params.partition_entity])
-        table = self._model_table(model_weights)
-        E = len(model_weights)
-        id2row = table[4]
-        rows = np.fromiter((id2row.get(e, E) for e in uniq_str),
-                           dtype=np.int64, count=len(uniq_str))
-        return self._score_columns(table, rows[inv], data.num_samples,
-                                   data.columns, data.indices, data.values,
-                                   schema_params)
+        with span("re.score.factorize"):
+            uniq_str, inv = factorize_entities(
+                data.columns[self.model_params.partition_entity])
+        with span("re.score.join"):
+            table = self._model_table(model_weights)
+            E = len(model_weights)
+            id2row = table[4]
+            rows = np.fromiter((id2row.get(e, E) for e in uniq_str),
+                               dtype=np.int64, count=len(uniq_str))
+            return self._score_columns(table, rows[inv], data.num_samples,
+                                       data.columns, data.indices,
+                                       data.values, schema_params)
 
     def score_flat(self, fg, model_weights: Dict[str, SparseModel],
                    schema_params, _table=None) -> Dict[str, np.ndarray]:

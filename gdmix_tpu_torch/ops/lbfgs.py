@@ -11,6 +11,12 @@ call (its value and directional derivative come back together), one for the
 descent test of each iteration and one for its curvature pair and stopping
 test. A CUDA graph of the whole loop is later work (ROADMAP A.4).
 
+Both loops are spans of util/timing: `lbfgs` the whole call,
+`lbfgs.objective` each call of `fun` (taken on this side of the call, so a
+caller's span inside `fun` stays the innermost over its work) and
+`lbfgs.fetch` each host read of device scalars. What `lbfgs` holds beyond
+the other two is the loop's own host work.
+
 The steps are the JAX package's, one for one:
 
   * two-loop recursion over the m newest curvature pairs, gamma-scaled
@@ -55,6 +61,8 @@ from typing import Callable, List, NamedTuple, Tuple
 
 import torch
 
+from gdmix_tpu_torch.util.timing import span
+
 _C1 = 1e-4   # sufficient-decrease (Armijo)
 _C2 = 0.9    # curvature
 
@@ -77,8 +85,21 @@ class _Counter:
     def fetch(self, *scalars: torch.Tensor) -> List[float]:
         """One device→host copy of several scalars."""
         self.syncs += 1
-        return torch.stack([s.reshape(()).to(torch.float64)
-                            for s in scalars]).tolist()
+        with span("lbfgs.fetch"):
+            return torch.stack([s.reshape(()).to(torch.float64)
+                                for s in scalars]).tolist()
+
+    def any(self, flags: torch.Tensor) -> bool:
+        """One device→host read of whether any of `flags` holds."""
+        self.syncs += 1
+        with span("lbfgs.fetch"):
+            return bool(flags.any())
+
+
+def _call(fun, x):
+    """fun(x), an `lbfgs.objective` span."""
+    with span("lbfgs.objective"):
+        return fun(x)
 
 
 def _strong_wolfe(fun, x, f0: float, g0, d, gd0: float, max_steps: int,
@@ -86,7 +107,7 @@ def _strong_wolfe(fun, x, f0: float, g0, d, gd0: float, max_steps: int,
     """Strong-Wolfe line search along d from x. Returns
     (alpha, f, g, nfev, failed); `fun` returns (value, grad)."""
     def phi(alpha):
-        f, g = fun(x + alpha * d)
+        f, g = _call(fun, x + alpha * d)
         f_a, g_a = sync.fetch(f, torch.dot(g, d))
         return f_a, g, g_a
 
@@ -189,47 +210,48 @@ def lbfgs(fun: Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]],
     ftol is the relative-f stopping tolerance — the reference's
     `lbfgs_tolerance` (factr·eps in scipy terms). pgtol matches
     fmin_l_bfgs_b's default 1e-5."""
-    sync = _Counter()
-    x = x0
-    f_t, g = fun(x0)
-    f, gmax = sync.fetch(f_t, torch.max(torch.abs(g)))
-    S: List[torch.Tensor] = []
-    Y: List[torch.Tensor] = []
-    rho: List[float] = []
-    gamma = 1.0
-    k, nfev = 0, 1
-    converged, ls_failed = gmax <= pgtol, False
-    while k < maxiter and not converged and not ls_failed:
-        direction = -_two_loop(g, S, Y, rho, gamma)
-        gd, gg = sync.fetch(torch.dot(g, direction), torch.dot(g, g))
-        if gd >= 0:   # not a descent direction (numerical breakdown)
-            direction, gd = -g, -gg
+    with span("lbfgs"):
+        sync = _Counter()
+        x = x0
+        f_t, g = _call(fun, x0)
+        f, gmax = sync.fetch(f_t, torch.max(torch.abs(g)))
+        S: List[torch.Tensor] = []
+        Y: List[torch.Tensor] = []
+        rho: List[float] = []
+        gamma = 1.0
+        k, nfev = 0, 1
+        converged, ls_failed = gmax <= pgtol, False
+        while k < maxiter and not converged and not ls_failed:
+            direction = -_two_loop(g, S, Y, rho, gamma)
+            gd, gg = sync.fetch(torch.dot(g, direction), torch.dot(g, g))
+            if gd >= 0:   # not a descent direction (numerical breakdown)
+                direction, gd = -g, -gg
 
-        alpha, f_new, g_new, ls_nfev, ls_failed = _strong_wolfe(
-            fun, x, f, g, direction, gd, maxls, sync)
+            alpha, f_new, g_new, ls_nfev, ls_failed = _strong_wolfe(
+                fun, x, f, g, direction, gd, maxls, sync)
 
-        x_new = x + alpha * direction
-        s_vec = x_new - x
-        y_vec = g_new - g
-        sy, yy, gmax = sync.fetch(torch.dot(s_vec, y_vec),
-                                  torch.dot(y_vec, y_vec),
-                                  torch.max(torch.abs(g_new)))
-        if sy > 1e-10 * yy:   # ring buffer: drop the oldest, append
-            S.append(s_vec)
-            Y.append(y_vec)
-            rho.append(1.0 / (1.0 if sy == 0 else sy))
-            if len(rho) > m:
-                del S[0], Y[0], rho[0]
-            gamma = sy / max(yy, 1e-30)
+            x_new = x + alpha * direction
+            s_vec = x_new - x
+            y_vec = g_new - g
+            sy, yy, gmax = sync.fetch(torch.dot(s_vec, y_vec),
+                                      torch.dot(y_vec, y_vec),
+                                      torch.max(torch.abs(g_new)))
+            if sy > 1e-10 * yy:   # ring buffer: drop the oldest, append
+                S.append(s_vec)
+                Y.append(y_vec)
+                rho.append(1.0 / (1.0 if sy == 0 else sy))
+                if len(rho) > m:
+                    del S[0], Y[0], rho[0]
+                gamma = sy / max(yy, 1e-30)
 
-        rel = max(abs(f), abs(f_new), 1.0)
-        converged = (f - f_new) <= ftol * rel or gmax <= pgtol
-        x, f, g = x_new, f_new, g_new
-        k += 1
-        nfev += ls_nfev
-    return LBFGSResult(x=x, f=f, g=g, num_iterations=k, num_funcalls=nfev,
-                       converged=converged, line_search_failed=ls_failed,
-                       host_syncs=sync.syncs)
+            rel = max(abs(f), abs(f_new), 1.0)
+            converged = (f - f_new) <= ftol * rel or gmax <= pgtol
+            x, f, g = x_new, f_new, g_new
+            k += 1
+            nfev += ls_nfev
+        return LBFGSResult(x=x, f=f, g=g, num_iterations=k, num_funcalls=nfev,
+                           converged=converged, line_search_failed=ls_failed,
+                           host_syncs=sync.syncs)
 
 
 class LBFGSBatchResult(NamedTuple):
@@ -260,10 +282,11 @@ def _two_loop_batched(g, S, Y, rho, gamma):
     return r
 
 
-def _strong_wolfe_batched(fun, x, f0, g0, d, gd0, max_steps: int, live):
+def _strong_wolfe_batched(fun, x, f0, g0, d, gd0, max_steps: int, live,
+                          sync: _Counter):
     """The strong-Wolfe search of `_strong_wolfe` on every lane at once;
     lanes outside `live` take no trial that counts. Returns
-    (alpha, f, g, nfev, failed, host_syncs), all but the last per lane."""
+    (alpha, f, g, nfev, failed), each per lane."""
     B = x.shape[0]
     dt, dev = x.dtype, x.device
     zero = torch.zeros(B, dtype=dt, device=dev)
@@ -274,14 +297,12 @@ def _strong_wolfe_batched(fun, x, f0, g0, d, gd0, max_steps: int, live):
     bracketed, done = false, false
     best, f_best, grad_best = zero, f0, g0
     i = torch.zeros(B, dtype=torch.int32, device=dev)
-    syncs = 0
     while True:
         run = live & ~done & (i < max_steps)
-        syncs += 1
-        if not bool(run.any()):
+        if not sync.any(run):
             break
         a = step
-        f_a, grad_a = fun(x + a[:, None] * d)
+        f_a, grad_a = _call(fun, x + a[:, None] * d)
         g_a = torch.sum(grad_a * d, dim=1)
 
         armijo_fail = f_a > f0 + _C1 * a * gd0
@@ -352,7 +373,7 @@ def _strong_wolfe_batched(fun, x, f0, g0, d, gd0, max_steps: int, live):
     alpha = torch.where(failed, zero, best)
     f_new = torch.where(failed, f0, f_best)
     g_new = torch.where(failed[:, None], g0, grad_best)
-    return alpha, f_new, g_new, i, failed, syncs
+    return alpha, f_new, g_new, i, failed
 
 
 def lbfgs_batched(fun: Callable[[torch.Tensor],
@@ -368,61 +389,62 @@ def lbfgs_batched(fun: Callable[[torch.Tensor],
     [B, dim] to (values [B], grads [B, dim]), one problem per row. The steps
     are `lbfgs`'s, lane by lane; converged lanes are frozen while the others
     go on."""
-    B, dim = x0.shape
-    dt, dev = x0.dtype, x0.device
-    f, g = fun(x0)
-    x = x0
-    S = torch.zeros(B, m, dim, dtype=dt, device=dev)
-    Y = torch.zeros(B, m, dim, dtype=dt, device=dev)
-    rho = torch.zeros(B, m, dtype=dt, device=dev)
-    gamma = torch.ones(B, dtype=dt, device=dev)
-    k = torch.zeros(B, dtype=torch.int32, device=dev)
-    nfev = torch.ones(B, dtype=torch.int32, device=dev)
-    converged = g.abs().amax(dim=1) <= pgtol
-    ls_failed = torch.zeros(B, dtype=torch.bool, device=dev)
-    syncs = 0
-    while True:
-        live = (k < maxiter) & ~converged & ~ls_failed
-        syncs += 1
-        if not bool(live.any()):
-            break
-        direction = -_two_loop_batched(g, S, Y, rho, gamma)
-        gd = torch.sum(g * direction, dim=1)
-        # not a descent direction (numerical breakdown): restart with -g
-        bad = gd >= 0
-        direction = torch.where(bad[:, None], -g, direction)
-        gd = torch.where(bad, -torch.sum(g * g, dim=1), gd)
+    with span("lbfgs"):
+        B, dim = x0.shape
+        dt, dev = x0.dtype, x0.device
+        sync = _Counter()
+        f, g = _call(fun, x0)
+        x = x0
+        S = torch.zeros(B, m, dim, dtype=dt, device=dev)
+        Y = torch.zeros(B, m, dim, dtype=dt, device=dev)
+        rho = torch.zeros(B, m, dtype=dt, device=dev)
+        gamma = torch.ones(B, dtype=dt, device=dev)
+        k = torch.zeros(B, dtype=torch.int32, device=dev)
+        nfev = torch.ones(B, dtype=torch.int32, device=dev)
+        converged = g.abs().amax(dim=1) <= pgtol
+        ls_failed = torch.zeros(B, dtype=torch.bool, device=dev)
+        while True:
+            live = (k < maxiter) & ~converged & ~ls_failed
+            if not sync.any(live):
+                break
+            direction = -_two_loop_batched(g, S, Y, rho, gamma)
+            gd = torch.sum(g * direction, dim=1)
+            # not a descent direction (numerical breakdown): restart with -g
+            bad = gd >= 0
+            direction = torch.where(bad[:, None], -g, direction)
+            gd = torch.where(bad, -torch.sum(g * g, dim=1), gd)
 
-        alpha, f_new, g_new, ls_nfev, ls_fail, ls_syncs = \
-            _strong_wolfe_batched(fun, x, f, g, direction, gd, maxls, live)
-        syncs += ls_syncs
+            alpha, f_new, g_new, ls_nfev, ls_fail = _strong_wolfe_batched(
+                fun, x, f, g, direction, gd, maxls, live, sync)
 
-        x_new = x + alpha[:, None] * direction
-        s_vec = x_new - x
-        y_vec = g_new - g
-        sy = torch.sum(s_vec * y_vec, dim=1)
-        yy = torch.sum(y_vec * y_vec, dim=1)
-        # ring buffer: drop the oldest, append the newest (if the pair is
-        # good); only live lanes move
-        push = live & (sy > 1e-10 * yy)
-        S = torch.where(push[:, None, None],
-                        torch.cat([S[:, 1:], s_vec[:, None]], dim=1), S)
-        Y = torch.where(push[:, None, None],
-                        torch.cat([Y[:, 1:], y_vec[:, None]], dim=1), Y)
-        rho = torch.where(push[:, None], torch.cat(
-            [rho[:, 1:], (1.0 / torch.where(sy == 0, torch.ones_like(sy),
-                                            sy))[:, None]], dim=1), rho)
-        gamma = torch.where(push, sy / torch.clamp_min(yy, 1e-30), gamma)
+            x_new = x + alpha[:, None] * direction
+            s_vec = x_new - x
+            y_vec = g_new - g
+            sy = torch.sum(s_vec * y_vec, dim=1)
+            yy = torch.sum(y_vec * y_vec, dim=1)
+            # ring buffer: drop the oldest, append the newest (if the pair is
+            # good); only live lanes move
+            push = live & (sy > 1e-10 * yy)
+            S = torch.where(push[:, None, None],
+                            torch.cat([S[:, 1:], s_vec[:, None]], dim=1), S)
+            Y = torch.where(push[:, None, None],
+                            torch.cat([Y[:, 1:], y_vec[:, None]], dim=1), Y)
+            rho = torch.where(push[:, None], torch.cat(
+                [rho[:, 1:], (1.0 / torch.where(sy == 0, torch.ones_like(sy),
+                                                sy))[:, None]], dim=1), rho)
+            gamma = torch.where(push, sy / torch.clamp_min(yy, 1e-30), gamma)
 
-        rel = torch.clamp_min(torch.maximum(f.abs(), f_new.abs()), 1.0)
-        conv = (f - f_new <= ftol * rel) | (g_new.abs().amax(dim=1) <= pgtol)
-        x = torch.where(live[:, None], x_new, x)
-        f = torch.where(live, f_new, f)
-        g = torch.where(live[:, None], g_new, g)
-        converged = torch.where(live, conv, converged)
-        ls_failed = torch.where(live, ls_fail, ls_failed)
-        k = torch.where(live, k + 1, k)
-        nfev = torch.where(live, nfev + ls_nfev, nfev)
-    return LBFGSBatchResult(x=x, f=f, g=g, num_iterations=k,
-                            num_funcalls=nfev, converged=converged,
-                            line_search_failed=ls_failed, host_syncs=syncs)
+            rel = torch.clamp_min(torch.maximum(f.abs(), f_new.abs()), 1.0)
+            conv = ((f - f_new <= ftol * rel)
+                    | (g_new.abs().amax(dim=1) <= pgtol))
+            x = torch.where(live[:, None], x_new, x)
+            f = torch.where(live, f_new, f)
+            g = torch.where(live[:, None], g_new, g)
+            converged = torch.where(live, conv, converged)
+            ls_failed = torch.where(live, ls_fail, ls_failed)
+            k = torch.where(live, k + 1, k)
+            nfev = torch.where(live, nfev + ls_nfev, nfev)
+        return LBFGSBatchResult(x=x, f=f, g=g, num_iterations=k,
+                                num_funcalls=nfev, converged=converged,
+                                line_search_failed=ls_failed,
+                                host_syncs=sync.syncs)

@@ -1,13 +1,17 @@
 """gdmix_tpu_torch/util/timing.py against gdmix_tpu/util/timing.py: the
 phase log line and the resident set (tests/test_util.py:10-18), the
 dispatch-latency probe and its class rule, and the torch.profiler trace of
-device_profile, on the CPU."""
+device_profile, on the CPU; and the port's span recorder: its stamps on
+the trace's clock, nothing entered or logged without a profiler, nesting,
+and the bounded log."""
 import glob
 import logging
 import os
+import time
 
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from gdmix_tpu.util import timing as jax_timing
 from gdmix_tpu_torch.util import timing
@@ -86,3 +90,91 @@ def test_device_profile_is_a_no_op_without_a_directory(tmp_path,
         assert not torch.autograd.profiler._is_profiler_enabled
         torch.ones(8).sum()
     assert os.listdir(tmp_path) == []
+
+
+@pytest.fixture
+def fresh_log(monkeypatch):
+    log = timing._Log()
+    monkeypatch.setattr(timing, "_LOG", log)
+    return log
+
+
+def _annotations(prof):
+    return {e.name(): (e.start_ns(), e.start_ns() + e.duration_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.is_user_annotation()}
+
+
+def test_span_on_the_trace_clock(fresh_log):
+    """A span's interval, converted by to_trace_ns, agrees with its
+    annotation in the profiler's trace within 1 ms at both ends."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with timing.span("re.clock-test"):
+            time.sleep(0.02)
+    (name, t0, t1), = timing.span_log()[0]
+    start, end = _annotations(prof)[name]
+    assert abs(timing.to_trace_ns(t0) - start) < 1_000_000
+    assert abs(timing.to_trace_ns(t1) - end) < 1_000_000
+    assert t1 - t0 >= 20_000_000
+
+
+def test_span_without_a_profiler_enters_and_logs_nothing(monkeypatch,
+                                                         fresh_log):
+    def refused(name):
+        raise AssertionError("record_function entered without a profiler")
+    monkeypatch.setattr(timing._autograd_profiler, "record_function",
+                        refused)
+    assert not torch.autograd.profiler._is_profiler_enabled
+    with timing.span("lbfgs") as s:
+        time.sleep(0.001)
+    assert s.seconds >= 1e-3
+    assert timing.span_log() == ([], 0)
+
+
+def test_spans_nest(fresh_log):
+    """Inner spans close first, lie inside the outer one, and each is an
+    annotation inside its parent's."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with timing.span("re.outer") as outer:
+            with timing.span("re.inner") as inner:
+                with timing.span("re.leaf"):
+                    pass
+            with timing.span("re.second"):
+                pass
+    entries, dropped = timing.span_log()
+    assert dropped == 0
+    assert [n for n, _, _ in entries] == ["re.leaf", "re.inner",
+                                          "re.second", "re.outer"]
+    (_, a, b) = entries[-1]
+    assert all(a <= t0 <= t1 <= b for _, t0, t1 in entries)
+    assert inner.seconds <= outer.seconds
+    notes = _annotations(prof)
+    assert notes["re.outer"][0] <= notes["re.inner"][0] \
+        <= notes["re.leaf"][0] <= notes["re.leaf"][1] \
+        <= notes["re.inner"][1] <= notes["re.second"][0] \
+        <= notes["re.second"][1] <= notes["re.outer"][1]
+
+
+def test_the_log_is_a_ring_that_counts_its_drops(monkeypatch):
+    monkeypatch.setattr(timing, "_LOG", timing._Log(capacity=4))
+    with profile(activities=[ProfilerActivity.CPU]):
+        for i in range(7):
+            with timing.span(f"re.{i}"):
+                pass
+    entries, dropped = timing.span_log()
+    assert [n for n, _, _ in entries] == ["re.3", "re.4", "re.5", "re.6"]
+    assert dropped == 3
+    assert timing.RING == 65536
+
+
+def test_phase_is_a_span(caplog, fresh_log):
+    """Under a profiler a phase is logged as a span too; its log line
+    reads the span's seconds."""
+    with caplog.at_level(logging.INFO, logger="gdmix_tpu_torch.util.timing"):
+        with profile(activities=[ProfilerActivity.CPU]):
+            with timing.phase("re.phase-test") as ph:
+                time.sleep(0.005)
+    (name, t0, t1), = timing.span_log()[0]
+    assert name == "re.phase-test" and ph.seconds == (t1 - t0) / 1e9
+    line, = [r.message for r in caplog.records if name in r.message]
+    assert line.split(" --- ")[1] == f"{ph.seconds:.3f} seconds"
