@@ -32,7 +32,9 @@ Phases, each printing one result line; any failure exits non-zero:
                 medians of 5 turns), the privatised form at the largest D
                 it takes, the device-memory form at D = 100,000 Zipf and
                 D = 1,000,000 uniform, cuts at K = 5 and 12, without an
-                intercept and with weight-0 rows, and float64; the flat
+                intercept and with weight-0 rows, and float64, and at
+                criteo's K = 39 (Zipf(1.2) over D = 1,000,000, the
+                lane-group path) with its bound and plain time; the flat
                 entry scatter (K10/K11, on the fused kernel's table) at
                 uniform and Zipf ids at D = 10,000 in float32 and float64,
                 at the largest privatised D, at D = 100,000 Zipf and
@@ -95,7 +97,10 @@ Phases, each printing one result line; any failure exits non-zero:
                 calls equal) against their plain versions, and K13 on a
                 layout with a split, an owned, a padding, a value-0 and an
                 unreached window into a table allocated onto NaN;
-                uniform ids at D = 1M, where the split declines.
+                uniform ids at D = 1M, where the split declines; criteo's
+                K = 39: the objective through auto and K12 at A = 16,384
+                against the plain version, every K12 launch on the
+                lane-group path.
   6. pipeline — `python -m gdmix_tpu_torch.workflow.main --mode in_memory
                 --num_sweeps 2` (run in this process, so the launch counts
                 can be read) on the synthetic movieLens data: global →
@@ -256,6 +261,9 @@ FE_LOSS_RTOL, FE_GRAD_RTOL, FE_F64_RTOL = 1e-5, 1e-4, 1e-12
 # 1e-12 or ‖g‖∞ ≤ 1e-5 from float32 gradients summed in other orders
 FE_FIT_RTOL = 1e-6
 FE_N, FE_D, FE_K = 4_997_120, 10_000, 16    # bench.py:536-537, :521
+# the width of a criteo row (13 numeric and 26 categorical features): past
+# the pass kernels' vector path, on their lane-group path
+CRITEO_K = 39
 # the file-based pipeline against the in-memory one, and the DAG against
 # the file-based pipeline: the JAX package's own bound between its two modes
 # (tests/test_in_memory_pipeline.py:29), the same math through two plumbings
@@ -375,15 +383,15 @@ def stage_model(d, tmp, dtype="float32", device=None, **over):
                                device=device), base_params
 
 
-def fe_problem(ids, seed=0, n=None, dtype=None, d=FE_D):
+def fe_problem(ids, seed=0, n=None, dtype=None, d=FE_D, k=FE_K):
     """The JAX bench's FE batch (bench.py:562-582) on the card, drawn by
     gdmix_tpu_torch/bench.py fe_batch: ids "uniform" on [0, d) or "zipf",
     inverse-CDF Zipf(1.2) shifted to 0 (the item-popularity class: id 0 is
-    the hottest); FE_N rows of FE_K entries unless `n` is given."""
+    the hottest); FE_N rows of k entries unless `n` is given."""
     import torch
     from gdmix_tpu_torch.bench import fe_batch
     return fe_batch(n or FE_N, d, 0.0 if ids == "uniform" else 1.2,
-                    torch.device(DEV), k=FE_K, seed=seed,
+                    torch.device(DEV), k=k, seed=seed,
                     dtype=dtype or torch.float32)
 
 
@@ -978,17 +986,24 @@ def _fe_fused_row(tag, args, reps=10, device=False, **kw):
 
 def _fe_edge_rows():
     """The two pass kernels at ragged sizes the full-width batches never
-    reach (N not a multiple of a warp's records, K = 3, 4, 8, 20, tables of
-    1, 7, 44 and 300 ids, ~30% value-0 entries and a run of weight-0 rows,
-    both with out-of-range ids), float32 and float64, each against its plain
-    version in float64 on sanitised ids; the fused kernel in the form the
-    wrapper chooses and in its device-memory form."""
+    reach (N not a multiple of a warp's records, K = 3, 4, 5, 8, 17, 20, 39
+    and 64, and K = 16 with rows one element off a 16-byte boundary, tables
+    of 1, 7, 44, 300 and 1,000 ids, ~30% value-0 entries and a run of
+    weight-0 rows, both with out-of-range ids), float32 and float64, each
+    against its plain version in float64 on sanitised ids; the fused kernel
+    in the form the wrapper chooses and in its device-memory form. Every
+    shape but the aligned K = 4, 8 and 16 takes the lane-group path (each
+    call's path is counted and checked)."""
     import torch
     from gdmix_tpu_torch.ops import fe_hybrid as fh, fe_loss_grad as fe
+    from gdmix_tpu_torch.ops import fe_pass
     worst = {"fe_loss_grad_fused": 0.0, "fe_hybrid_hot": 0.0}
-    for n, k, d in ((1001, 8, 44), (37, 3, 7), (4099, 20, 300), (513, 4, 1),
-                    (70_001, 16, 300)):
-        rng = np.random.RandomState(n + k)
+    for n, k, d, shift in ((1001, 8, 44, 0), (37, 3, 7, 0), (4099, 20, 300, 0),
+                           (513, 4, 1, 0), (70_001, 16, 300, 0),
+                           (70_001, 16, 300, 1), (2999, 5, 44, 0),
+                           (3001, 17, 300, 0), (20_011, 39, 1000, 0),
+                           (777, 64, 300, 0)):
+        rng = np.random.RandomState(n + k + shift)
         idx = rng.randint(0, d + 1, (n, k))        # d: K12's dump slot
         val = rng.randn(n, k) * (rng.rand(n, k) < 0.7)
         w = rng.rand(n) + 0.5
@@ -1000,12 +1015,23 @@ def _fe_edge_rows():
         for dt in (torch.float32, torch.float64):
             t = lambda a, dtype=dt: torch.as_tensor(a, dtype=dtype,
                                                     device=DEV)
+
+            def rows_of(a, dtype):
+                # [n, k] rows `shift` elements into a fresh buffer
+                flat = torch.empty(n * k + shift, dtype=dtype, device=DEV)
+                flat[shift:].copy_(torch.as_tensor(a, dtype=dtype).reshape(-1))
+                return flat[shift:].view(n, k)
             ti = lambda a: torch.as_tensor(a, dtype=torch.int32, device=DEV)
             tol = FE_F64_RTOL if dt == torch.float64 else FE_GRAD_RTOL
+            tval = rows_of(val, dt)
+            want_path = ("vector" if shift == 0 and fe_pass.vector_shape(k)
+                         else "lanes")
+            for c in (fe.fe_loss_grad_fused, fh.fe_hybrid_hot):
+                c.path_launches = {"vector": 0, "lanes": 0}
             # K5: ids in [0, d); the entries drawn at d take id 0
             ids5 = np.where(idx == d, 0, idx)
-            k5 = (t(x), ti(np.where(inert, raw, ids5)), t(val), t(y), t(w),
-                  t(off), d)
+            k5 = (t(x), rows_of(np.where(inert, raw, ids5), torch.int32),
+                  tval, t(y), t(w), t(off), d)
             got = fe.fe_loss_grad_fused(*k5)
             with _device_form(fe):
                 gotd = fe.fe_loss_grad_fused(*k5)
@@ -1014,8 +1040,9 @@ def _fe_edge_rows():
                 t(val, torch.float64), t(y, torch.float64),
                 t(w, torch.float64), t(off, torch.float64), d)
             # K12: compact ids in [0, d], d the dump slot
-            gotk = fh.fe_hybrid_hot(t(x[:-1]), t(x[-1]), ti(raw), t(val),
-                                    t(y), t(w), t(off), d)
+            gotk = fh.fe_hybrid_hot(t(x[:-1]), t(x[-1]),
+                                    rows_of(raw, torch.int32), tval, t(y),
+                                    t(w), t(off), d)
             wantk = fh.fe_hybrid_hot_plain(
                 t(x[:-1], torch.float64), t(x[-1], torch.float64),
                 ti(np.where(inert, d, idx)), t(val, torch.float64),
@@ -1033,9 +1060,17 @@ def _fe_edge_rows():
                 k12_r=_rel(gotk[3], wantk[3]),
                 k12_rsum=abs(float(gotk[2] - wantk[2]))
                 / float(wantk[3].abs().sum()))
+            paths = {c.__name__: dict(c.path_launches)
+                     for c in (fe.fe_loss_grad_fused, fh.fe_hybrid_hot)}
             _say("kernels", kernel="fe_pass_edges", N=n, K=k, D=d,
-                 dtype=str(dt).split(".")[1],
+                 unaligned=bool(shift), dtype=str(dt).split(".")[1],
+                 path=want_path, shape=tuple(fe_pass.pass_shape(k, tval)),
                  **{k_: f"{v:.2e}" for k_, v in rels.items()})
+            # K5 twice (its two forms), K12 once, all on want_path
+            _check(all(v[want_path] == sum(v.values()) == calls
+                       for v, calls in zip(paths.values(), (2, 1))),
+                   f"FE pass kernels at K={k} shift={shift}: paths {paths}, "
+                   f"want {want_path}")
             _check(max(rels.values()) <= tol
                    and max(rels["k5_loss"], rels["k5_device_loss"],
                            rels["k12_loss"]) <= min(tol, FE_LOSS_RTOL),
@@ -1109,7 +1144,9 @@ def phase_fe_kernels():
     in float32 and float64, the device-memory form at D = 100,000 Zipf and
     D = 1,000,000 uniform, and cuts at K = 5 and K = 12, without an
     intercept, with a block of weight-0 rows and in float64 (both forms);
-    first, both pass kernels at small ragged sizes (_fe_edge_rows)."""
+    the device-memory form at criteo's K = 39 over D = 1,000,000 (the
+    lane-group path); first, both pass kernels at small ragged sizes
+    (_fe_edge_rows)."""
     import torch
     from gdmix_tpu_torch.ops import fe_loss_grad as fe
     res = {n: dict(max_abs_err=0.0) for n in (
@@ -1243,6 +1280,31 @@ def phase_fe_kernels():
         sca["max_abs_err"] = max(sca["max_abs_err"], row["max_abs_err"])
         sca["forms"][f"{tag}_ms"] = row["ms"]
         del bd
+    # criteo's shape: K = 39 Zipf(1.2) ids over D = 1,000,000 (the
+    # device-memory form) on the lane-group path, with the bound and the
+    # plain version's time
+    bc = fe_problem("zipf", seed=6, d=WIDE_D, k=CRITEO_K)
+    xc = 0.05 * torch.randn(WIDE_D + 1, generator=g, device=DEV)
+    cargs = (xc, bc.indices, bc.values, bc.labels, bc.weights, bc.offsets,
+             WIDE_D)
+    fe.fe_loss_grad_fused.path_launches = {"vector": 0, "lanes": 0}
+    ms, err, _ = _fe_fused_row("criteo_K39", cargs, reps=10)
+    worst(err)
+    paths = dict(fe.fe_loss_grad_fused.path_launches)
+    _check(paths["vector"] == 0 and paths["lanes"] > 0,
+           f"fe_loss_grad_fused criteo_K39: paths {paths}")
+    pms = _time_ms(lambda: fe.fe_loss_grad_plain(*cargs), 3)
+    bound, by = _bound(
+        4 * (2 * FE_N * CRITEO_K + 3 * FE_N + 2 * (WIDE_D + 1)) + 4,
+        4 * FE_N * CRITEO_K + 10 * FE_N)
+    _say("kernels", kernel="fe_loss_grad_fused", cut="criteo_K39", N=FE_N,
+         D=WIDE_D, K=CRITEO_K, ms=f"{ms:.3f}", plain_ms=f"{pms:.3f}",
+         bound_ms=f"{bound:.4f}", bound_by=by, paths=paths,
+         blocks_per_sm=fe.fused_blocks_per_sm(WIDE_D, torch.float32,
+                                              CRITEO_K))
+    fused["forms"].update(criteo_K39_ms=ms, criteo_K39_plain_ms=pms,
+                          criteo_K39_bound_ms=bound)
+    del bc, xc, cargs
     # float64: the kernels must not quietly run in float32; the privatised
     # form at D = 10,000 and at the largest D it takes in float64, and the
     # device-memory form (its cache and shared atomics in double) at both
@@ -2297,7 +2359,8 @@ def _k12_args(aux, b, x, dtype):
     off₂ = offsets + z_cold), in `dtype`."""
     import torch
     w = x[:-1].to(dtype)
-    z_cold = torch.zeros(FE_N, dtype=dtype, device=DEV).index_add_(
+    z_cold = torch.zeros(b.labels.shape[0], dtype=dtype,
+                         device=DEV).index_add_(
         0, aux.cold_row.long(), w[aux.cold_idx.long()] * aux.cold_val.to(dtype))
     A = aux.hot_ids.shape[0]
     return (w[aux.hot_ids.long()], x[-1].to(dtype), aux.hot_idx,
@@ -2309,7 +2372,7 @@ def _k12_row(tag, args):
     """K12 against its plain version on `fe_hybrid_hot`'s arguments; returns
     (the result row, the plain version's r)."""
     import torch
-    from gdmix_tpu_torch.ops import fe_hybrid as fh
+    from gdmix_tpu_torch.ops import fe_hybrid as fh, fe_pass
     dtype, A = args[0].dtype, args[-1]
     k = lambda: fh.fe_hybrid_hot(*args)
     p = lambda: fh.fe_hybrid_hot_plain(*args)
@@ -2325,15 +2388,16 @@ def _k12_row(tag, args):
            f"Σr {s_rel}")
     ms, pms = _time_ms(k, 10), _time_ms(p, 3)
     item = torch.finfo(dtype).bits // 8
+    n, kk = args[2].shape
     # ids and values [N, K], y, w, off₂ and θc in; g [A] and r [N] out; per
     # entry a gather and a scatter multiply-add, per record ~10 flops
-    bound, by = _bound(4 * FE_N * FE_K + item * (FE_N * FE_K + 4 * FE_N
-                                                 + 2 * A),
-                       4 * FE_N * FE_K + 10 * FE_N, item)
-    _say("kernels", kernel="fe_hybrid_hot", cut=tag, N=FE_N, K=FE_K, A=A,
+    bound, by = _bound(4 * n * kk + item * (n * kk + 4 * n + 2 * A),
+                       4 * n * kk + 10 * n, item)
+    _say("kernels", kernel="fe_hybrid_hot", cut=tag, N=n, K=kk, A=A,
          dtype=str(dtype).split(".")[1],
+         path=tuple(fe_pass.pass_shape(kk, args[2], args[3])),
          shared_tier=fh.shared_tier(A, item),
-         blocks_per_sm=fh.hot_blocks_per_sm(A, dtype, FE_K),
+         blocks_per_sm=fh.hot_blocks_per_sm(A, dtype, kk),
          loss_rel=f"{l_rel:.2e}", grad_rel=f"{g_rel:.2e}",
          r_rel=f"{r_rel:.2e}", ms=f"{ms:.3f}", plain_ms=f"{pms:.3f}",
          bound_ms=f"{bound:.4f}", bound_by=by)
@@ -2449,9 +2513,10 @@ def phase_wide_d(card):
     with a plain-version L-BFGS fit beside it, then both at λ = 10⁴, where
     they converge and must agree; K12 and K13 against their plain
     versions at this split's shapes, plus K12 at hot_features 65,536 (the
-    tiered table), in float64 and on uniform compact ids; and uniform ids,
-    where the split declines and the fused kernel runs. Returns (kernel
-    rows, launches)."""
+    tiered table), in float64 and on uniform compact ids; uniform ids,
+    where the split declines and the fused kernel runs; and criteo's K =
+    39, whose K12 launches must all take the lane-group path. Returns
+    (kernel rows, launches)."""
     import torch
     from gdmix_tpu_torch.io.input_pipeline import PerRecordData
     from gdmix_tpu_torch.ops.lbfgs import lbfgs
@@ -2663,6 +2728,42 @@ def phase_wide_d(card):
              loss_rel=f"{l_rel:.2e}", grad_rel=f"{g_rel:.2e}",
              objective_ms=f"{u_ms:.3f}",
              fe_wide_d_uniform_funcalls_per_sec=f"{1000 / u_ms:.1f}")
+        del bu, model_u
+
+        # criteo's width, K = 39 (past the vector path): the split through
+        # auto and the objective against the plain version, then K12 at A =
+        # 16,384 (the criteo cell's split) against its plain version; every
+        # K12 launch of it must take the lane-group path
+        from gdmix_tpu_torch.ops import fe_hybrid as fh
+        bc = fe_problem("zipf", seed=6, d=D, k=CRITEO_K)
+        auxc = model.build_hybrid_aux_for(bc)
+        _check(auxc is not None, "wide_d criteo_K39: the split declined")
+        fh.fe_hybrid_hot.path_launches = {"vector": 0, "lanes": 0}
+        fun = model._objective_fun(bc, auxc)
+        (lv, gv), counts = _counted(lambda: fun(x))
+        lp, gp = _fe_objective_plain(bc, D, x)
+        l_rel, g_rel = abs(float(lv - lp)) / abs(float(lp)), _rel(gv, gp)
+        _check(counts["fe_hybrid_hot"] == 1
+               and counts["windowed_scatter_add"] == 2
+               and l_rel <= FE_LOSS_RTOL and g_rel <= FE_GRAD_RTOL,
+               f"wide_d criteo_K39: launches {counts}, loss {l_rel}, "
+               f"grad {g_rel}")
+        c_ms = _time_ms(lambda: fun(x), 10)
+        a_auto = auxc.hot_ids.shape[0]
+        auxc = build_hybrid_aux(bc.indices, bc.values, D, hot_features=16384)
+        row, _ = _k12_row("criteo_K39", _k12_args(auxc, bc, x,
+                                                  torch.float32))
+        paths = dict(fh.fe_hybrid_hot.path_launches)
+        _say("wide_d", K=CRITEO_K, A_auto=a_auto, loss_rel=f"{l_rel:.2e}",
+             grad_rel=f"{g_rel:.2e}", objective_ms=f"{c_ms:.3f}",
+             k12_paths=paths)
+        _check(paths["vector"] == 0 and paths["lanes"] >= 12,
+               f"wide_d criteo_K39: K12 launches by path {paths}")
+        rows["fe_hybrid_hot"]["forms"].update(
+            criteo_K39_ms=row["ms"], criteo_K39_plain_ms=row["plain_ms"],
+            criteo_K39_bound_ms=row["bound_ms"],
+            criteo_K39_objective_ms=c_ms)
+        del bc, auxc
     return rows, {k: launches[k] for k in ("fe_hybrid_hot",
                                            "windowed_scatter_add")}
 

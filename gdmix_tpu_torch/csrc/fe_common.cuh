@@ -15,9 +15,9 @@
 // g[idx[e]] += ce[e]) adds through the same forms, strips and cache.
 //
 // Bound: device memory. A record is read once (K ids and values, y, w, off;
-// 140 bytes at K = 16 in float32) and, for K12, r written once; θ and g stay
-// on the SM. What the design has to keep off the critical path is the N·K
-// additions into g.
+// 140 bytes at K = 16 in float32, 324 at criteo's K = 39) and, for K12, r
+// written once; θ and g stay on the SM. What the design has to keep off the
+// critical path is the N·K additions into g.
 //
 // Design.
 //  * A persistent grid (blocks = SMs × occupancy) of kThreads threads. While
@@ -34,12 +34,22 @@
 //    rank-ordered space, which rarely meet) go to device memory. θ is read
 //    through the read-only cache in every form. Every address space is
 //    chosen at compile time, per branch.
-//  * The vector path (kVec; K ≤ 16 and K % 4 == 0, 16-byte aligned rows):
-//    four lanes share a record, each holding four entries in registers from
-//    16-byte loads, so an entry is read once and a warp's loads are
-//    contiguous; z is summed over the lanes of a record by two shuffles.
-//    Any other K takes the scalar path: a thread per record, a loop over K,
-//    the entries read again for the gradient.
+//  * How a record is read (Shape). The vector path (kVec; K ≤ 16 and
+//    K % 4 == 0, 16-byte aligned rows): four lanes share a record, each
+//    holding four entries in registers from 16-byte loads. Every other
+//    shape takes the lane-group path (lane_group): G lanes share a record,
+//    the fewest (a power of two, at most 32) that hold it at E ≤ 5 entries
+//    each, E = ⌈K/G⌉ but at least 3; lane sub holds positions sub, sub + G,
+//    …, so at each step a record's G lanes read G consecutive entries by
+//    4-byte loads (no alignment asked) and a warp's load covers the runs of
+//    its 32/G consecutive records. Criteo's K = 39 takes G = 8, E = 5: four
+//    records a warp. Past 32 lanes × 5 (K > 160) a record is read in chunks
+//    of 160, once for z and once more for the gradient. Otherwise, on both
+//    paths, an entry is read once from device memory, z is summed over the
+//    record's lanes by log₂G shuffles and the gradient's additions come
+//    from the registers. In float32 the lane-group path is held to 32
+//    registers, two 1,024-thread blocks an SM: at E = 5 that spills 12–40
+//    bytes, which costs less than the lost block (below).
 //  * Equal ids. A floating-point atomic in shared memory is a
 //    compare-and-swap loop, so the lanes of a warp (and the warps of a block)
 //    that hit one address take turns; in device memory they queue in L2.
@@ -57,6 +67,34 @@
 //    per block.
 // The headers of fe_loss_grad.cu and fe_hybrid.cu give the alternatives
 // that were measured against each of these choices, and their times.
+//
+// What decided the lane-group path: each alternative was built and timed
+// against it (NVIDIA H100 80GB HBM3, 700 W; K12 through its C entry, CUDA
+// events, medians of rounds in turns; N = 4,997,120 float32 rows at A =
+// 16,384 compact ids; ms a call). At K = 39 on criteo-shaped rows (13
+// log-normal numeric ids in every row, 26 Zipf(1.2) ids over 1M): as kept
+// (G = 8, E = 5, held to 32 registers) 0.889–0.890; the same unheld (44
+// registers, one block an SM) 1.098; G = 8 with E = 6 or 8 slots (held)
+// 0.954 and 1.125; G = 4, E = 10 1.045 (51 registers) and 1.244 held; G =
+// 16, E = 3 1.087–1.137; G = 16, E = 4 1.163–1.208; G = 32, E = 2 1.708;
+// chunks of 8 × 4 read twice 1.167; the staged form — a warp's run of four
+// rows copied into shared memory by cp.async, double-buffered (80 KB a
+// block beside the 68 KB table: one block an SM), lanes reading their
+// entries there — 1.104–1.108 at G = 8 and 1.576 at G = 16 (two blocks);
+// the scalar loop this path replaced 17.67–17.71. float64: 1.577–1.623
+// against the scalar loop's 7.43–7.47. Other K (Zipf(1.2) over 1M, split
+// at A = 16,384), as kept / the alternatives / the scalar loop: K = 3 (G =
+// 1, E = 3) 0.100–0.108 / G = 2 0.138, G = 4 0.194 / 0.122–0.127; K = 5 (1,
+// 5) 0.152 / (2, 3) 0.166–0.169, (4, 2) 0.234 / 0.198–0.206; K = 16 on rows
+// off a 16-byte boundary (4, 4) 0.394 / (8, 2) 0.455, (2, 8) 0.480 / 3.92–
+// 3.94 (the vector path on aligned rows 0.360–0.364); K = 17 (4, 5) 0.441 /
+// (8, 3) 0.545–0.552 / 4.83–4.90; K = 20 (4, 5) 0.504 / (8, 3) 0.575 /
+// 6.48–6.50; K = 64 (16, 4) 1.413–1.458 / (32, 2) 1.817, (8, 8) 1.922 /
+// 36.64–36.66; at N = 999,424: K = 100 (32, 4) 0.542 / 10.34, K = 200 in
+// chunks 1.223 (one host copy a call included) / 21.51. The scalar loop
+// lost at every shape and was removed. ptxas: float32 32 registers on both
+// paths (E = 5 and the chunks spill 12–60 bytes, E ≤ 4 none but 4–8 bytes
+// in K5's device-memory form); float64 58–64, one block an SM.
 #pragma once
 
 #include <cstdint>
@@ -69,6 +107,9 @@ constexpr int kThreads = 1024;
 // the vector path: kVecLanes lanes a record, kVecMaxK / kVecLanes entries each
 constexpr int kVecLanes = 4;
 constexpr int kVecMaxK = 16;
+// the lane-group path: at most kLanesMaxE entries a lane (and at least
+// kLanesMinE: fewer save nothing), G at most 32 lanes a record
+constexpr int kLanesMinE = 3, kLanesMaxE = 5, kLanesMaxG = 32;
 // ids that get a lane-private strip
 constexpr int kStrip = 32;
 // K5's hashed table of sampled ids: kBuckets slots (a power of two), a
@@ -159,6 +200,25 @@ __device__ __forceinline__ void load_entries(const int32_t* ri, const T* rv,
         id[q + u] = 0;
         v[q + u] = T(0);
       }
+    }
+  }
+}
+
+// A lane's E entries of one record on the lane-group path: positions j,
+// j + G, …, j + (E − 1)·G, by 4-byte loads, so that the G lanes of a record
+// read G consecutive entries at each step. Positions at or past k get
+// value 0 and are not read.
+template <typename T, int G, int E>
+__device__ __forceinline__ void load_lanes(const int32_t* ri, const T* rv,
+                                           int j, int k, int32_t* id, T* v) {
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    if (j + e * G < k) {
+      id[e] = __ldg(ri + j + e * G);
+      v[e] = __ldg(rv + j + e * G);
+    } else {
+      id[e] = 0;
+      v[e] = T(0);
     }
   }
 }
@@ -366,22 +426,46 @@ struct GradTable {
   }
 };
 
-template <typename T, bool kVec, bool kHybrid, int kForm>
-__global__ void __launch_bounds__(kThreads)
-fe_pass_kernel(const Pass<T> p) {
-  constexpr int L = kVec ? kVecLanes : 1;             // lanes per record
-  constexpr int E = kVec ? kVecMaxK / kVecLanes : 1;  // entries per lane
-  constexpr int R = 32 / L;                           // records per warp
+// How the pass holds a record: G lanes share it (G a power of two, at most
+// 32), each with E of its entries in registers. kVec: lane sub holds the
+// run sub·E … sub·E + E − 1, by 16-byte loads (the vector path). Otherwise
+// lane sub holds positions sub, sub + G, …, by 4-byte loads (the lane-group
+// path); kChunks: a record longer than G·E is read in chunks of G·E, once
+// for z and once more for the gradient.
+template <int G_, int E_, bool kVec_ = false, bool kChunks_ = false>
+struct Shape {
+  static constexpr int G = G_, E = E_;
+  static constexpr bool kVec = kVec_, kChunks = kChunks_;
+  static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0, "G: 1, 2, … 32");
+  static_assert(!kVec || (G * E == kVecMaxK && E % 4 == 0), "vector path");
+};
+
+// The pass of one block (every thread of the block calls it).
+template <typename T, class S, bool kHybrid, int kForm>
+__device__ __forceinline__ void fe_pass(const Pass<T> p) {
+  constexpr int G = S::G, E = S::E;
+  constexpr int R = 32 / G;  // records per warp
   extern __shared__ __align__(16) unsigned char smem_raw[];
   GradTable<T, kForm, kHybrid> tab;
   tab.init(smem_raw, p.g, p.s, p.d, p.idx, p.val, p.n * p.k);
   const int lane = threadIdx.x & 31;
-  const int sub = lane % L;
+  const int sub = lane % G;
   // whether an entry counts: a non-zero value and, for kHybrid, an id that
   // is not the dump slot
   auto counts = [&](int32_t a, T v) -> bool {
     if constexpr (kHybrid) return v != T(0) && (unsigned)a < (unsigned)p.d;
     else return v != T(0);
+  };
+  // Σ v·θ[id] over a lane's entries (lane-group path); those that do not
+  // count get value 0
+  auto dot = [&](const int32_t* id, T* v) -> T {
+    T z = T(0);
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      if (counts(id[e], v[e])) z += v[e] * __ldg(p.theta + id[e]);
+      else v[e] = T(0);
+    }
+    return z;
   };
   const T b = p.b != nullptr ? *p.b : T(0);
   const int64_t warp = (int64_t)blockIdx.x * (kThreads / 32) +
@@ -391,7 +475,7 @@ fe_pass_kernel(const Pass<T> p) {
   // the loop bound is uniform over a warp: the shuffles below need every
   // lane
   for (int64_t base = warp * R; base < p.n; base += stride) {
-    const int64_t row = base + lane / L;
+    const int64_t row = base + lane / G;
     const bool live = row < p.n;
     const T wt = live ? p.w[row] : T(0);
     const bool on = wt != T(0);
@@ -400,7 +484,7 @@ fe_pass_kernel(const Pass<T> p) {
     int32_t id[E];
     T v[E];
     T z = T(0);
-    if constexpr (kVec) {
+    if constexpr (S::kVec) {
       if (on) {
         load_entries<T, E>(ri, rv, sub * E, p.k, id, v);
       } else {
@@ -412,17 +496,16 @@ fe_pass_kernel(const Pass<T> p) {
         if (counts(id[e], v[e])) z += v[e] * __ldg(p.theta + id[e]);
         else v[e] = T(0);
       }
-#pragma unroll
-      for (int o = L / 2; o > 0; o >>= 1) z += __shfl_xor_sync(kFull, z, o);
-    } else if (on) {
-      for (int j = 0; j < p.k; ++j) {
-        const T vj = rv[j];
-        if (vj != T(0)) {
-          const int32_t a = ri[j];
-          if (counts(a, vj)) z += vj * __ldg(p.theta + a);
-        }
+    } else if constexpr (!S::kChunks) {
+      load_lanes<T, G, E>(ri, rv, sub, on ? p.k : 0, id, v);
+      z = dot(id, v);
+    } else {
+      for (int c = 0; c < (on ? p.k : 0); c += G * E) {
+        load_lanes<T, G, E>(ri, rv, c + sub, p.k, id, v);
+        z += dot(id, v);
       }
     }
+    for (int o = G / 2; o > 0; o >>= 1) z += __shfl_xor_sync(kFull, z, o);
     T r = T(0);
     if (on) {
       const T per = loss_residual(z + p.off[row] + b, p.y[row], wt, p.linear,
@@ -435,19 +518,18 @@ fe_pass_kernel(const Pass<T> p) {
     if constexpr (kHybrid) {
       if (live && sub == 0) p.r_out[row] = r;
     }
-    if constexpr (kVec) {
-      if (r != T(0)) {
+    if (r != T(0)) {
+      if constexpr (S::kChunks) {
+        for (int c = 0; c < p.k; c += G * E) {
+          load_lanes<T, G, E>(ri, rv, c + sub, p.k, id, v);
+#pragma unroll
+          for (int e = 0; e < E; ++e)
+            if (counts(id[e], v[e])) tab.add(id[e], v[e] * r, lane);
+        }
+      } else {
 #pragma unroll
         for (int e = 0; e < E; ++e)
           if (v[e] != T(0)) tab.add(id[e], v[e] * r, lane);
-      }
-    } else if (r != T(0)) {
-      for (int j = 0; j < p.k; ++j) {
-        const T vj = rv[j];
-        if (vj != T(0)) {
-          const int32_t a = ri[j];
-          if (counts(a, vj)) tab.add(a, vj * r, lane);
-        }
       }
     }
   }
@@ -458,6 +540,21 @@ fe_pass_kernel(const Pass<T> p) {
     atomicAdd(p.sums, loss);
     atomicAdd(p.sums + 1, rsum);
   }
+}
+
+// The vector path, and float64 on either path, at ptxas's own register
+// budget (32 on the vector path in float32).
+template <typename T, class S, bool kHybrid, int kForm>
+__global__ void __launch_bounds__(kThreads) fe_pass_kernel(const Pass<T> p) {
+  fe_pass<T, S, kHybrid, kForm>(p);
+}
+
+// The lane-group path in float32, held to 32 registers so that two blocks
+// are resident on an SM where their tables fit.
+template <typename T, class S, bool kHybrid, int kForm>
+__global__ void __launch_bounds__(kThreads, 2)
+fe_pass_lanes_kernel(const Pass<T> p) {
+  fe_pass<T, S, kHybrid, kForm>(p);
 }
 
 // Launches `kernel` on a persistent grid of kThreads-thread blocks: as
@@ -489,13 +586,66 @@ int launch_persistent(Kernel kernel, size_t smem, int64_t need,
 }
 
 // Launches one instantiation of the pass on a persistent grid.
-template <typename T, bool kVec, bool kHybrid, int kForm>
+template <typename T, class S, bool kHybrid, int kForm>
+auto pass_kernel() {
+  if constexpr (sizeof(T) == 4 && !S::kVec)
+    return fe_pass_lanes_kernel<T, S, kHybrid, kForm>;
+  else
+    return fe_pass_kernel<T, S, kHybrid, kForm>;
+}
+
+template <typename T, class S, bool kHybrid, int kForm>
 int launch_form(const Pass<T>& p, cudaStream_t stream, int* blocks_per_sm) {
-  constexpr int kRecords = kThreads / (kVec ? kVecLanes : 1);
-  return launch_persistent(
-      fe_pass_kernel<T, kVec, kHybrid, kForm>,
-      GradTable<T, kForm, kHybrid>::smem_bytes(p.s),
-      (p.n + kRecords - 1) / kRecords, stream, blocks_per_sm, p);
+  constexpr int kRecords = kThreads / S::G;
+  return launch_persistent(pass_kernel<T, S, kHybrid, kForm>(),
+                           GradTable<T, kForm, kHybrid>::smem_bytes(p.s),
+                           (p.n + kRecords - 1) / kRecords, stream,
+                           blocks_per_sm, p);
+}
+
+// The shape of the lane-group path for records of k entries: the fewest
+// lanes G (a power of two) that hold the record at kLanesMaxE entries or
+// fewer each, E = ⌈k/G⌉ but at least kLanesMinE; past kLanesMaxG lanes of
+// kLanesMaxE, chunks of that size (*chunks = 1).
+inline void lane_group(int k, int* g, int* e, int* chunks) {
+  int lanes = 1;
+  while (lanes < kLanesMaxG && (k + lanes - 1) / lanes > kLanesMaxE)
+    lanes *= 2;
+  const int per = (k + lanes - 1) / lanes;
+  *g = lanes;
+  *e = per < kLanesMinE ? kLanesMinE : per > kLanesMaxE ? kLanesMaxE : per;
+  *chunks = per > kLanesMaxE;
+}
+
+template <int G, typename F>
+int with_entries(int e, F&& f) {
+  static_assert(kLanesMinE == 3 && kLanesMaxE == 5, "the cases below");
+  switch (e) {
+    case 3: return f(Shape<G, 3>{});
+    case 4: return f(Shape<G, 4>{});
+    case 5: return f(Shape<G, 5>{});
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Calls f(Shape<…>{}) with the shape that records of k entries take: the
+// vector path where vec is 1 (the caller has checked k and the alignment),
+// else lane_group's.
+template <typename F>
+int with_shape(int k, int vec, F&& f) {
+  if (vec) return f(Shape<kVecLanes, kVecMaxK / kVecLanes, true>{});
+  int g = 0, e = 0, chunks = 0;
+  lane_group(k, &g, &e, &chunks);
+  if (chunks) return f(Shape<kLanesMaxG, kLanesMaxE, false, true>{});
+  switch (g) {
+    case 1: return with_entries<1>(e, f);
+    case 2: return with_entries<2>(e, f);
+    case 4: return with_entries<4>(e, f);
+    case 8: return with_entries<8>(e, f);
+    case 16: return with_entries<16>(e, f);
+    case 32: return with_entries<32>(e, f);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // vec: 1 for the vector path (the caller has checked the alignment).
@@ -505,19 +655,16 @@ int launch(const Pass<T>& p, int vec, int form, cudaStream_t stream,
            int* blocks_per_sm) {
   if (p.s < 0 || p.s > p.d || (vec && (p.k > kVecMaxK || p.k % 4 != 0)))
     return (int)cudaErrorInvalidValue;
-  if (form == kBlock)
-    return vec ? launch_form<T, true, kHybrid, kBlock>(p, stream,
-                                                       blocks_per_sm)
-               : launch_form<T, false, kHybrid, kBlock>(p, stream,
-                                                        blocks_per_sm);
-  if constexpr (!kHybrid) {
-    if (form == kDevice)
-      return vec ? launch_form<T, true, false, kDevice>(p, stream,
-                                                        blocks_per_sm)
-                 : launch_form<T, false, false, kDevice>(p, stream,
-                                                         blocks_per_sm);
-  }
-  return (int)cudaErrorInvalidValue;
+  return with_shape(p.k, vec, [&](auto shape) -> int {
+    using S = decltype(shape);
+    if (form == kBlock)
+      return launch_form<T, S, kHybrid, kBlock>(p, stream, blocks_per_sm);
+    if constexpr (!kHybrid) {
+      if (form == kDevice)
+        return launch_form<T, S, false, kDevice>(p, stream, blocks_per_sm);
+    }
+    return (int)cudaErrorInvalidValue;
+  });
 }
 
 }  // namespace gdx_fe

@@ -13,9 +13,11 @@
 // and adds natively, and each thread masks its own rows.
 //
 // The kernel is fe_common.cuh's pass with kHybrid set (its header gives the
-// design): this file holds its C entry points. Bound: device memory. A
-// record is read once (K ids and values, y, w, off₂) and r written once: at
-// N = 4,997,120, K = 16 in float32 about 720 MB, 0.215 ms at 3.35 TB/s.
+// design, the vector and lane-group paths and what decided the latter):
+// this file holds its C entry points. Bound: device memory. A record is
+// read once (K ids and values, y, w, off₂) and r written once: at N =
+// 4,997,120, K = 16 in float32 about 720 MB, 0.215 ms at 3.35 TB/s; at
+// criteo's K = 39 about 1.64 GB, 0.489 ms.
 //
 // What the pass adds for the compact space, which the split hands out in
 // descending order of count (ops/logistic.py _hybrid_hot: compact id 0 is
@@ -43,9 +45,10 @@
 // 1.151, 1,024 kept. θc in shared memory beside the gradient measured 0.518
 // at A = 16,384 against 0.382 through the read-only cache: with the table
 // alone two blocks are resident on an SM instead of one, so θc left.
-// ptxas: 32 registers in float32, 62 in float64, no spills; resident
-// 1,024-thread blocks an SM: 2 at A = 16,384 float32, 1 at A = 65,536 and
-// in float64.
+// These were timed at K = 16, on the vector path. ptxas: 32 registers in
+// float32, 62 in float64, no spills on the vector path (fe_common.cuh for
+// the lane-group path); resident 1,024-thread blocks an SM: 2 at A = 16,384
+// float32 (K = 16 and K = 39 alike), 1 at A = 65,536 and in float64.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -72,7 +75,8 @@ extern "C" {
 // g [a] and sums [2] (loss, Σr in double) must be zero on entry; r [n] is
 // written whole. s: the compact ids below it add into shared memory
 // (s·sizeof(T) bytes), the rest in device memory; vec: 1 for the vector path
-// (k ≤ 16, k % 4 == 0, rows 16-byte aligned). With blocks_per_sm not null
+// (k ≤ 16, k % 4 == 0, rows 16-byte aligned), 0 for the lane-group path
+// (any k). With blocks_per_sm not null
 // nothing is launched: the form's resident blocks per SM are written there.
 int gdx_fe_hybrid_hot_f32(const int32_t* idx, const float* val,
                           const float* y, const float* w, const float* off2,
@@ -97,6 +101,14 @@ int gdx_fe_hybrid_hot_f64(const int32_t* idx, const double* val,
 // The number of ids that get a lane-private strip (the wrapper's byte budget
 // counts 32 slots for each).
 int gdx_fe_hybrid_strip_ids(void) { return gdx_fe::kStrip; }
+
+// The lane-group shape (lanes·100 + entries) of records of k entries off
+// the vector path: the wrapper checks its mirror of the choice against it.
+int gdx_fe_hybrid_lane_group(int k) {
+  int g = 0, e = 0, chunks = 0;
+  gdx_fe::lane_group(k, &g, &e, &chunks);
+  return g * 100 + e;
+}
 
 const char* gdx_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -26,8 +26,8 @@
 // strips and the hashed table of frequent ids (D ≤ 54,752 in float32,
 // 26,864 in float64); past that device-memory atomics, with the strips and
 // a hashed cache of 8,192 first-come ids in shared memory. The vector path
-// takes K ≤ 16 with K % 4 == 0 and 16-byte aligned rows; any other K the
-// scalar path.
+// takes K ≤ 16 with K % 4 == 0 and 16-byte aligned rows; any other shape
+// the lane-group path (fe_common.cuh).
 //
 // What decided each choice: each alternative was built and timed against
 // what is here while the kernel was designed, and only the winner is kept in
@@ -47,10 +47,13 @@
 // 1.575 / 4.772 and 1.588 / 6.610; without the strips 1.567 / 2.076 and
 // 1.585 / 1.994; with neither (every addition a device atomic) 24–26 on
 // Zipf ids; a cache of 16,384 slots leaves one block an SM and measured
-// 1.502 / 1.263 at D = 100,000. ptxas: 32 registers in float32, 54 to 61
-// in float64, no spills but 40 bytes in the float32 scalar device-memory
-// instantiation; two 1,024-thread blocks an SM at D = 10,000 and in the
-// device-memory form, one past D ≈ 27,000 block-private.
+// 1.502 / 1.263 at D = 100,000. These were timed at K = 16, on the vector
+// path; at criteo's K = 39, D = 1,000,000 (Zipf(1.2), the device-memory
+// form) the lane-group path takes 1.887 in float32 and 2.540 in float64,
+// where the scalar loop it replaced took 13.08 and 9.70. ptxas: 32
+// registers in float32, 61 in float64, no spills on the vector path (the
+// lane-group path: fe_common.cuh); two 1,024-thread blocks an SM at D =
+// 10,000 and in the device-memory form, one past D ≈ 27,000 block-private.
 // A cluster-sharded form (the table over the shared memories of a cluster
 // of 8 blocks, 7 of 8 additions remote) against the device-memory
 // form: D = 100,000 2.160 / 5.414 against 1.600 / 1.022; D = 400,000
@@ -189,8 +192,9 @@ extern "C" {
 // grad [d (+1)] and sums [2] (loss, Σr in double) must be zero on entry.
 // form: 1 to keep a block-private gradient in shared memory (d·sizeof(T)
 // bytes), 0 for the device-memory form; vec: 1 for the vector path (k ≤ 16,
-// k % 4 == 0, rows 16-byte aligned). With blocks_per_sm not null nothing is
-// launched: the form's resident blocks per SM are written there.
+// k % 4 == 0, rows 16-byte aligned), 0 for the lane-group path (any k).
+// With blocks_per_sm not null nothing is launched: the form's resident
+// blocks per SM are written there.
 int gdx_fe_fused_f32(const int32_t* idx, const float* val, const float* y,
                      const float* w, const float* off, const float* theta,
                      int64_t n, int k, int d, int has_intercept, int linear,
@@ -241,6 +245,14 @@ int gdx_fe_scatter_f64(const int32_t* idx, const double* ce, int64_t e,
 
 // The number of ids that get a lane-private strip, and the buckets of the
 // hashed table that finds them (the wrapper's byte budget counts both).
+// The lane-group shape (lanes·100 + entries) of records of k entries off
+// the vector path: the wrapper checks its mirror of the choice against it.
+int gdx_fe_lane_group(int k) {
+  int g = 0, e = 0, chunks = 0;
+  gdx_fe::lane_group(k, &g, &e, &chunks);
+  return g * 100 + e;
+}
+
 int gdx_fe_strip_ids(void) { return gdx_fe::kStrip; }
 int gdx_fe_buckets(void) { return gdx_fe::kBuckets; }
 

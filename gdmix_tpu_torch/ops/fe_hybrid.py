@@ -3,7 +3,8 @@
 Port of gdmix_tpu/ops/pallas/fe_hybrid.py (`fe_hybrid_hot_pallas`). On a
 CUDA tensor `fe_hybrid_hot` launches the hand-written kernel of
 csrc/fe_hybrid.cu; on a CPU tensor it takes the plain PyTorch version beside
-it. The wrapper counts its launches in `.launches`.
+it. The wrapper counts its launches in `.launches`, and by the path each
+took (`fe_pass.pass_shape`) in `.path_launches`.
 
 The kernel keeps a block-private compact gradient in shared memory. The
 table is tiered: the compact ids below S add into shared memory, S = A while
@@ -52,6 +53,9 @@ def _library():
                 f"fe_hybrid: the library's strip is "
                 f"{lib.gdx_fe_hybrid_strip_ids()} ids wide, the wrapper "
                 f"budgets {fe_pass.STRIP_IDS}")
+        lib.gdx_fe_hybrid_lane_group.argtypes = [ctypes.c_int]
+        lib.gdx_fe_hybrid_lane_group.restype = ctypes.c_int
+        fe_pass.check_lane_group(lib.gdx_fe_hybrid_lane_group, "fe_hybrid")
         lib._gdx_typed = True
     return lib
 
@@ -102,20 +106,23 @@ def fe_hybrid_hot(theta_c, b, hot_idx, values, labels, weights, offsets2,
     g = torch.zeros(hot, dtype=dtype, device=dev)
     r = torch.empty(n, dtype=dtype, device=dev)
     sums = torch.zeros(2, dtype=torch.float64, device=dev)
+    path = fe_pass.pass_shape(k, hot_idx, values).path
     lib = _library()
     fn = getattr(lib, f"gdx_fe_hybrid_hot_{_SUFFIX[dtype]}")
     with _cuda.on_card(theta_c) as stream:
         err = fn(_cuda.ptr(hot_idx), _cuda.ptr(values), _cuda.ptr(labels),
                  _cuda.ptr(weights), _cuda.ptr(offsets2), _cuda.ptr(theta_c),
                  _cuda.ptr(b), n, k, hot, int(linear), tier,
-                 int(fe_pass.vector_path(k, hot_idx, values)), _cuda.ptr(g),
-                 _cuda.ptr(r), _cuda.ptr(sums), stream, None)
+                 int(path == "vector"), _cuda.ptr(g), _cuda.ptr(r),
+                 _cuda.ptr(sums), stream, None)
     _cuda.check(lib, err, what)
     fe_hybrid_hot.launches += 1
+    fe_hybrid_hot.path_launches[path] += 1
     return sums[0].to(dtype), g, sums[1].to(dtype), r
 
 
 fe_hybrid_hot.launches = 0
+fe_hybrid_hot.path_launches = {"vector": 0, "lanes": 0}
 
 
 def hot_blocks_per_sm(hot: int, dtype: torch.dtype, k: int) -> int:

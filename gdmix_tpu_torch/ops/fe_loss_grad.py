@@ -7,7 +7,8 @@ pair around an elementwise middle). On a CUDA tensor each wrapper launches
 its hand-written kernel of csrc/fe_loss_grad.cu; on a CPU tensor it takes the
 plain PyTorch version beside it (`fixed_effect_value_and_grad` with λ = 0,
 or the gather / `index_add_` pair). Each wrapper counts its launches in
-`.launches`.
+`.launches`; the fused one also by the path each took (`fe_pass.pass_shape`)
+in `.path_launches`.
 
 The fused kernel and the entry scatter keep a block-private gradient in
 shared memory while the table fits the opt-in, and past it add into device
@@ -88,6 +89,9 @@ def _fn(name: str, dtype: torch.dtype):
             raise RuntimeError(
                 f"fe_loss_grad: the library has (strips, buckets) = {got}, "
                 f"the wrapper budgets {want}")
+        lib.gdx_fe_lane_group.argtypes, lib.gdx_fe_lane_group.restype = \
+            [_I], _I
+        fe_pass.check_lane_group(lib.gdx_fe_lane_group, "fe_loss_grad")
         for entry, argtypes in _ARGTYPES.items():
             for suffix in _SUFFIX.values():
                 fn = getattr(lib, f"gdx_fe_{entry}_{suffix}")
@@ -140,22 +144,25 @@ def fe_loss_grad_fused(x, indices, values, labels, weights, offsets,
     n, k = indices.shape
     grad = torch.zeros_like(x)
     sums = torch.zeros(2, dtype=torch.float64, device=x.device)
+    path = fe_pass.pass_shape(k, indices, values).path
     lib, fn = _fn("fused", x.dtype)
     with _cuda.on_card(x) as stream:
         err = fn(_cuda.ptr(indices), _cuda.ptr(values), _cuda.ptr(labels),
                  _cuda.ptr(weights), _cuda.ptr(offsets), _cuda.ptr(x), n, k,
                  num_features, int(has_intercept), int(linear),
                  privatised_form(num_features, x.element_size()),
-                 int(fe_pass.vector_path(k, indices, values)),
-                 _cuda.ptr(grad), _cuda.ptr(sums), stream, None)
+                 int(path == "vector"), _cuda.ptr(grad), _cuda.ptr(sums),
+                 stream, None)
     _cuda.check(lib, err, what)
     fe_loss_grad_fused.launches += 1
+    fe_loss_grad_fused.path_launches[path] += 1
     if has_intercept:
         grad[num_features] = sums[1]
     return sums[0].to(x.dtype), grad
 
 
 fe_loss_grad_fused.launches = 0
+fe_loss_grad_fused.path_launches = {"vector": 0, "lanes": 0}
 
 
 def fused_blocks_per_sm(num_features: int, dtype: torch.dtype, k: int) -> int:

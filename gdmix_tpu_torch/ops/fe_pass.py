@@ -3,10 +3,13 @@
 csrc/fe_common.cuh is one pass over padded COO records, launched by
 `fe_loss_grad_fused` (ops/fe_loss_grad.py) and `fe_hybrid_hot`
 (ops/fe_hybrid.py). This module holds the kernel's contract as both wrappers
-see it: the shared memory it takes besides the gradient table, which shapes
-may take its 16-byte loads, and the one check of a call's inputs.
+see it: the shared memory it takes besides the gradient table, how it holds
+a record (its path and shape, a pure function of K and the rows'
+alignment), and the one check of a call's inputs.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -19,8 +22,22 @@ SMEM_RESERVE = 1024
 # the kernel's lane-private strips: STRIP_IDS ids, 32 slots each (kStrip in
 # csrc/fe_common.cuh; each wrapper checks it at its library's first load)
 STRIP_IDS = 32
-# the vector path: K ≤ 16, K % 4 == 0, rows 16-byte aligned
-VEC_MAX_K = 16
+# the vector path: K ≤ 16, K % 4 == 0, rows 16-byte aligned; four lanes a
+# record, four entries each
+VEC_MAX_K, VEC_LANES = 16, 4
+# the lane-group path, every other shape (kLanesMinE, kLanesMaxE and
+# kLanesMaxG in csrc/fe_common.cuh; each wrapper checks its library's
+# lane_group against `lane_group` at its first load)
+LANES_MIN_E, LANES_MAX_E, LANES_MAX_G = 3, 5, 32
+
+
+class PassShape(NamedTuple):
+    """How the pass holds a record: `lanes` lanes share it, `entries` of its
+    entries in each lane's registers; past lanes·entries (the lane-group
+    path at LANES_MAX_G lanes only) it is read in chunks of that size."""
+    path: str       # "vector" (16-byte loads) or "lanes" (4-byte loads)
+    lanes: int
+    entries: int
 
 
 def strip_bytes(element_size: int) -> int:
@@ -35,6 +52,38 @@ def vector_shape(k: int) -> bool:
 def vector_path(k: int, *tensors: torch.Tensor) -> bool:
     """Whether the kernel may read a record's entries with 16-byte loads."""
     return vector_shape(k) and all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def lane_group(k: int) -> PassShape:
+    """The lane-group path's shape for records of k entries: the fewest
+    lanes (a power of two) that hold a record at LANES_MAX_E entries or
+    fewer each, entries ⌈k/lanes⌉ but at least LANES_MIN_E; past
+    LANES_MAX_G lanes of LANES_MAX_E, chunks of that size."""
+    lanes = 1
+    while lanes < LANES_MAX_G and -(-k // lanes) > LANES_MAX_E:
+        lanes *= 2
+    return PassShape("lanes", lanes,
+                     min(max(-(-k // lanes), LANES_MIN_E), LANES_MAX_E))
+
+
+def pass_shape(k: int, *tensors: torch.Tensor) -> PassShape:
+    """How the kernel holds records of k entries read from `tensors` (the
+    ids and values): the vector path where `vector_path` allows it, else
+    the lane-group path."""
+    if vector_path(k, *tensors):
+        return PassShape("vector", VEC_LANES, VEC_MAX_K // VEC_LANES)
+    return lane_group(k)
+
+
+def check_lane_group(fn, what: str) -> None:
+    """Raise unless the library's lane_group (`fn(k)` = lanes·100 +
+    entries) is `lane_group` for every K up to twice the chunk size."""
+    for k in range(1, 2 * LANES_MAX_G * LANES_MAX_E + 1):
+        want = lane_group(k)
+        if fn(k) != want.lanes * 100 + want.entries:
+            raise RuntimeError(
+                f"{what}: the library holds records of {k} entries as "
+                f"{fn(k)} (lanes·100 + entries), the wrapper as {want}")
 
 
 def check_records(what, table, table_len, indices, values, per_record):

@@ -1,5 +1,6 @@
 // Runs csrc/fe_loss_grad.cu's kernels on the CPU through cuda_runtime.h of
-// this directory: the entry scatter (K10/K11) and the fused pass (K5), in
+// this directory: the entry scatter (K10/K11) and the fused pass (K5, and
+// K12's hybrid instantiation of the same pass of fe_common.cuh), in
 // the table form and load path the command line names, so that each form
 // is reached whatever the table's size. The test writes fe_loss_grad.cu
 // and fe_common.cuh, with their dynamic shared memory declarations swapped
@@ -11,8 +12,14 @@
 //   harness fused f32|f64 form vec n k d has_intercept linear blocks
 //     reads idx.i32 [n·k], val, y, w, off, theta.<type> ([n·k], [n] ×3,
 //     [d + has_intercept]); writes g.<type> [d] and sums.f64 [2]
-//   form: 0 device memory (behind the cache), 1 block-private; blocks: the
-//   grid, run one block after another.
+//   harness hot f32|f64 1 vec n k a s linear blocks
+//     K12's pass (fe_hybrid.cu's kernel) on compact ids in [0, a], a the
+//     dump slot, the ids below s in the block's table: reads idx.i32,
+//     val, y, w, off, theta.<type> ([a]) and b.<type> ([1]); writes
+//     g.<type> [a], r.<type> [n] and sums.f64 [2]
+//   form: 0 device memory (behind the cache), 1 block-private; vec: 1 the
+//   vector path, 0 the lane-group path of the kernel's with_shape; blocks:
+//   the grid, run one block after another.
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
@@ -89,9 +96,22 @@ static void scatter(int d, int64_t e, int blocks, const std::string& ty) {
   save("g." + ty, g);
 }
 
-template <class T, bool kVec, int kForm>
-static void fused(int64_t n, int k, int d, int has_b, int linear, int blocks,
-                  const std::string& ty) {
+// The pass (K5, or K12 with kHybrid) in the shape the kernel's own
+// with_shape takes for k and vec.
+template <class T, bool kHybrid, int kForm>
+static void pass(const gdx_fe::Pass<T>& p, int vec, int blocks) {
+  const int err = gdx_fe::with_shape(p.k, vec, [&](auto shape) -> int {
+    run(blocks, gdx_fe::GradTable<T, kForm, kHybrid>::smem_bytes(p.s), [&] {
+      gdx_fe::fe_pass<T, decltype(shape), kHybrid, kForm>(p);
+    });
+    return 0;
+  });
+  if (err != 0) std::exit(3);
+}
+
+template <class T, int kForm>
+static void fused(int vec, int64_t n, int k, int d, int has_b, int linear,
+                  int blocks, const std::string& ty) {
   const auto idx = load<int32_t>("idx.i32", n * k);
   const auto val = load<T>("val." + ty, n * k);
   const auto y = load<T>("y." + ty, n), w = load<T>("w." + ty, n),
@@ -104,9 +124,29 @@ static void fused(int64_t n, int k, int d, int has_b, int linear, int blocks,
                           off.data(), theta.data(),
                           has_b ? theta.data() + d : nullptr, n, k, d, s,
                           linear, g.data(), nullptr, sums.data()};
-  run(blocks, gdx_fe::GradTable<T, kForm, false>::smem_bytes(s),
-      [&] { gdx_fe::fe_pass_kernel<T, kVec, false, kForm>(p); });
+  pass<T, false, kForm>(p, vec, blocks);
   save("g." + ty, g);
+  save("sums.f64", sums);
+}
+
+// K12's pass: compact ids in [0, a] (a the dump slot), the ids below s in
+// the block's table, the rest in device memory; b from b.<type>.
+template <class T>
+static void hot(int vec, int64_t n, int k, int a, int s, int linear,
+                int blocks, const std::string& ty) {
+  const auto idx = load<int32_t>("idx.i32", n * k);
+  const auto val = load<T>("val." + ty, n * k);
+  const auto y = load<T>("y." + ty, n), w = load<T>("w." + ty, n),
+             off = load<T>("off." + ty, n);
+  const auto theta = load<T>("theta." + ty, a), b = load<T>("b." + ty, 1);
+  std::vector<T> g(a, T(0)), r(n, T(0));
+  std::vector<double> sums(2, 0.0);
+  const gdx_fe::Pass<T> p{idx.data(), val.data(), y.data(), w.data(),
+                          off.data(), theta.data(), b.data(), n, k, a, s,
+                          linear, g.data(), r.data(), sums.data()};
+  pass<T, true, gdx_fe::kBlock>(p, vec, blocks);
+  save("g." + ty, g);
+  save("r." + ty, r);
   save("sums.f64", sums);
 }
 
@@ -119,9 +159,14 @@ static int dispatch(int argc, char** argv, const std::string& ty) {
     return 0;
   }
   if (what == "fused" && argc == 11) {
-    fused<T, kVec, kForm>(std::atoll(argv[5]), std::atoi(argv[6]),
-                          std::atoi(argv[7]), std::atoi(argv[8]),
-                          std::atoi(argv[9]), std::atoi(argv[10]), ty);
+    fused<T, kForm>(kVec, std::atoll(argv[5]), std::atoi(argv[6]),
+                    std::atoi(argv[7]), std::atoi(argv[8]),
+                    std::atoi(argv[9]), std::atoi(argv[10]), ty);
+    return 0;
+  }
+  if (what == "hot" && argc == 11 && kForm == gdx_fe::kBlock) {
+    hot<T>(kVec, std::atoll(argv[5]), std::atoi(argv[6]), std::atoi(argv[7]),
+           std::atoi(argv[8]), std::atoi(argv[9]), std::atoi(argv[10]), ty);
     return 0;
   }
   return 2;

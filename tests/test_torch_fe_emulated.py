@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from gdmix_tpu_torch.ops import fe_hybrid as fh
 from gdmix_tpu_torch.ops import fe_loss_grad as fe
 
 _EMU_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -99,8 +100,11 @@ def test_scatter_source_emulated_matches_plain(fe_emulator, dtype, form,
     assert np.abs(got - want).max() <= tol * np.abs(want).max()
 
 
-# (n, k, vec, has_intercept, linear)
-K5_CASES = [(700, 8, 1, 1, 0), (333, 5, 0, 0, 1)]
+# (n, k, vec, has_intercept, linear); vec 0 takes the lane-group path:
+# G = 4 lanes a record up to K = 16, 8 up to 64, past that chunks of 32 × 8
+K5_CASES = [(700, 8, 1, 1, 0), (333, 5, 0, 0, 1), (450, 3, 0, 1, 1),
+            (300, 16, 0, 0, 0), (129, 17, 0, 1, 0), (401, 39, 0, 1, 0),
+            (257, 64, 0, 1, 1), (90, 300, 0, 1, 0)]
 
 
 @pytest.mark.parametrize("n,k,vec,has_b,linear", K5_CASES)
@@ -143,3 +147,50 @@ def test_fused_source_emulated_matches_plain(fe_emulator, dtype, form, n, k,
     assert np.abs(g - want_g[:d]).max() <= tol * np.abs(want_g[:d]).max()
     if has_b:
         assert abs(rsum - want_g[d]) <= tol * np.abs(want_g[:d]).max()
+
+
+# (n, k, vec, a, s): K12 on the vector path (k 16) and the lane-group path,
+# the whole table in the block or the ids in [s, a) in device memory
+K12_CASES = [(600, 16, 1, 64, 64), (500, 5, 0, 64, 64), (700, 39, 0, 300, 300),
+             (700, 39, 0, 300, 40), (120, 300, 0, 64, 20)]
+
+
+@pytest.mark.parametrize("n,k,vec,a,tier", K12_CASES)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_hot_source_emulated_matches_plain(fe_emulator, dtype, n, k, vec, a,
+                                           tier):
+    """K12's pass (the hybrid instantiation) against fe_hybrid_hot_plain in
+    float64: rank-ordered compact ids with a hot head for the strips, ~20%
+    at the dump slot, value-0 entries and weight-0 rows carrying ids far
+    out of range; loss, Σr, the gradient and r."""
+    ty = "f64" if dtype == np.float64 else "f32"
+    rng = np.random.RandomState(n + k + tier)
+    idx = np.minimum((a + 1) * rng.rand(n, k) ** 3, a).astype(np.int64)
+    idx[rng.rand(n, k) < 0.2] = a
+    val = rng.randn(n, k) * (rng.rand(n, k) < 0.8)
+    w = rng.rand(n) + 0.5
+    w[n // 4:n // 3] = 0.0
+    inert = (val == 0) | (w == 0)[:, None]
+    raw = np.where(inert, a + 10 ** 6, idx).astype(np.int32)
+    y = (rng.rand(n) < 0.5).astype(np.float64)
+    off = 0.3 * rng.randn(n)
+    theta, b = 0.2 * rng.randn(a), np.array([0.1])
+    raw.tofile(fe_emulator / "idx.i32")
+    for name, arr in (("val", val), ("y", y), ("w", w), ("off", off),
+                      ("theta", theta), ("b", b)):
+        arr.astype(dtype).tofile(fe_emulator / f"{name}.{ty}")
+    _run(fe_emulator, "hot", ty, fe.FORM_BLOCK, vec, n, k, a, tier, 0, 3)
+    g = np.fromfile(fe_emulator / f"g.{ty}", dtype)
+    r = np.fromfile(fe_emulator / f"r.{ty}", dtype)
+    loss, rsum = np.fromfile(fe_emulator / "sums.f64", np.float64)
+    t = lambda x: torch.as_tensor(np.asarray(x, dtype).astype(np.float64))
+    wl, wg, wrs, wr = fh.fe_hybrid_hot_plain(
+        t(theta), t(b)[0], torch.as_tensor(np.where(inert, a, idx)
+                                           .astype(np.int32)),
+        t(val), t(y), t(w), t(off), a)
+    tol = F64_RTOL if dtype == np.float64 else F32_RTOL
+    assert abs(loss - float(wl)) <= tol * abs(float(wl))
+    assert abs(rsum - float(wrs)) <= tol * float(wr.abs().sum())
+    assert np.abs(g - wg.numpy()).max() <= tol * np.abs(wg.numpy()).max()
+    assert np.abs(r - wr.numpy()).max() <= tol * np.abs(wr.numpy()).max()
+    assert not r[n // 4:n // 3].any()

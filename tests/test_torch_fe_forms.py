@@ -1,11 +1,12 @@
 """The two fixed-effect pass kernels' wrappers (ops/fe_loss_grad.py
 `fe_loss_grad_fused`, ops/fe_hybrid.py `fe_hybrid_hot`) on CPU tensors
 against the JAX package, over the shapes that take the kernels' different
-paths on a card (K = 16 and 12: 16-byte loads; K = 5 and 1: the general
-loop; with and without an intercept; logistic and linear; float64 and
-float32), with padding the kernels must never read; the form choosers at
-their byte boundaries; the rank order of the compact ids the hot-side kernel
-relies on; and the wrappers' shape and type errors. The kernels themselves
+paths on a card (K = 16 and 12: 16-byte loads; K = 5, 1 and, for the
+hot-side kernel, 39: the lane-group path; with and without an intercept;
+logistic and linear; float64 and float32), with padding the kernels must
+never read; the form choosers at their byte boundaries; the path and shape
+each K and alignment take; the rank order of the compact ids the hot-side
+kernel relies on; and the wrappers' shape and type errors. The kernels themselves
 run only on a card, where `python3 chip_smoke.py` holds each form against
 the plain versions used here. Inputs are made from a numpy seed and handed
 to both sides."""
@@ -162,6 +163,34 @@ def test_hybrid_hot_matches_pallas(a, ids, linear):
     assert not r[100:140].any()
 
 
+@pytest.mark.parametrize("linear", [False, True], ids=["logistic", "linear"])
+def test_hybrid_hot_matches_pallas_at_k39(linear):
+    """Criteo's K = 39 (the kernel's lane-group path on a card): the
+    wrapper against JAX's K12 in interpret mode."""
+    a, k = 512, 39
+    dd = _hot_inputs(a, "mixed", seed=39, k=k)
+    b = np.float32(-0.4)
+    y = dd["y"] + (0.3 * np.random.RandomState(2).randn(N).astype(np.float32)
+                   if linear else 0)
+    lv, g, rs, r = fh.fe_hybrid_hot(
+        torch.as_tensor(dd["theta"]), torch.as_tensor(b),
+        torch.as_tensor(dd["idx"]), torch.as_tensor(dd["val"]),
+        torch.as_tensor(y), torch.as_tensor(dd["w"]),
+        torch.as_tensor(dd["off"]), a, linear=linear)
+    want = fe_hybrid_hot_pallas(
+        jnp.asarray(dd["theta"]), jnp.asarray(b), jnp.asarray(dd["idx_safe"]),
+        jnp.asarray(dd["val"]), jnp.asarray(y), jnp.asarray(dd["w"]),
+        jnp.asarray(dd["off"]), hot=a, linear=linear, tile=128,
+        interpret=True)
+    jlv, jg, jrs, jr = [np.asarray(x) for x in want]
+    np.testing.assert_allclose(float(lv), jlv, rtol=K12_TOL)
+    np.testing.assert_allclose(float(rs), jrs, rtol=K12_TOL,
+                               atol=K12_TOL * np.abs(jr).sum())
+    for t, j in ((g, jg), (r, jr)):
+        np.testing.assert_allclose(t.numpy(), j, rtol=0,
+                                   atol=K12_TOL * max(np.abs(j).max(), 1e-30))
+
+
 @pytest.mark.parametrize("item", [4, 8], ids=["f32", "f64"])
 def test_privatised_form_at_its_byte_boundary(item):
     """The gradient stays in shared memory exactly while the table, the
@@ -202,6 +231,55 @@ def test_vector_path_needs_k_and_alignment():
     assert not fe_pass.vector_path(20, idx, val)
     # a view that starts 4 bytes into its storage
     assert not fe_pass.vector_path(16, idx.reshape(-1)[1:], val)
+
+
+# (K, rows 16-byte aligned, path, lanes, entries): the vector path only at
+# K ≤ 16, K % 4 == 0 on aligned rows; every other shape the lane-group path,
+# the fewest lanes that hold a record at ≤ 5 entries each (at least 3); past
+# 32 lanes × 5 (K = 161) chunks of 160
+PASS_SHAPES = [(3, True, "lanes", 1, 3), (5, True, "lanes", 1, 5),
+               (16, True, "vector", 4, 4), (16, False, "lanes", 4, 4),
+               (12, False, "lanes", 4, 3), (17, True, "lanes", 4, 5),
+               (20, True, "lanes", 4, 5), (39, True, "lanes", 8, 5),
+               (64, True, "lanes", 16, 4), (160, True, "lanes", 32, 5),
+               (161, True, "lanes", 32, 5), (1, True, "lanes", 1, 3)]
+
+
+@pytest.mark.parametrize("k,aligned,path,lanes,entries", PASS_SHAPES)
+def test_pass_shape_by_k_and_alignment(k, aligned, path, lanes, entries):
+    buf = torch.zeros(8 * k + 1, dtype=torch.int32)
+    idx = (buf[:-1] if aligned else buf[1:]).view(8, k)
+    assert (idx.data_ptr() % 16 == 0) == aligned
+    shape = fe_pass.pass_shape(k, idx, torch.zeros(8, k))
+    assert shape == (path, lanes, entries)
+    if path == "lanes":
+        assert shape == fe_pass.lane_group(k)
+        # a record fits its lanes' registers, or (past the largest group
+        # only) is read in chunks of them
+        assert (lanes * entries >= k) == (k <= fe_pass.LANES_MAX_G
+                                          * fe_pass.LANES_MAX_E)
+
+
+def test_lane_group_is_the_fewest_lanes():
+    """Over K = 1…400: lanes a power of two, entries within [3, 5], no
+    smaller group holds the record at ≤ 5 entries a lane."""
+    for k in range(1, 401):
+        path, lanes, entries = fe_pass.lane_group(k)
+        assert path == "lanes" and lanes & (lanes - 1) == 0
+        assert fe_pass.LANES_MIN_E <= entries <= fe_pass.LANES_MAX_E
+        if lanes > 1:
+            assert -(-k // (lanes // 2)) > fe_pass.LANES_MAX_E
+        if lanes < fe_pass.LANES_MAX_G:
+            assert entries == max(-(-k // lanes), fe_pass.LANES_MIN_E)
+
+
+def test_check_lane_group_catches_a_library_that_disagrees():
+    want = lambda k: (lambda s: s.lanes * 100 + s.entries)(
+        fe_pass.lane_group(k))
+    fe_pass.check_lane_group(want, "ok")
+    with pytest.raises(RuntimeError, match="records of 39 entries"):
+        fe_pass.check_lane_group(
+            lambda k: 1603 if k == 39 else want(k), "off")
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

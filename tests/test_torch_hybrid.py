@@ -283,6 +283,38 @@ def test_fe_hybrid_hot_plain_matches_pallas(linear, has_intercept):
                                    atol=KERNEL_TOL * np.abs(j).max())
 
 
+def test_fe_hybrid_hot_plain_matches_pallas_at_k39():
+    """K12 at criteo's K = 39 (13 numeric ids in every row, 26 Zipf): the
+    plain version against fe_hybrid_hot_pallas in interpret mode on one
+    split, float32."""
+    rng = np.random.RandomState(39)
+    dd = _zipf(n=384, k=26, seed=39, dtype=np.float32, s=1.2)
+    numeric = np.broadcast_to(np.arange(13, dtype=np.int32), (384, 13))
+    idx = np.concatenate([numeric, dd["idx"] + 13], 1)
+    val = np.concatenate([np.exp(rng.randn(384, 13)).astype(np.float32),
+                          np.ones((384, 26), np.float32)], 1)
+    val /= np.linalg.norm(val, axis=1, keepdims=True)
+    aux = tl.build_hybrid_aux(torch.as_tensor(idx), torch.as_tensor(val),
+                              313, hot_features=64, cold_max_frac=0.9)
+    a = aux.hot_ids.shape[0]
+    theta_c = (0.3 * rng.randn(a)).astype(np.float32)
+    b = np.float32(-1.1)
+    args = (aux.hot_idx.numpy(), val, dd["y"], dd["w"], dd["off"])
+    got = fh.fe_hybrid_hot(torch.as_tensor(theta_c), torch.as_tensor(b),
+                           *(torch.as_tensor(x) for x in args), a)
+    want = fe_hybrid_hot_pallas(jnp.asarray(theta_c), jnp.asarray(b),
+                                *(jnp.asarray(x) for x in args), hot=a,
+                                tile=128, interpret=True)
+    (lv, g, rs, r), (jlv, jg, jrs, jr) = got, [np.asarray(x) for x in want]
+    assert aux.hot_idx.shape == (384, 39) and (aux.hot_idx == a).any()
+    np.testing.assert_allclose(float(lv), jlv, rtol=KERNEL_TOL)
+    np.testing.assert_allclose(float(rs), jrs, rtol=KERNEL_TOL,
+                               atol=KERNEL_TOL * np.abs(jr).sum())
+    for t, j in ((g, jg), (r, jr)):
+        np.testing.assert_allclose(t.numpy(), j, rtol=0,
+                                   atol=KERNEL_TOL * np.abs(j).max())
+
+
 _OBJ_CASES = [("logistic_regression", True), ("logistic_regression", False),
               ("linear_regression", True)]
 
