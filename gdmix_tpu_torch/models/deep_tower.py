@@ -13,6 +13,13 @@ Covered, as in the JAX package (--ftr_ext, doc fields, losses):
   * encoders: `cnn` (one Conv1D per window + masked max-pool), `lstm`
     (stacked LSTM over every position + masked max-pool), `bert` /
     `transformer` (self-attention blocks trained from scratch + masked mean);
+    with a `bert_config_file` (a google-research/bert `bert_config.json`,
+    DeText's own argument), `bert` is BERT's encoder as that file sizes it:
+    word, position and token-type embeddings under a LayerNorm, post-LN
+    blocks with biases and an exact (erf) GELU, and BERT's pooler; the
+    documents framed by [CLS] and [SEP]. Not ported: WordPiece (the tokens
+    are the vocab file's whitespace lookup), `bert_init_ckpt` (the weights
+    start from BERT's initialiser) and dropout (the tower has none);
   * multi-field docs: `doc_text_columns` = comma list; a shared embedding,
     an encoder per field, the representations concatenated (the attention
     encoders take one field: ROADMAP C.11);
@@ -21,12 +28,22 @@ Covered, as in the JAX package (--ftr_ext, doc fields, losses):
 
 Training is mini-batch Adam on one device a process, the data uploaded
 once and each batch gathered there; the loss of each step stays on the
-device until the epoch ends. The best epoch by validation AUC is kept and
-saved as the port's own checkpoint: a `state_dict` written by `torch.save`
-through the filesystem seam, with a manifest beside it, by the chief alone.
+device until the epoch ends (`_fit_rows`: the epochs, the validation AUC
+and the best epoch, over per-row tensors already on the device; `train()`
+reads the files, uploads them once and calls it). The best epoch by
+validation AUC is kept and saved as the port's own checkpoint: a
+`state_dict` written by `torch.save` through the filesystem seam, with a
+manifest beside it, by the chief alone.
 Checkpoints of the JAX package (orbax) do not load here. The tower has no
 hand-written kernel: the JAX package computes it outside any Pallas
-kernel, and so the port leaves it to PyTorch's operators.
+kernel, and so the port leaves it to PyTorch's operators (BERT's attention
+to `scaled_dot_product_attention`).
+
+Spans (util/timing.py): `tower.fit` (a `_fit_rows` call), `tower.step` (one
+Adam step) holding `tower.forward`, `tower.backward` and `tower.adam`,
+`tower.attention` (each BERT layer's attention call in a step's forward),
+`tower.validate` (the scoring pass and its AUC); `last_fit` counts the
+`steps` and the `host_syncs` (values read back to the host).
 
 Across processes (a process group; gdmix_tpu/models/deep_tower.py:288-530)
 training is data parallel: every process holds the full data and draws the
@@ -47,13 +64,13 @@ import json
 import logging
 import math
 import os
-import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from gdmix_tpu_torch import constants
 from gdmix_tpu_torch.device import resolve_device
@@ -68,6 +85,7 @@ from gdmix_tpu_torch.parallel.process_group import (all_gather_rows,
                                                     all_reduce_sum, barrier,
                                                     process_index_and_count)
 from gdmix_tpu_torch.params import Params, from_argv
+from gdmix_tpu_torch.util.timing import span
 
 logger = logging.getLogger(__name__)
 
@@ -76,6 +94,41 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 _POOL_FILL = -1e9
 # flax's LayerNorm epsilon (torch's default is 1e-5)
 _LN_EPS = 1e-6
+
+
+@dataclass(frozen=True)
+class BertConfig:
+    """The keys of a google-research/bert `bert_config.json` that size the
+    encoder. The dropout probabilities are read and not applied: the tower
+    has no dropout."""
+    vocab_size: int
+    hidden_size: int
+    num_hidden_layers: int
+    num_attention_heads: int
+    intermediate_size: int
+    hidden_act: str = "gelu"
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+    initializer_range: float = 0.02
+    layer_norm_eps: float = 1e-12      # BERT's LayerNorm epsilon
+    hidden_dropout_prob: float = 0.1
+    attention_probs_dropout_prob: float = 0.1
+
+    def __post_init__(self):
+        if self.hidden_size % self.num_attention_heads:
+            raise ValueError(
+                f"BERT's hidden_size {self.hidden_size} is not a multiple of "
+                f"its num_attention_heads {self.num_attention_heads}")
+        if self.hidden_act != "gelu":
+            raise ValueError(f"hidden_act {self.hidden_act!r}: the BERT "
+                             "encoder computes gelu only")
+
+    @classmethod
+    def from_file(cls, path: str) -> "BertConfig":
+        with fs.open(path) as f:
+            raw = json.load(f)
+        keys = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in raw.items() if k in keys})
 
 
 @dataclass
@@ -108,10 +161,15 @@ class DeepTowerParams:
     dtype: str = "float32"         # the parameters' and the batches' type
     seed: int = 0
     data_format: str = constants.TFRECORD
+    # a google-research/bert bert_config.json: `bert` becomes BERT's encoder
+    bert_config_file: Optional[str] = None
 
     def __post_init__(self):
         if self.ftr_ext not in ("cnn", "lstm", "bert", "transformer"):
             raise ValueError(f"unknown ftr_ext {self.ftr_ext!r}")
+        if self.bert_config_file and self.ftr_ext != "bert":
+            raise ValueError(f"bert_config_file sizes the bert encoder; "
+                             f"ftr_ext is {self.ftr_ext!r}")
         if self.task_type not in ("classification", "ranking"):
             raise ValueError(f"unknown task_type {self.task_type!r}")
         if self.task_type == "ranking" and not self.query_column:
@@ -178,17 +236,89 @@ class _EncoderLayer(nn.Module):
         return self.norm_ff(x + self.ff_out(torch.relu(self.ff_in(x))))
 
 
+def _attend(q, k, v, key_ok):
+    """Attention of q, k, v [B, heads, L, d] over the keys `key_ok`
+    [B, 1, 1, L] allows; a span of its own in a step's forward (grad on),
+    none in scoring."""
+    if not torch.is_grad_enabled():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=key_ok)
+    with span("tower.attention"):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=key_ok)
+
+
+class _BertLayer(nn.Module):
+    """BERT's post-LN block: a = LN(x + Wo·MHA(x) + bo), then
+    LN(a + W2·gelu(W1·a + b1) + b2), GELU exact (erf)."""
+
+    def __init__(self, c: BertConfig):
+        super().__init__()
+        h = c.hidden_size
+        self.heads = c.num_attention_heads
+        self.query = nn.Linear(h, h)
+        self.key = nn.Linear(h, h)
+        self.value = nn.Linear(h, h)
+        self.attn_out = nn.Linear(h, h)
+        self.attn_norm = nn.LayerNorm(h, eps=c.layer_norm_eps)
+        self.ff_in = nn.Linear(h, c.intermediate_size)
+        self.ff_out = nn.Linear(c.intermediate_size, h)
+        self.ff_norm = nn.LayerNorm(h, eps=c.layer_norm_eps)
+
+    def forward(self, x, key_ok):
+        b, length, h = x.shape
+
+        def heads(t):
+            return t.view(b, length, self.heads, -1).transpose(1, 2)
+        att = _attend(heads(self.query(x)), heads(self.key(x)),
+                      heads(self.value(x)), key_ok)
+        a = self.attn_norm(x + self.attn_out(
+            att.transpose(1, 2).reshape(b, length, h)))
+        return self.ff_norm(a + self.ff_out(F.gelu(self.ff_in(a))))
+
+
+class _BertEncoder(nn.Module):
+    """BERT's encoder over one text field: LN(word[t] + pos[i] + type[0]),
+    the blocks, and the pooler tanh(Wp·x[:, 0] + bp). forward takes tokens
+    and token_mask [B, L] and gives [B, hidden_size]."""
+
+    def __init__(self, c: BertConfig):
+        super().__init__()
+        h = c.hidden_size
+        self.initializer_range = c.initializer_range
+        self.word = nn.Embedding(c.vocab_size, h)
+        self.position = nn.Embedding(c.max_position_embeddings, h)
+        self.token_type = nn.Embedding(c.type_vocab_size, h)
+        self.embed_norm = nn.LayerNorm(h, eps=c.layer_norm_eps)
+        self.layers = nn.ModuleList(_BertLayer(c)
+                                    for _ in range(c.num_hidden_layers))
+        self.pooler = nn.Linear(h, h)
+
+    def forward(self, tokens, mask):
+        length = tokens.shape[1]
+        x = self.embed_norm(self.word(tokens) + self.position.weight[:length]
+                            + self.token_type.weight[0])
+        key_ok = mask > 0
+        # a doc with no tokens attends to every position alike, as flax's
+        # masking gives (and not NaN)
+        key_ok = (key_ok | ~key_ok.any(-1, keepdim=True))[:, None, None, :]
+        for layer in self.layers:
+            x = layer(x, key_ok)
+        return torch.tanh(self.pooler(x[:, 0]))
+
+
 class _TextWideTower(nn.Module):
     """Text encoder (cnn | lstm | transformer) + wide linear tower → MLP →
     logit, as JAX's _TextWideTower. Multi-field docs share the embedding
     table; each field gets its own encoder parameters and the
     representations concatenate. forward takes tokens / token_mask
-    [B, F, L], wide_indices / wide_values [B, K]."""
+    [B, F, L], wide_indices / wide_values [B, K]. With `bert` (ftr_ext
+    "bert") the encoder is BERT's (_BertEncoder), with its own embeddings
+    and its width hidden_size in place of num_units."""
 
     def __init__(self, vocab_size: int, num_wide: int, num_units: int,
                  windows: Tuple[int, ...], num_filters: int, num_hidden: int,
                  ftr_ext: str = "cnn", num_heads: int = 4, num_layers: int = 2,
-                 num_fields: int = 1, max_len: int = 16):
+                 num_fields: int = 1, max_len: int = 16,
+                 bert: Optional[BertConfig] = None):
         super().__init__()
         if ftr_ext in ("bert", "transformer") and num_fields > 1:
             raise ValueError(
@@ -197,6 +327,20 @@ class _TextWideTower(nn.Module):
                 "position embedding is one parameter per tower)")
         self.ftr_ext = ftr_ext
         self.windows = tuple(windows)
+        self.bert = None
+        if bert is not None:
+            if ftr_ext != "bert":
+                raise ValueError(f"a BERT config needs ftr_ext 'bert', not "
+                                 f"{ftr_ext!r}")
+            if max_len > bert.max_position_embeddings:
+                raise ValueError(
+                    f"max_len {max_len} is past BERT's "
+                    f"max_position_embeddings {bert.max_position_embeddings}")
+            self.bert = _BertEncoder(bert)
+            self.wide_w = nn.Parameter(torch.empty(num_wide))
+            self.hidden = nn.Linear(bert.hidden_size + 1, num_hidden)
+            self.logit = nn.Linear(num_hidden, 1)
+            return
         self.embed = nn.Embedding(vocab_size, num_units)
         self.wide_w = nn.Parameter(torch.empty(num_wide))
         if ftr_ext == "cnn":
@@ -251,14 +395,17 @@ class _TextWideTower(nn.Module):
         return (x * mask[..., None]).sum(dim=1) / denom   # masked mean
 
     def forward(self, tokens, token_mask, wide_indices, wide_values):
-        encode = {"cnn": self._encode_cnn, "lstm": self._encode_lstm,
-                  "bert": self._encode_transformer,
-                  "transformer": self._encode_transformer}[self.ftr_ext]
         reprs = []
-        for f in range(tokens.shape[1]):
-            mask_f = token_mask[:, f]
-            emb = self.embed(tokens[:, f]) * mask_f[..., None]
-            reprs.append(encode(f, emb, mask_f))
+        if self.bert is not None:
+            reprs.append(self.bert(tokens[:, 0], token_mask[:, 0]))
+        else:
+            encode = {"cnn": self._encode_cnn, "lstm": self._encode_lstm,
+                      "bert": self._encode_transformer,
+                      "transformer": self._encode_transformer}[self.ftr_ext]
+            for f in range(tokens.shape[1]):
+                mask_f = token_mask[:, f]
+                emb = self.embed(tokens[:, f]) * mask_f[..., None]
+                reprs.append(encode(f, emb, mask_f))
         # wide tower: linear over the sparse bag
         wide = (self.wide_w[wide_indices] * wide_values).sum(dim=-1,
                                                              keepdim=True)
@@ -281,12 +428,22 @@ def init_state(tower: _TextWideTower, gen: torch.Generator
     embedding N(0, 0.02), LeCun-normal kernels over their fan-in (a
     convolution's is in·width), biases 0, LayerNorm scales 1, and flax's
     LSTM cell defaults (LeCun-normal input kernels, an orthogonal hidden
-    kernel per gate)."""
+    kernel per gate). BERT's encoder takes BERT's initialiser: every
+    embedding and kernel a normal of σ initializer_range truncated at ±2σ,
+    biases 0, LayerNorm scales 1 and offsets 0; the head and the wide
+    weights keep the tower's."""
     state = {}
     for name, p in tower.named_parameters():
         t = torch.zeros(p.shape, dtype=p.dtype)
         leaf = name.rsplit(".", 1)[-1]
-        if name == "embed.weight":
+        if name.startswith("bert."):
+            if leaf == "weight" and "norm" in name:
+                t.fill_(1.0)
+            elif leaf == "weight":
+                sd = tower.bert.initializer_range
+                nn.init.trunc_normal_(t, 0.0, sd, -2 * sd, 2 * sd,
+                                      generator=gen)
+        elif name == "embed.weight":
             nn.init.normal_(t, 0.0, 0.1, generator=gen)
         elif name == "posemb":
             nn.init.normal_(t, 0.0, 0.02, generator=gen)
@@ -368,6 +525,22 @@ def _tokenize(texts, vocab: Dict[str, int], max_len: int
     return tokens, mask
 
 
+def _bert_framed(tokens: np.ndarray, mask: np.ndarray, vocab: Dict[str, int]
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """_tokenize's [n, F, L] tokens and mask as BERT reads a document:
+    [CLS], the first L − 2 tokens, [SEP], then padding."""
+    pad = vocab.get("[PAD]", 0)
+    length = tokens.shape[-1]
+    kept = np.minimum(mask.sum(-1).astype(np.int64), length - 2)[..., None]
+    out = np.full_like(tokens, pad)
+    out[..., 1:length - 1] = tokens[..., :length - 2]
+    pos = np.arange(length)
+    out = np.where(pos <= kept, out, pad)
+    out[..., 0] = vocab["[CLS]"]
+    np.put_along_axis(out, kept + 1, vocab["[SEP]"], axis=-1)
+    return out, (pos <= kept + 1).astype(mask.dtype)
+
+
 _ROW_KEYS = ("tokens", "mask", "indices", "values", "labels", "weights",
              "offsets", "groups")
 
@@ -394,6 +567,19 @@ class DeepTowerModel(Model):
         self.num_wide = self.metadata.num_features(self.feature_bag)
         self.vocab = _load_vocab(model_params.vocab_file)
         p = model_params
+        self.bert_config = (BertConfig.from_file(p.bert_config_file)
+                            if p.bert_config_file else None)
+        if self.bert_config is not None:
+            missing = {"[CLS]", "[SEP]"} - set(self.vocab)
+            if missing or len(self.vocab) > self.bert_config.vocab_size:
+                raise ValueError(
+                    f"the vocab ({len(self.vocab)} entries, missing "
+                    f"{sorted(missing)}) does not fit BERT's vocab_size "
+                    f"{self.bert_config.vocab_size} with [CLS] and [SEP]")
+            if max(self.bert_config.hidden_dropout_prob,
+                   self.bert_config.attention_probs_dropout_prob) > 0:
+                logger.info("the tower has no dropout: BERT's dropout "
+                            "probabilities are not applied")
         # built without values: every use loads a state (_initial_state, a
         # checkpoint) first
         with torch.device("meta"):
@@ -403,7 +589,7 @@ class DeepTowerModel(Model):
                 num_filters=p.num_filters, num_hidden=p.num_hidden,
                 ftr_ext=p.ftr_ext, num_heads=p.num_heads,
                 num_layers=p.num_layers, num_fields=len(p.text_columns),
-                max_len=p.max_len)
+                max_len=p.max_len, bert=self.bert_config)
         self.module = tower.to_empty(device=self.device).to(self.dtype)
         self.has_params = False
         # the last train(): per-epoch mean loss and validation AUC, the
@@ -446,6 +632,15 @@ class DeepTowerModel(Model):
                     weights=weights, offsets=offsets, uid=uid, n=n,
                     groups=groups)
 
+    def _rows(self, data_dir: str, schema_params):
+        """_load_arrays' columns, the documents framed as BERT reads them
+        when the encoder is BERT's."""
+        arrays = self._load_arrays(data_dir, schema_params)
+        if self.bert_config is not None:
+            arrays["tokens"], arrays["mask"] = _bert_framed(
+                arrays["tokens"], arrays["mask"], self.vocab)
+        return arrays
+
     def _on_device(self, arrays) -> Dict[str, torch.Tensor]:
         """The per-row arrays as tensors on the model's device, uploaded
         once: ids as int64, the rest in the model's type."""
@@ -482,23 +677,27 @@ class DeepTowerModel(Model):
                  for k, v in rows.items()}
         p = self.model_params
         opt.zero_grad(set_to_none=True)
-        if not ranking:
-            loss = tower_loss(self.module, local, False, p.l2_reg_weight)
-            shown = loss.detach()
-        else:
-            z = self.module(local["tokens"], local["mask"], local["indices"],
-                            local["values"]) + local["offsets"]
-            z_all = all_gather_rows(z.detach())
-            z = torch.cat([z_all[:rank * per], z, z_all[(rank + 1) * per:]])
-            data = pairwise_ranking_loss(z, rows["labels"][idx],
-                                         rows["weights"][idx],
-                                         rows["groups"][idx])
-            l2 = (p.l2_reg_weight * sum(
-                torch.sum(q * q) for q in self.module.parameters()
-                if q.requires_grad) if p.l2_reg_weight else 0.0)
-            loss = nproc * data + l2
-            shown = (data + l2).detach()
-        loss.backward()
+        with span("tower.forward"):
+            if not ranking:
+                loss = tower_loss(self.module, local, False, p.l2_reg_weight)
+                shown = loss.detach()
+            else:
+                z = self.module(local["tokens"], local["mask"],
+                                local["indices"], local["values"]) \
+                    + local["offsets"]
+                z_all = all_gather_rows(z.detach())
+                z = torch.cat([z_all[:rank * per], z,
+                               z_all[(rank + 1) * per:]])
+                data = pairwise_ranking_loss(z, rows["labels"][idx],
+                                             rows["weights"][idx],
+                                             rows["groups"][idx])
+                l2 = (p.l2_reg_weight * sum(
+                    torch.sum(q * q) for q in self.module.parameters()
+                    if q.requires_grad) if p.l2_reg_weight else 0.0)
+                loss = nproc * data + l2
+                shown = (data + l2).detach()
+        with span("tower.backward"):
+            loss.backward()
         params = [q for q in self.module.parameters() if q.grad is not None]
         flat = all_reduce_sum(torch.cat(
             [q.grad.reshape(-1) for q in params] + [shown.reshape(1)])) / nproc
@@ -506,81 +705,113 @@ class DeepTowerModel(Model):
         for q in params:
             q.grad.copy_(flat[at:at + q.numel()].view_as(q))
             at += q.numel()
-        opt.step()
+        with span("tower.adam"):
+            opt.step()
         return flat[-1]
 
-    def train(self, training_data_dir, validation_data_dir, metadata_file,
-              checkpoint_path, execution_context, schema_params):
+    def _step(self, opt, rows, idx, ranking: bool) -> torch.Tensor:
+        """One Adam step of one process over the rows `idx`; its loss."""
+        batch = {k: v[idx] for k, v in rows.items()}
+        opt.zero_grad(set_to_none=True)
+        with span("tower.forward"):
+            loss = tower_loss(self.module, batch, ranking,
+                              self.model_params.l2_reg_weight)
+        with span("tower.backward"):
+            loss.backward()
+        with span("tower.adam"):
+            opt.step()
+        return loss.detach()
+
+    def _fit_rows(self, train_t: Dict[str, torch.Tensor],
+                  valid_t: Optional[Dict[str, torch.Tensor]],
+                  state: Dict[str, torch.Tensor],
+                  max_steps: Optional[int] = None) -> Optional[torch.Tensor]:
+        """Fit from `state` over the per-row tensors `train_t` (and score
+        `valid_t` an epoch) already on the device: num_epochs epochs of
+        Adam steps over batches drawn by a permutation seeded with `seed`,
+        the best epoch by validation AUC kept in the module (the last
+        without validation). A fit cut short stops after `max_steps` steps
+        and that epoch's validation. Returns the kept epoch's validation
+        scores (None without validation); sets last_fit."""
         p = self.model_params
-        rank, nproc = process_index_and_count()
+        _, nproc = process_index_and_count()
         if nproc > 1 and p.batch_size % nproc:
             raise ValueError(
                 f"multi-process deep-tower training needs batch_size "
                 f"divisible by the process count ({p.batch_size} % {nproc})")
-        logger.info("Kicking off deep-tower training on %s", self.device)
-        train = self._load_arrays(training_data_dir, schema_params)
-        valid = (self._load_arrays(validation_data_dir, schema_params)
-                 if validation_data_dir else None)
-        t0 = time.perf_counter()
-        train_t = self._on_device(train)
-        valid_t = self._on_device(valid) if valid is not None else None
-
-        self.module.load_state_dict(self._initial_state())
-        self.has_params = True
-        opt = adam(self.module, p.learning_rate)
-        ranking = p.task_type == "ranking"
-
-        rng_np = np.random.RandomState(p.seed)
-        n = train["n"]
-        steps_per_epoch = max(1, n // p.batch_size)
-        best_auc, best_state, best_epoch = -1.0, None, p.num_epochs - 1
-        history = []
-        for epoch in range(p.num_epochs):
-            perm = torch.as_tensor(rng_np.permutation(n), device=self.device)
-            losses = []
-            for s in range(steps_per_epoch):
-                idx = perm[s * p.batch_size:(s + 1) * p.batch_size]
-                if nproc > 1:
-                    # a global batch short of a multiple of the process
-                    # count (n < batch_size) drops its remainder
-                    idx = idx[:len(idx) // nproc * nproc]
-                    if len(idx):
-                        losses.append(self._shared_step(opt, train_t, idx,
-                                                        ranking))
-                    continue
-                batch = {k: v[idx] for k, v in train_t.items()}
-                opt.zero_grad(set_to_none=True)
-                loss = tower_loss(self.module, batch, ranking,
-                                  p.l2_reg_weight)
-                loss.backward()
-                opt.step()
-                losses.append(loss.detach())
-            mean_loss = float(torch.stack(losses).mean())
-            if valid_t is None:
-                history.append({"epoch": epoch, "loss": mean_loss})
-                continue
-            vscores = self._score_all(valid_t)
-            vauc = float(auc_metric(vscores + valid_t["offsets"],
-                                    valid_t["labels"]))
-            logger.info("epoch %d loss %.5f val auc %.4f", epoch, mean_loss,
-                        vauc)
-            history.append({"epoch": epoch, "loss": mean_loss,
-                            "val_auc": vauc})
-            if vauc > best_auc:
-                best_auc, best_epoch = vauc, epoch
-                best_state = {k: v.detach().clone()
-                              for k, v in self.module.state_dict().items()}
-        if best_state is not None:
-            self.module.load_state_dict(best_state)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with span("tower.fit") as fit_span:
+            self.module.load_state_dict(state)
+            self.has_params = True
+            opt = adam(self.module, p.learning_rate)
+            ranking = p.task_type == "ranking"
+            rng_np = np.random.RandomState(p.seed)
+            n = train_t["tokens"].shape[0]
+            steps_per_epoch = max(1, n // p.batch_size)
+            best_auc, best_state, best_epoch = -1.0, None, p.num_epochs - 1
+            best_scores = None
+            history = []
+            steps = syncs = 0
+            for epoch in range(p.num_epochs):
+                perm = torch.as_tensor(rng_np.permutation(n),
+                                       device=self.device)
+                losses = []
+                for s in range(steps_per_epoch):
+                    if steps == max_steps:
+                        break
+                    idx = perm[s * p.batch_size:(s + 1) * p.batch_size]
+                    if nproc > 1:
+                        # a global batch short of a multiple of the process
+                        # count (n < batch_size) drops its remainder
+                        idx = idx[:len(idx) // nproc * nproc]
+                        if not len(idx):
+                            continue
+                    with span("tower.step"):
+                        step = self._shared_step if nproc > 1 else self._step
+                        losses.append(step(opt, train_t, idx, ranking))
+                    steps += 1
+                mean_loss = float(torch.stack(losses).mean())
+                syncs += 1
+                if valid_t is None:
+                    history.append({"epoch": epoch, "loss": mean_loss})
+                else:
+                    with span("tower.validate"):
+                        vscores = self._score_all(valid_t)
+                        vauc = float(auc_metric(vscores + valid_t["offsets"],
+                                                valid_t["labels"]))
+                    syncs += 1
+                    logger.info("epoch %d loss %.5f val auc %.4f", epoch,
+                                mean_loss, vauc)
+                    history.append({"epoch": epoch, "loss": mean_loss,
+                                    "val_auc": vauc})
+                    if vauc > best_auc:
+                        best_auc, best_epoch = vauc, epoch
+                        best_scores = vscores
+                        best_state = {k: v.detach().clone() for k, v
+                                      in self.module.state_dict().items()}
+                if steps == max_steps:
+                    break
+            if best_state is not None:
+                self.module.load_state_dict(best_state)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         self.last_fit = {"epochs": history, "best_epoch": best_epoch,
-                         "steps_per_epoch": steps_per_epoch,
-                         "seconds": time.perf_counter() - t0}
+                         "steps_per_epoch": steps_per_epoch, "steps": steps,
+                         "host_syncs": syncs, "seconds": fit_span.seconds}
         logger.info("deep tower: best epoch %d of %d, %d steps an epoch, "
                     "%.3f s", best_epoch, p.num_epochs, steps_per_epoch,
                     self.last_fit["seconds"],
                     extra={"deep_tower_fit": self.last_fit})
+        return best_scores
+
+    def train(self, training_data_dir, validation_data_dir, metadata_file,
+              checkpoint_path, execution_context, schema_params):
+        logger.info("Kicking off deep-tower training on %s", self.device)
+        train = self._rows(training_data_dir, schema_params)
+        valid = (self._rows(validation_data_dir, schema_params)
+                 if validation_data_dir else None)
+        train_t = self._on_device(train)
+        valid_t = self._on_device(valid) if valid is not None else None
+        self._fit_rows(train_t, valid_t, self._initial_state())
         # one writer (ROADMAP C.4), and no process reads it before it is
         # written
         if execution_context.get(constants.IS_CHIEF, True):
@@ -717,7 +948,7 @@ class DeepTowerModel(Model):
     def predict(self, output_dir, input_data_path, metadata_file,
                 checkpoint_path, execution_context, schema_params):
         self._load_checkpoint()
-        arrays = self._load_arrays(input_data_path, schema_params)
+        arrays = self._rows(input_data_path, schema_params)
         self._write_scores(arrays, self._on_device(arrays), schema_params,
                            output_dir,
                            execution_context.get(constants.TASK_INDEX, 0),

@@ -25,7 +25,7 @@ this module keeps that surface and puts it on one span recorder:
   round trip.
 
 A span opens and closes in one frame, never across a `yield`. The
-program's span names start with `re.` or `lbfgs`.
+program's span names start with `re.`, `lbfgs` or `tower.`.
 """
 from __future__ import annotations
 
