@@ -477,7 +477,7 @@ def phase_build():
     from gdmix_tpu_torch.ops import _cuda
     t0 = time.perf_counter()
     _cuda.load_all(("fe_loss_grad", "ldlt_solve", "newton_lanes",
-                    "fe_hybrid", "windowed_scatter"))
+                    "fe_hybrid", "windowed_scatter", "re_pack"))
     _say("build", seconds=round(time.perf_counter() - t0, 2),
          nvcc={k: round(v, 2) for k, v in _cuda.build_seconds.items()})
     for name, rep in _cuda.ptxas_report.items():
@@ -1778,6 +1778,171 @@ def _two_phase_syncs(fg, tmp):
                    f"two_phase: tier {shape} over {p} shards host reads "
                    f"{tier}, single-phase {single}")
     return per_bucket
+
+
+def _re_pack_bytes(pack) -> tuple:
+    """Bytes each pass of ops/re_pack.py must move over a FlatPack after
+    its upload, each once: pass 1 reads the ids, the nnz and three
+    [E] maps and writes the distinct ids and two [E] counts; pass 2 reads
+    the records' ids, values, nnz, labels and offsets (weights where
+    given), the members' maps and distinct ids, and writes every tier's
+    padded tensors and the compact ids."""
+    c, sup = pack.cols, pack.sup
+    N, K = c.indices.shape
+    E = pack.E
+    item = c.values.element_size()
+    n_ids = int(sup.u_count.long().sum())
+    n_sup = pack.support_ids.shape[0] - E
+    cols = sum(t.numel() * t.element_size()
+               for t in (c.labels, c.offsets, c.weights, c.nnz)
+               if t is not None)
+    pass1 = N * K * 4 + N * 4 + E * 16 + n_ids * 4 + E * 8
+    pass2 = N * K * (4 + item) + cols + n_ids * 4 + E * 24 + n_sup * 4
+    for t, k in zip(pack.tiers, pack.k):
+        rows = t.b * t.n_cap
+        pass2 += rows * k * (8 + item) + rows * 3 * item + t.b * item
+    return float(pass1), float(pass2)
+
+
+def _re_pack_equal(fg, schema, dev, what):
+    """Pack `fg` through ops/re_pack.py on `dev` and check every tier's
+    tensors equal iter_bucketize_flat's through newton_inputs_from_numpy
+    bit for bit (indices, values, labels, weights, offsets, sample counts)
+    and the supports the host reads back equal the bucketizer's padded
+    ones. Returns the FlatPack, packed, and its number of tiers."""
+    import torch
+    from gdmix_tpu_torch.data.bucketing import iter_bucketize_flat
+    from gdmix_tpu_torch.models import random_effect_lr as re_model
+    from gdmix_tpu_torch.ops import re_pack
+    from gdmix_tpu_torch.util.convert import newton_inputs_from_numpy
+    pack = re_pack.FlatPack(fg, label_column="response", weight_column=None,
+                            offset_column="offset", device=dev,
+                            dtype=torch.float32)
+    pack.upload()
+    pack.supports()
+    tiers = [pack.tier(i) for i in range(len(pack.tiers))]
+    ids = pack.support_ids.cpu().numpy()
+    cols = re_model._STATIC_COLS + ("offsets",)
+    n = 0
+    for i, b in enumerate(iter_bucketize_flat(fg, schema, "offset")):
+        want = newton_inputs_from_numpy({k: getattr(b, k) for k in cols},
+                                        dev, torch.float32)
+        for k in cols:
+            _check(tiers[i][k].dtype == want[k].dtype
+                   and torch.equal(tiers[i][k], want[k]),
+                   f"re_pack: {what} tier {i} {k} differs from the "
+                   "bucketizer's")
+        br = len(b.entity_ids)
+        u, sup = pack.host_supports(ids, i)
+        mask = np.arange(b.u_cap)[None, :] < b.u_count[:br, None]
+        _check(pack.u[i] == b.u_cap
+               and np.array_equal(np.maximum(u, 1), b.u_count[:br])
+               and np.array_equal(sup, b.unique_global_indices[:br][mask]),
+               f"re_pack: {what} tier {i} supports differ")
+        n += 1
+    _check(n == len(pack.tiers), f"re_pack: {what} {len(pack.tiers)} "
+           f"tiers, the bucketizer {n}")
+    return pack, n
+
+
+def phase_re_pack(card):
+    """The random-effect marshal's kernels (csrc/re_pack.cu through
+    ops/re_pack.py). Checks, by _re_pack_equal against the host bucketizer
+    bit for bit: the lr-movielens.re-fleet cell's size (1,000,000
+    entities, pareto 1.5 counts 2–64, K 4, a 20-wide bag: pass 1 a warp an
+    entity throughout) and the heavy-tail workload (20,000 entities,
+    counts to 2,048 at K 4: pass 1's block path with its keys in shared
+    memory past 64 records and in the device workspace past 1,024, both
+    checked to be taken); a fleet fit through fit_flat launches both
+    passes. Records both passes' device time at the fleet's size (CUDA
+    events, medians of 5 rounds), their byte bound and the plain versions'
+    time on the card, the fit's phases and its host syncs (PyTorch's sync
+    debug mode)."""
+    import torch
+    from gdmix_tpu_torch.ops import re_pack
+    fg = make_workload_flat(1_000_000, seed=5, d=20)
+    dev = torch.device(DEV)
+    with tempfile.TemporaryDirectory(prefix="gdx_smoke_pack_") as tmp:
+        model, schema = stage_model(20, tmp)
+        heavy, n_heavy = _re_pack_equal(heavy_tail_workload(), schema, dev,
+                                        "heavy_tail")
+        ws_off = heavy._dev["ws_off"].cpu().numpy()
+        n_block, n_ws = len(ws_off), int((ws_off >= 0).sum())
+        _check(n_block > n_ws > 0, f"re_pack: heavy_tail {n_block} block "
+               f"entities, {n_ws} of them in the workspace")
+        del heavy
+        t0 = time.perf_counter()
+        pack, n = _re_pack_equal(fg, schema, dev, "fleet")
+        torch.cuda.synchronize()
+        check_s = time.perf_counter() - t0
+        _check(len(pack._dev["block_ents"]) == 0,
+               "re_pack: the fleet takes pass 1's block path")
+
+        d, c = pack._dev, pack.cols
+        block = re_pack.BlockPath(d["block_ents"], d["ws_off"],
+                                  pack._ws_size)
+
+        def pass1():
+            re_pack.re_supports(c.indices, c.nnz, c.counts, c.starts,
+                                d["tier_of"], len(pack.tiers), block)
+
+        def pass2():
+            for i in range(len(pack.tiers)):
+                pack.tier(i)
+
+        def plain1():
+            return re_pack.re_supports_plain(c.indices, c.nnz, c.counts,
+                                             c.starts, d["tier_of"],
+                                             len(pack.tiers))
+
+        def plain2():
+            for i, t in enumerate(pack.tiers):
+                sl = slice(t.base, t.base + len(t.members))
+                re_pack.re_pack_tier_plain(
+                    c, pack.sup, d["order"][sl], pack._coff[sl], t.b,
+                    t.n_cap, pack.k[i], torch.float32,
+                    sup_out=pack.support_ids)
+
+        ms1, ms2 = (float(np.median([_time_ms(f, 3) for _ in range(5)]))
+                    for f in (pass1, pass2))
+        plain1_ms, plain2_ms = _time_ms(plain1, 1), _time_ms(plain2, 1)
+        (b1, by1), (b2, by2) = (_bound(b, 0.0)
+                                for b in _re_pack_bytes(pack))
+        del pack, c, d
+        # ---- the main path: a fleet fit ----
+        before = (re_pack.re_supports.launches,
+                  re_pack.re_pack_tier.launches)
+        model.fit_flat(fg, {}, schema)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.fit_flat(fg, {}, schema)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        phases = dict(model.last_fit_phases)
+        counted = _sync_counted(lambda: model.fit_flat(fg, {}, schema))
+        counted()
+        launches = {"re_supports": re_pack.re_supports.launches - before[0],
+                    "re_pack_tier": re_pack.re_pack_tier.launches
+                    - before[1]}
+        _check(launches["re_supports"] >= 3 and launches["re_pack_tier"]
+               >= 3 * n, f"re_pack: a fleet fit launched {launches}")
+        peak = torch.cuda.max_memory_allocated(dev)
+    _say("re_pack", tiers=n, supports_ms=f"{ms1:.3f}",
+         supports_bound_ms=f"{b1:.3f}", supports_plain_ms=f"{plain1_ms:.3f}",
+         pack_ms=f"{ms2:.3f}", pack_bound_ms=f"{b2:.3f}",
+         pack_plain_ms=f"{plain2_ms:.3f}",
+         heavy_tail=dict(tiers=n_heavy, block=n_block, workspace=n_ws),
+         check_s=f"{check_s:.3f}", fit_s=f"{fit_s:.3f}",
+         models_per_s=f"{len(fg) / fit_s:.1f}",
+         phases={k: round(v, 3) for k, v in phases.items()},
+         host_syncs=sum(counted.reads.values()),
+         sync_lines=dict(counted.reads), peak_gb=f"{peak / 1e9:.2f}",
+         launches=launches, card=repr(card))
+    rows = {"re_supports": dict(max_abs_err=0.0, ms=ms1, plain_ms=plain1_ms,
+                                bound_ms=b1, bound_by=by1, library_ms=None),
+            "re_pack_tier": dict(max_abs_err=0.0, ms=ms2, plain_ms=plain2_ms,
+                                 bound_ms=b2, bound_by=by2, library_ms=None)}
+    return rows, launches
 
 
 def phase_two_phase(card):
@@ -5077,6 +5242,12 @@ KERNELS = (
      "gdmix_tpu/ops/pallas/fe_hybrid.py:53"),
     ("windowed_scatter_add", "gdmix_tpu_torch/csrc/windowed_scatter.cu",
      "gdmix_tpu/ops/pallas/windowed_scatter.py:40"),
+    ("re_supports", "gdmix_tpu_torch/csrc/re_pack.cu",
+     "none: the JAX package packs on the host (gdmix_tpu/data/bucketing.py "
+     "iter_bucketize_flat)"),
+    ("re_pack_tier", "gdmix_tpu_torch/csrc/re_pack.cu",
+     "none: the JAX package packs on the host (gdmix_tpu/data/bucketing.py "
+     "iter_bucketize_flat)"),
 )
 
 
@@ -5097,6 +5268,9 @@ def main():
     res = phase_kernels()
     res.update(phase_fe_kernels())
     launches = phase_fit(card)
+    pack_rows, pack_launches = phase_re_pack(card)
+    res.update(pack_rows)
+    launches.update(pack_launches)
     errs, tp_launches = phase_two_phase(card)
     for name, err in errs.items():
         res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)

@@ -59,13 +59,14 @@ def _print_help() -> None:
 def kernel_launches() -> dict:
     """{kernel: launches} of this process, from each wrapper's counter."""
     from gdmix_tpu_torch.ops import (fe_hybrid, fe_loss_grad, linsolve,
-                                     newton_lanes, windowed_scatter)
+                                     newton_lanes, re_pack, windowed_scatter)
     return {f.__name__: f.launches for f in (
         newton_lanes.newton_full, newton_lanes.newton_block,
         linsolve.spd_solve_batched, linsolve.spd_solve_batched_mrhs,
         fe_loss_grad.fe_loss_grad_fused, fe_loss_grad.fe_gather_entries,
         fe_loss_grad.fe_scatter_entries, fe_hybrid.fe_hybrid_hot,
-        windowed_scatter.windowed_scatter_add)}
+        windowed_scatter.windowed_scatter_add, re_pack.re_supports,
+        re_pack.re_pack_tier)}
 
 
 def run(argv) -> None:

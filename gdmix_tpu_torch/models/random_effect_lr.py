@@ -307,6 +307,35 @@ def _moved_flags(solved) -> list:
                         for th, th0 in solved]).tolist()
 
 
+class _PackedTier:
+    """A tier of a packed fit, as the fetch and the collection read it
+    (EntityBucket's fields they use): its members' ids and sample counts,
+    its sample cap n_cap and B, its u_cap, and once read back its
+    distinct-id counts (u_count as the solver pads them, at least 1;
+    u_raw as found) and `support`, the ids in slot order (a dummy 0 for
+    an entity with none); theta0, the host warm start of a fit with a
+    prior; the sweep-cache entry it fills, if any."""
+
+    def __init__(self, entity_ids, sample_count, n_cap, b):
+        self.entity_ids, self.sample_count = entity_ids, sample_count
+        self.n_cap, self.b = n_cap, b
+        self.u_cap = self.u_count = self.u_raw = self.support = None
+        self.theta0 = self.cache_entry = None
+
+
+def _cached_tier(cache, i, tier):
+    """The sweep-cache entry of packed tier i if it holds this tier: the
+    same sample cap, B, entity ids and sample counts, and its supports
+    read back."""
+    ent = cache.get(("flat", i))
+    if (ent is not None and ent["support"] is not None
+            and (ent["n_cap"], ent["b"]) == (tier.n_cap, tier.b)
+            and np.array_equal(ent["sample_count"], tier.sample_count)
+            and np.array_equal(ent["entity_ids"], tier.entity_ids)):
+        return ent
+    return None
+
+
 def _record_scorer(mkey, mvals, icpt, ent_idx, qkey, values, offsets):
     """Sparse per-record scoring against the CSR model table: each record
     entry's (entity, feature-rank) key is located in the table's sorted
@@ -578,44 +607,37 @@ class RandomEffectLRModel(Model):
         `re.marshal_dispatch` (each step of the bucketizer, `re.bucketize`;
         each bucket's upload, `re.upload`; its solve's launch, `re.launch`),
         `re.solve_fetch_collect` (`re.fetch` in _fetch, `re.collect`) and
-        `re.merge`."""
+        `re.merge`.
+
+        A FlatGroups with a feature block is packed on the model's device
+        from one upload of its flat columns (_marshal_packed, ops/re_pack.py);
+        other inputs are bucketized on the host (data/bucketing.py) and
+        each bucket uploaded."""
         from gdmix_tpu_torch.data.bucketing import (FlatGroups,
                                                     iter_bucketize_flat)
         logger.info("Training %d entities", len(groups))
         self.last_fit_plane = "host"
         self.last_fit_bytes_up = self.last_fit_bytes_down = 0
-        bucketize_fn = (iter_bucketize_flat if isinstance(groups, FlatGroups)
-                        else bucketize)
-        # every bucket's solve is queued before any result is fetched; the
-        # bucketizer is a generator, so tier t+1 marshals on the host while
-        # tier t solves (the float32 kernels run asynchronously; the
-        # per-iteration forms synchronize once per iteration)
+        packed = (isinstance(groups, FlatGroups)
+                  and groups.indices is not None and len(groups) > 0)
+        # every bucket's solve is queued before any result is fetched; each
+        # is (bucket, (θ, variance, converged), the device θ0, which stays
+        # for the downlink skip's probe)
         pending = []
         rungs: Dict[str, int] = {}
         with span("re.marshal_dispatch") as marshal:
-            with span("re.bucketize"):
-                buckets = iter(bucketize_fn(
-                    groups, schema_params,
-                    self.model_params.offset_column_name,
-                    has_intercept=self.has_intercept,
-                    prior_models=model_weights))
-            for i in itertools.count():
-                with span("re.bucketize"):
-                    bucket = next(buckets, None)
-                if bucket is None:
-                    break
-                with span("re.upload"):
-                    arrays = self._bucket_device_arrays(
-                        bucket, cache=device_cache, cache_key=i)
-                rung, solve = self._select_solver(bucket.u_cap,
-                                                  bucket.indices.shape[0],
-                                                  bucket.n_cap)
-                rungs[rung] = rungs.get(rung, 0) + 1
-                with span("re.launch"):
-                    solved = solve(arrays)
-                # the device θ0 stays for the downlink skip's probe
-                pending.append((bucket, solved, arrays["theta0"]))
+            if packed:
+                pack = self._marshal_packed(groups, model_weights,
+                                            schema_params, device_cache,
+                                            pending, rungs)
+            else:
+                self._marshal_buckets(
+                    iter_bucketize_flat if isinstance(groups, FlatGroups)
+                    else bucketize, groups, model_weights, schema_params,
+                    device_cache, pending, rungs)
         with span("re.solve_fetch_collect") as solve_fetch_collect:
+            if packed:
+                self._packed_supports(pack, [b for b, _, _ in pending])
             # warm-sweep downlink skip (gdmix_tpu/models/random_effect_lr.py:
             # 685-701): a bucket whose solve moved no coefficient (every
             # entity stopped at its warm start) takes its models from the
@@ -664,6 +686,131 @@ class RandomEffectLRModel(Model):
                     " ".join(f"{nm}={dt:.3f}s"
                              for nm, dt in self.last_fit_phases.items()))
         return merged
+
+    def _marshal_buckets(self, bucketize_fn, groups, model_weights,
+                         schema_params, cache, pending, rungs) -> None:
+        """The host bucketizer's marshal: the bucketizer is a generator, so
+        tier t+1 marshals on the host while tier t solves (the float32
+        kernels run asynchronously; the per-iteration forms synchronize
+        once per iteration)."""
+        with span("re.bucketize"):
+            buckets = iter(bucketize_fn(
+                groups, schema_params, self.model_params.offset_column_name,
+                has_intercept=self.has_intercept, prior_models=model_weights))
+        for i in itertools.count():
+            with span("re.bucketize"):
+                bucket = next(buckets, None)
+            if bucket is None:
+                break
+            with span("re.upload"):
+                arrays = self._bucket_device_arrays(bucket, cache=cache,
+                                                    cache_key=i)
+            self._launch(bucket, arrays, pending, rungs)
+
+    def _launch(self, bucket, arrays, pending, rungs) -> None:
+        """Queue the solve of one bucket (or packed tier) on its rung."""
+        rung, solve = self._select_solver(bucket.u_cap,
+                                          arrays["indices"].shape[0],
+                                          bucket.n_cap)
+        rungs[rung] = rungs.get(rung, 0) + 1
+        with span("re.launch"):
+            solved = solve(arrays)
+        pending.append((bucket, solved, arrays["theta0"]))
+
+    def _marshal_packed(self, fg, model_weights, schema_params, cache,
+                        pending, rungs):
+        """The marshal of a FlatGroups with a feature block, on the model's
+        device (ops/re_pack.py FlatPack): the plan on the host, one upload
+        of the flat columns, pass 1 and the caps read back, every tier's
+        pack, then the solves. A tier takes its warm start from the prior
+        (reconciled on the host from the supports, which are then read
+        back first), else zeros made on the device.
+
+        `cache`: as _bucket_device_arrays', under ("flat", tier); a tier
+        hits when its sample cap, B, entity ids and sample counts match,
+        and then only its offsets are packed (from the offsets column
+        alone when every tier hits). Returns the FlatPack, whose supports
+        _packed_supports reads back after the solves."""
+        from gdmix_tpu_torch.ops import re_pack
+        p = self.model_params
+        with span("re.bucketize"):
+            pack = re_pack.FlatPack(
+                fg, label_column=schema_params.label_column_name,
+                weight_column=schema_params.weight_column_name,
+                offset_column=p.offset_column_name, device=self.device,
+                dtype=self.dtype)
+            eids = np.asarray(fg.entity_ids, object)
+            tiers = [_PackedTier(eids[t.members], pack.counts[t.members],
+                                 t.n_cap, t.b) for t in pack.tiers]
+            hits = [None if cache is None else _cached_tier(cache, i, t)
+                    for i, t in enumerate(tiers)]
+        with span("re.upload"):
+            self._uploaded(pack.upload(static=not all(hits)))
+        if not all(hits):
+            with span("re.bucketize"):
+                pack.supports()
+        warm = len(model_weights) > 0
+        off = 1 if self.has_intercept else 0
+        packed = []
+        for i, (t, hit) in enumerate(zip(tiers, hits)):
+            with span("re.bucketize"):
+                arrays = pack.tier(i, static=hit is None)
+                if hit:
+                    t.u_cap, t.u_count, t.u_raw, t.support = (
+                        hit[k] for k in ("u_cap", "u_count", "u_raw",
+                                         "support"))
+                    arrays.update(hit["static"])
+                else:
+                    t.u_cap = pack.u[i]
+                if not hit and cache is not None:
+                    self.static_upload_count += 1
+                    t.cache_entry = cache[("flat", i)] = dict(
+                        n_cap=t.n_cap, b=t.b, entity_ids=t.entity_ids,
+                        sample_count=t.sample_count, u_cap=t.u_cap,
+                        static={k: arrays[k] for k in _STATIC_COLS},
+                        u_count=None, u_raw=None, support=None)
+                if not warm:
+                    arrays["theta0"] = torch.zeros(
+                        t.b, t.u_cap + off, dtype=self.dtype,
+                        device=self.device)
+            packed.append(arrays)
+        # every tier is packed before any solve allocates its own tensors
+        pack.release()
+        if warm:
+            # the warm start is reconciled on the host from the supports
+            # that pass 2 wrote
+            self._packed_supports(pack, tiers)
+            theta0 = re_pack.prior_theta0(
+                [t.entity_ids for t in tiers],
+                [(t.u_raw, t.support) for t in tiers],
+                [t.u_cap for t in tiers], [t.b for t in tiers],
+                model_weights, self.has_intercept)
+            for t, arrays, th0 in zip(tiers, packed, theta0):
+                t.theta0 = th0
+                with span("re.upload"):
+                    up = newton_inputs_from_numpy({"theta0": th0},
+                                                  self.device, self.dtype)
+                    self._uploaded(up.values())
+                    arrays.update(up)
+        for t, arrays in zip(tiers, packed):
+            self._launch(t, arrays, pending, rungs)
+        return pack
+
+    def _packed_supports(self, pack, tiers) -> None:
+        """Each tier's supports on the host, where it has none yet: one read
+        of the pack's compact buffer (ops/re_pack.py FlatPack); a tier that
+        fills a cache entry leaves them there."""
+        todo = [i for i, t in enumerate(tiers) if t.support is None]
+        if not todo:
+            return
+        ids = self._fetch(pack.support_ids).numpy()
+        for i in todo:
+            t = tiers[i]
+            t.u_raw, t.support = pack.host_supports(ids, i)
+            t.u_count = np.maximum(t.u_raw, 1).astype(np.int32)
+            if t.cache_entry is not None:
+                t.cache_entry.update(u_count=t.u_count, support=t.support,
+                                     u_raw=t.u_raw)
 
     def _bucket_device_arrays(self, bucket: EntityBucket, cache=None,
                               cache_key=None):
@@ -776,13 +923,16 @@ class RandomEffectLRModel(Model):
         u_count = bucket.u_count[:b_real].astype(np.int64)
         u_cap = bucket.u_cap
         mask = np.arange(u_cap)[None, :] < u_count[:, None]
+        support = getattr(bucket, "support", None)
+        if support is None:
+            support = bucket.unique_global_indices[:b_real][mask]
         offs = np.zeros(b_real + 1, np.int64)
         np.cumsum(u_count, out=offs[1:])
         var = (None if variance is None
                else variance[:b_real].to("cpu", torch.float64).numpy())
         return ModelTable(
             ids=np.asarray(bucket.entity_ids, object), offs=offs,
-            coef_ids=bucket.unique_global_indices[:b_real][mask],
+            coef_ids=support,
             coef_vals=thetas[:, off:off + u_cap][mask],
             icpt=thetas[:, 0].copy() if off else None,
             coef_vars=None if var is None else var[:, off:off + u_cap][mask],

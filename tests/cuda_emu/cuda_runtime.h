@@ -8,7 +8,8 @@
 // `g_smem`); a static __shared__ variable becomes a static one, shared by
 // the threads of the one block that runs at a time (harnesses run blocks
 // one after another). Only what the kernels of csrc/newton_lanes.cu,
-// fe_loss_grad.cu (with fe_common.cuh) and windowed_scatter.cu use is here.
+// fe_loss_grad.cu (with fe_common.cuh), windowed_scatter.cu and re_pack.cu
+// use is here.
 // Every lane of a warp must reach each __syncwarp, shuffle and vote, and
 // every thread of the block each __syncthreads, as the kernels require.
 #pragma once
@@ -145,6 +146,14 @@ inline int __popc(unsigned v) { return __builtin_popcount(v); }
 
 inline int atomicAdd(int* p, int v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline int atomicMax(int* p, int v) {
+  int old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
+  while (old < v && !__atomic_compare_exchange_n(p, &old, v, false,
+                                                 __ATOMIC_SEQ_CST,
+                                                 __ATOMIC_SEQ_CST)) {
+  }
+  return old;
 }
 inline int atomicCAS(int* p, int cmp, int val) {
   __atomic_compare_exchange_n(p, &cmp, val, false, __ATOMIC_SEQ_CST,

@@ -18,6 +18,7 @@ import torch
 from gdmix_tpu.data.bucketing import bucketize as jax_bucketize
 from gdmix_tpu_torch import bench
 from gdmix_tpu_torch.data.bucketing import iter_bucketize_flat
+from gdmix_tpu_torch.ops import re_pack
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -270,35 +271,58 @@ def test_two_phase_newton_raises(monkeypatch):
 
 # ---- the RE model's byte counters --------------------------------------------
 
-def _bucket_bytes(fg, model, schema, cols):
+def _bucket_bytes(fg, model, schema):
+    """(θ0 bytes, bytes down, supports' bytes) of a fit by the host
+    bucketizer's plan: each bucket's θ0 in the model's dtype; each bucket's
+    real rows of θ and its converged count; the supports the packed route
+    reads back (int32: the [E] counts, then the ids, at least one an
+    entity)."""
     item = torch.tensor([], dtype=model.dtype).element_size()
-    up = down = 0
+    th0 = down = n_ids = 0
     for b in iter_bucketize_flat(fg, schema, "offset", has_intercept=True):
-        up += sum(getattr(b, k).size * (8 if k == "indices" else item)
-                  for k in cols)
+        th0 += b.theta0.size * item
         down += len(b.entity_ids) * b.theta0.shape[1] * item + 8
-    return up, down
+        n_ids += int(b.u_count[:len(b.entity_ids)].sum())
+    return th0, down, 4 * (len(fg.counts) + n_ids)
+
+
+def _flat_bytes(fg, static):
+    """Bytes the packed route copies up before any θ0: with `static` the
+    int32 ids and nnz, the values, labels and offsets as they are, the [E]
+    counts, starts, order and tier maps and the block path's lists; else
+    the offsets and the three maps that pack them."""
+    E = len(fg.counts)
+    up = fg.columns["offset"].nbytes + E * (4 + 8 + 4)
+    if not static:
+        return up
+    ents, ws_off, _ = re_pack.block_path(fg.counts, fg.indices.shape[1])
+    return (up + fg.indices.size * 4 + fg.values.nbytes + fg.rec_nnz.size * 4
+            + fg.columns["response"].nbytes + E * 4 + ents.nbytes
+            + ws_off.nbytes)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_fit_byte_counters_host_plane(tmp_path, dtype):
-    """last_fit_bytes_up / _down on the host plane: every bucket column
-    uploaded on a cold fit, only offsets and θ₀ on a cached one, and each
-    bucket's real rows of θ (and its converged count) fetched; reset at
-    each fit."""
+    """last_fit_bytes_up / _down on the host plane, whose packed route
+    copies the partition's flat columns once: all of them on a cold fit,
+    only the offsets and the maps that pack them on a cached one, θ₀ where
+    a prior gives one; down each bucket's real rows of θ and its converged
+    count, and the supports where the fit packed them; reset at each
+    fit."""
     fg = chip_smoke.make_workload_flat(1500, seed=4)
     model, schema = chip_smoke.stage_model(24, str(tmp_path), dtype=dtype,
                                            device="cpu")
-    up, down = _bucket_bytes(fg, model, schema, bench.BUCKET_COLS)
+    th0, down, sup = _bucket_bytes(fg, model, schema)
+    up = _flat_bytes(fg, static=True)
     cold = model.fit_flat(fg, {}, schema)
-    assert (model.last_fit_bytes_up, model.last_fit_bytes_down) == (up, down)
+    assert (model.last_fit_bytes_up, model.last_fit_bytes_down) \
+        == (up, down + sup)
     cache = {}
     model.fit_flat(fg, cold, schema, device_cache=cache)
-    warm_up, warm_down = _bucket_bytes(fg, model, schema,
-                                       ("offsets", "theta0"))
     nb = len(cache)
-    assert model.last_fit_bytes_up == up   # the cache's first fill
+    assert model.last_fit_bytes_up == up + th0   # the cache's first fill
     model.fit_flat(fg, cold, schema, device_cache=cache)
+    warm_up = _flat_bytes(fg, static=False) + th0
     assert 0 < model.last_fit_bytes_up == warm_up < up
     # the warm fits probe each bucket's moved flag: one bool a bucket
     moved_rows = model.last_fit_bytes_down - nb

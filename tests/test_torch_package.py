@@ -617,11 +617,13 @@ def test_cuda_wrappers_raise_without_a_card():
     from gdmix_tpu_torch.ops import _cuda, linsolve, newton_lanes as nl
     from gdmix_tpu_torch.ops import fe_hybrid as fh
     from gdmix_tpu_torch.ops import fe_loss_grad as fe
+    from gdmix_tpu_torch.ops import re_pack as rp
     from gdmix_tpu_torch.ops import windowed_scatter as ws
     with pytest.raises((RuntimeError, AssertionError)):
         torch.zeros(1, device="cuda")
     m = lambda *shape: torch.zeros(*shape, device="meta")
     mi = lambda *shape: torch.zeros(*shape, dtype=torch.int32, device="meta")
+    ml = lambda *shape: torch.zeros(*shape, dtype=torch.int64, device="meta")
     B, n, d = 4, 8, 5
     calls = [
         lambda: linsolve.spd_solve_batched(m(B, d, d), m(B, d)),
@@ -644,6 +646,12 @@ def test_cuda_wrappers_raise_without_a_card():
                                  m(n), m(n), d),
         lambda: ws.windowed_scatter_add(mi(n, 16), m(n, 16), mi(n // 4), 2,
                                         4096, 4),
+        lambda: rp.re_supports(mi(n, 3), mi(n), mi(B), ml(B), mi(B), 2,
+                               rp.BlockPath(mi(0), ml(0), 0)),
+        lambda: rp.re_pack_tier(rp.Columns(mi(n, 3), m(n, 3), mi(n), m(n),
+                                           m(n), None, mi(B), ml(B)),
+                                None, mi(B), None, 8, 8, 4, torch.float32,
+                                static=False),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="expected CUDA tensors"):
@@ -651,13 +659,14 @@ def test_cuda_wrappers_raise_without_a_card():
     for fn in (linsolve.spd_solve_batched, linsolve.spd_solve_batched_mrhs,
                nl.newton_full, nl.newton_block, fe.fe_loss_grad_fused,
                fe.fe_gather_entries, fe.fe_scatter_entries,
-               fh.fe_hybrid_hot, ws.windowed_scatter_add):
+               fh.fe_hybrid_hot, ws.windowed_scatter_add, rp.re_supports,
+               rp.re_pack_tier):
         assert fn.launches == 0
     try:
         _cuda._nvcc()
     except RuntimeError:
         for name in ("ldlt_solve", "newton_lanes", "fe_loss_grad",
-                     "fe_hybrid", "windowed_scatter"):
+                     "fe_hybrid", "windowed_scatter", "re_pack"):
             with pytest.raises(RuntimeError, match="nvcc not found"):
                 _cuda.load(name)
 
