@@ -1732,8 +1732,9 @@ def _two_phase_syncs(fg, tmp):
     more than single-phase's solve of each shard. Returns the single-phase
     reads of one bucket."""
     import torch
-    from gdmix_tpu_torch.bench import count_syncs
+    from gdmix_tpu_torch.bench import BUCKET_COLS, count_syncs
     from gdmix_tpu_torch.data.bucketing import iter_bucketize_flat
+    from gdmix_tpu_torch.util.convert import newton_inputs_from_numpy
     one, schema = stage_model(24, os.path.join(tmp, "sync_one"))
     two, _ = stage_model(24, os.path.join(tmp, "sync_two"),
                          newton_phase1_iters=TWO_PHASE_FIT_ITERS)
@@ -1750,7 +1751,8 @@ def _two_phase_syncs(fg, tmp):
     for b in iter_bucketize_flat(fg, schema,
                                  one.model_params.offset_column_name,
                                  has_intercept=one.has_intercept):
-        a = one._bucket_device_arrays(b)
+        a = newton_inputs_from_numpy({k: getattr(b, k) for k in BUCKET_COLS},
+                                     one.device, one.dtype)
         shape = (b.u_cap, b.indices.shape[0], b.n_cap)
         got, solvers = {}, {}
         for tag, m in (("single", one), ("two_phase", two)):
@@ -1804,27 +1806,57 @@ def _re_pack_bytes(pack) -> tuple:
     return float(pass1), float(pass2)
 
 
-def _re_pack_equal(fg, schema, dev, what):
-    """Pack `fg` through ops/re_pack.py on `dev` and check every tier's
-    tensors equal iter_bucketize_flat's through newton_inputs_from_numpy
-    bit for bit (indices, values, labels, weights, offsets, sample counts)
-    and the supports the host reads back equal the bucketizer's padded
-    ones. Returns the FlatPack, packed, and its number of tiers."""
+def _entity_groups(fg):
+    """fg's entities as a List[EntityGroup], the object path's input: in
+    turn the padded [n, K] block with its nnz, and per-record arrays of
+    the live entries (ragged)."""
+    from gdmix_tpu_torch.io.input_pipeline import EntityGroup
+    counts = np.asarray(fg.counts, np.int64)
+    starts = np.cumsum(counts) - counts
+    groups = []
+    for e, (s, n) in enumerate(zip(starts, counts)):
+        rows = slice(s, s + n)
+        g = EntityGroup(entity_id=fg.entity_ids[e],
+                        columns={k: v[rows] for k, v in fg.columns.items()})
+        if e % 2:
+            g.padded_indices, g.padded_values = fg.indices[rows], \
+                fg.values[rows]
+            g.rec_nnz = fg.rec_nnz[rows]
+        else:
+            nz = fg.rec_nnz
+            g.ragged_indices = [fg.indices[r, :nz[r]].astype(np.int64)
+                                for r in range(s, s + n)]
+            g.ragged_values = [fg.values[r, :nz[r]] for r in range(s, s + n)]
+        groups.append(g)
+    return groups
+
+
+def _re_pack_equal(data, schema, dev, what):
+    """Pack `data` (a FlatGroups, or a List[EntityGroup]) through
+    ops/re_pack.py's FlatPack on `dev` and check every
+    tier's tensors equal the host bucketizer's (iter_bucketize_flat, or
+    bucketize) through newton_inputs_from_numpy bit for bit (indices,
+    values, labels, weights, offsets, sample counts) and the supports the
+    host reads back equal the bucketizer's padded ones. Returns the
+    FlatPack, packed, and its number of tiers."""
     import torch
-    from gdmix_tpu_torch.data.bucketing import iter_bucketize_flat
+    from gdmix_tpu_torch.data.bucketing import (FlatGroups, bucketize,
+                                                iter_bucketize_flat)
     from gdmix_tpu_torch.models import random_effect_lr as re_model
     from gdmix_tpu_torch.ops import re_pack
     from gdmix_tpu_torch.util.convert import newton_inputs_from_numpy
-    pack = re_pack.FlatPack(fg, label_column="response", weight_column=None,
-                            offset_column="offset", device=dev,
-                            dtype=torch.float32)
+    pack = re_pack.FlatPack(data, label_column="response",
+                            weight_column=None, offset_column="offset",
+                            device=dev, dtype=torch.float32)
     pack.upload()
     pack.supports()
     tiers = [pack.tier(i) for i in range(len(pack.tiers))]
     ids = pack.support_ids.cpu().numpy()
     cols = re_model._STATIC_COLS + ("offsets",)
     n = 0
-    for i, b in enumerate(iter_bucketize_flat(fg, schema, "offset")):
+    bucketizer = (iter_bucketize_flat if isinstance(data, FlatGroups)
+                  else bucketize)
+    for i, b in enumerate(bucketizer(data, schema, "offset")):
         want = newton_inputs_from_numpy({k: getattr(b, k) for k in cols},
                                         dev, torch.float32)
         for k in cols:
@@ -1853,19 +1885,42 @@ def phase_re_pack(card):
     entity throughout) and the heavy-tail workload (20,000 entities,
     counts to 2,048 at K 4: pass 1's block path with its keys in shared
     memory past 64 records and in the device workspace past 1,024, both
-    checked to be taken); a fleet fit through fit_flat launches both
-    passes. Records both passes' device time at the fleet's size (CUDA
-    events, medians of 5 rounds), their byte bound and the plain versions'
+    checked to be taken), 2,000 of the heavy tail's entities as a
+    List[EntityGroup] (padded and ragged in turn, against bucketize) and
+    the whole heavy tail without its feature block (the inert [N, 1] block
+    of flat_groups: every entity the dummy support, K 1 on pass 1's warp
+    path and its shared-memory block path); a fleet fit through fit_flat
+    launches both passes, and so does a fit_groups on the entity groups.
+    Records both passes' device time at the fleet's size (CUDA events,
+    medians of 5 rounds), their byte bound and the plain versions'
     time on the card, the fit's phases and its host syncs (PyTorch's sync
     debug mode)."""
+    import dataclasses
+
     import torch
+    from gdmix_tpu_torch.data.bucketing import select_entities
     from gdmix_tpu_torch.ops import re_pack
     fg = make_workload_flat(1_000_000, seed=5, d=20)
     dev = torch.device(DEV)
     with tempfile.TemporaryDirectory(prefix="gdx_smoke_pack_") as tmp:
         model, schema = stage_model(20, tmp)
-        heavy, n_heavy = _re_pack_equal(heavy_tail_workload(), schema, dev,
-                                        "heavy_tail")
+        heavy_fg = heavy_tail_workload()
+        groups = _entity_groups(select_entities(heavy_fg, np.arange(2000)))
+        _, n_groups = _re_pack_equal(groups, schema, dev, "entity_groups")
+        bare = dataclasses.replace(heavy_fg, indices=None, values=None,
+                                   rec_nnz=None)
+        _, n_bare = _re_pack_equal(bare, schema, dev, "featureless")
+        del bare
+        before = (re_pack.re_supports.launches,
+                  re_pack.re_pack_tier.launches)
+        n_models = len(model.fit_groups(groups, {}, schema))
+        _check(n_models == len(groups)
+               and re_pack.re_supports.launches - before[0] == 1
+               and re_pack.re_pack_tier.launches - before[1]
+               == n_groups, f"re_pack: fit_groups on {len(groups)} entity "
+               f"groups gave {n_models} models in {n_groups} tiers")
+        del groups
+        heavy, n_heavy = _re_pack_equal(heavy_fg, schema, dev, "heavy_tail")
         ws_off = heavy._dev["ws_off"].cpu().numpy()
         n_block, n_ws = len(ws_off), int((ws_off >= 0).sum())
         _check(n_block > n_ws > 0, f"re_pack: heavy_tail {n_block} block "
@@ -1932,6 +1987,7 @@ def phase_re_pack(card):
          pack_ms=f"{ms2:.3f}", pack_bound_ms=f"{b2:.3f}",
          pack_plain_ms=f"{plain2_ms:.3f}",
          heavy_tail=dict(tiers=n_heavy, block=n_block, workspace=n_ws),
+         entity_groups_tiers=n_groups, featureless_tiers=n_bare,
          check_s=f"{check_s:.3f}", fit_s=f"{fit_s:.3f}",
          models_per_s=f"{len(fg) / fit_s:.1f}",
          phases={k: round(v, 3) for k, v in phases.items()},

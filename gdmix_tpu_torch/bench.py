@@ -91,7 +91,7 @@ SUBMETRICS = (
     "detext_rows_per_sec", "re_score_records_per_sec",
     "re_sharded_heavy_tail_models_per_sec", "fe_funcalls_per_sec",
     "fe_wide_d_funcalls_per_sec", "fe_wide_d_uniform_funcalls_per_sec")
-# the bucket columns the solvers read (_bucket_device_arrays' set)
+# the bucket columns the solvers read (a tier's tensors in fit_groups)
 BUCKET_COLS = ("indices", "values", "offsets", "labels", "weights",
                "sample_count", "theta0")
 # the solver settings of the JAX bench (its _KEY): intercept, bias not

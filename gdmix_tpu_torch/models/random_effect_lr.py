@@ -1,7 +1,8 @@
 """Random-effect LR: thousands of per-entity models as batched device solves.
 
 Port of gdmix_tpu/models/random_effect_lr.py (the host plane). Entities are
-bucketed by sample count (data/bucketing.py), each bucket's per-entity
+tiered by sample count (the plan of data/bucketing.py) and each tier is
+packed on the model's device (ops/re_pack.py); each tier's per-entity
 problems are solved at once by the rung of the solver ladder its shape
 selects (`_select_solver`, as in the JAX package):
 
@@ -27,13 +28,13 @@ reconciliation, sparsify-to-support and threshold, validation, active and
 passive scoring where entities without a model pass offsets through,
 intercept-only models, string or numeric entity ids, out-of-core training
 and scoring in entity-complete chunks (stream_chunk_entities), the
-multi-sweep device cache of the sweep-static bucket columns and the
+multi-sweep device cache of the sweep-static tier tensors and the
 warm-sweep downlink skip.
 
 Two planes feed the solver ladder (REParams.re_mode): the host plane
-groups, tiers and packs entities on the host (fit_groups); the
-entity-sharded plane routes records to the mesh shard that owns their
-entity and groups and packs them on that shard's device
+plans the tiers on the host and packs them on the model's device
+(fit_groups); the entity-sharded plane routes records to the mesh shard
+that owns their entity and groups and packs them on that shard's device
 (fit_records_sharded, parallel/entity_sharding.py). "auto" takes the
 sharded plane on a mesh of more than one device, as the JAX package does.
 The sharded plane solves each shard's slice of a tier on its own device;
@@ -43,7 +44,6 @@ together, and then solves each shard's own lanes of that cut.
 """
 from __future__ import annotations
 
-import itertools
 import logging
 import os
 from functools import partial
@@ -53,7 +53,7 @@ import numpy as np
 import torch
 
 from gdmix_tpu_torch import constants
-from gdmix_tpu_torch.data.bucketing import EntityBucket, bucketize
+from gdmix_tpu_torch.data.bucketing import bucketize
 from gdmix_tpu_torch.device import pad_to_multiple, resolve_device
 from gdmix_tpu_torch.io import fs, model_avro, scores as scores_io
 from gdmix_tpu_torch.io.input_pipeline import load_per_entity_grouped
@@ -82,10 +82,9 @@ from gdmix_tpu_torch.util.timing import span
 logger = logging.getLogger(__name__)
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
-# the bucket columns a sweep does not change (the device cache keeps them)
-# and the two it does
+# the tier tensors a sweep does not change (the device cache keeps them);
+# the solvers also read the offsets and θ0
 _STATIC_COLS = ("indices", "values", "labels", "weights", "sample_count")
-_DYNAMIC_COLS = ("offsets", "theta0")
 
 
 _EPSILON = 1.0e-12
@@ -308,13 +307,13 @@ def _moved_flags(solved) -> list:
 
 
 class _PackedTier:
-    """A tier of a packed fit, as the fetch and the collection read it
-    (EntityBucket's fields they use): its members' ids and sample counts,
-    its sample cap n_cap and B, its u_cap, and once read back its
-    distinct-id counts (u_count as the solver pads them, at least 1;
-    u_raw as found) and `support`, the ids in slot order (a dummy 0 for
-    an entity with none); theta0, the host warm start of a fit with a
-    prior; the sweep-cache entry it fills, if any."""
+    """A tier of a fit, as the solve, the fetch and the collection read
+    it: its members' ids and sample counts, its sample cap n_cap and B,
+    its u_cap, and once read back its distinct-id counts (u_count as the
+    solver pads them, at least 1; u_raw as found) and `support`, the ids
+    in slot order (a dummy 0 for an entity with none); theta0, the host
+    warm start of a fit with a prior; the sweep-cache entry it fills, if
+    any."""
 
     def __init__(self, entity_ids, sample_count, n_cap, b):
         self.entity_ids, self.sample_count = entity_ids, sample_count
@@ -324,7 +323,7 @@ class _PackedTier:
 
 
 def _cached_tier(cache, i, tier):
-    """The sweep-cache entry of packed tier i if it holds this tier: the
+    """The sweep-cache entry of tier i if it holds this tier: the
     same sample cap, B, entity ids and sample counts, and its supports
     read back."""
     ent = cache.get(("flat", i))
@@ -382,10 +381,10 @@ class RandomEffectLRModel(Model):
         # buckets per solver rung
         self.last_fit_converged = (0, 0)
         self.last_fit_rungs: Dict[str, int] = {}
-        # buckets of the last fit whose models were rebuilt from θ0 (the
-        # downlink skip), and how many times static bucket columns crossed
-        # to the device into a cache (the multi-sweep cache keeps this at
-        # one per bucket)
+        # tiers of the last fit whose models were rebuilt from θ0 (the
+        # downlink skip), and how many times a tier's static tensors were
+        # packed into a cache (the multi-sweep cache keeps this at one per
+        # tier)
         self.last_fit_skipped = 0
         self.static_upload_count = 0
         # the plane of the last fit ("host" or "sharded") and, on the
@@ -547,8 +546,8 @@ class RandomEffectLRModel(Model):
                     "auto" takes it when the feature bag is rectangular AND
                     the mesh (parallel/mesh.get_mesh: every visible card)
                     has more than one device.
-          host    — numpy grouping + bucketize (fit_groups); "auto" on one
-                    device.
+          host    — the plan on the host, each tier packed on the
+                    model's device (fit_groups); "auto" on one device.
 
         The FlatGroups is grouped already: its entity ids are factorized at
         E scale (the sharded fit's `factorize` phase), and each entity's
@@ -600,67 +599,52 @@ class RandomEffectLRModel(Model):
         :155-163) as a columnar ModelTable (a plain dict only when the prior
         mixes variance presence).
 
-        `device_cache`: a dict the caller keeps across coordinate-descent
-        sweeps over the same records (_bucket_device_arrays).
+        Every input form takes one route (_marshal_packed): ops/re_pack.py
+        FlatPack packs it on the model's device. `device_cache`: a dict the
+        caller keeps across coordinate-descent sweeps over the same records.
 
         last_fit_phases holds the seconds of the fit's three spans:
-        `re.marshal_dispatch` (each step of the bucketizer, `re.bucketize`;
-        each bucket's upload, `re.upload`; its solve's launch, `re.launch`),
+        `re.marshal_dispatch` (the plan, pass 1 and each tier's pack,
+        `re.bucketize`; the flat columns' upload and a prior's θ0,
+        `re.upload`; each solve's launch, `re.launch`),
         `re.solve_fetch_collect` (`re.fetch` in _fetch, `re.collect`) and
-        `re.merge`.
-
-        A FlatGroups with a feature block is packed on the model's device
-        from one upload of its flat columns (_marshal_packed, ops/re_pack.py);
-        other inputs are bucketized on the host (data/bucketing.py) and
-        each bucket uploaded."""
-        from gdmix_tpu_torch.data.bucketing import (FlatGroups,
-                                                    iter_bucketize_flat)
+        `re.merge`."""
         logger.info("Training %d entities", len(groups))
         self.last_fit_plane = "host"
         self.last_fit_bytes_up = self.last_fit_bytes_down = 0
-        packed = (isinstance(groups, FlatGroups)
-                  and groups.indices is not None and len(groups) > 0)
-        # every bucket's solve is queued before any result is fetched; each
-        # is (bucket, (θ, variance, converged), the device θ0, which stays
+        # every tier's solve is queued before any result is fetched; each
+        # is (tier, (θ, variance, converged), the device θ0, which stays
         # for the downlink skip's probe)
         pending = []
         rungs: Dict[str, int] = {}
         with span("re.marshal_dispatch") as marshal:
-            if packed:
-                pack = self._marshal_packed(groups, model_weights,
-                                            schema_params, device_cache,
-                                            pending, rungs)
-            else:
-                self._marshal_buckets(
-                    iter_bucketize_flat if isinstance(groups, FlatGroups)
-                    else bucketize, groups, model_weights, schema_params,
-                    device_cache, pending, rungs)
+            pack = self._marshal_packed(groups, model_weights, schema_params,
+                                        device_cache, pending, rungs)
         with span("re.solve_fetch_collect") as solve_fetch_collect:
-            if packed:
-                self._packed_supports(pack, [b for b, _, _ in pending])
+            self._packed_supports(pack, [t for t, _, _ in pending])
             # warm-sweep downlink skip (gdmix_tpu/models/random_effect_lr.py:
-            # 685-701): a bucket whose solve moved no coefficient (every
+            # 685-701): a tier whose solve moved no coefficient (every
             # entity stopped at its warm start) takes its models from the
             # host θ0
             if self.variance_mode is None and len(model_weights):
                 moved = _moved_flags([(solved[0], th0)
                                       for _, solved, th0 in pending])
-                self.last_fit_bytes_down += len(pending)  # one bool a bucket
+                self.last_fit_bytes_down += len(pending)  # one bool a tier
             else:
                 moved = [True] * len(pending)
             self.last_fit_skipped = moved.count(False)
             n_conv = n_real = 0
             tables = []
-            for (bucket, (theta, variance, converged), _), mv in zip(pending,
-                                                                    moved):
-                b_real = len(bucket.entity_ids)
+            for (tier, (theta, variance, converged), _), mv in zip(pending,
+                                                                  moved):
+                b_real = len(tier.entity_ids)
                 n_conv += int(self._fetch(converged[:b_real].sum()))
                 n_real += b_real
-                theta = self._fetch(theta[:b_real]) if mv else bucket.theta0
+                theta = self._fetch(theta[:b_real]) if mv else tier.theta0
                 variance = (None if variance is None
                             else self._fetch(variance[:b_real]))
                 with span("re.collect"):
-                    tables.append(self._collect_bucket_table(bucket, theta,
+                    tables.append(self._collect_bucket_table(tier, theta,
                                                              variance))
             self.last_fit_converged = (n_conv, n_real)
             self.last_fit_rungs = rungs
@@ -687,59 +671,45 @@ class RandomEffectLRModel(Model):
                              for nm, dt in self.last_fit_phases.items()))
         return merged
 
-    def _marshal_buckets(self, bucketize_fn, groups, model_weights,
-                         schema_params, cache, pending, rungs) -> None:
-        """The host bucketizer's marshal: the bucketizer is a generator, so
-        tier t+1 marshals on the host while tier t solves (the float32
-        kernels run asynchronously; the per-iteration forms synchronize
-        once per iteration)."""
-        with span("re.bucketize"):
-            buckets = iter(bucketize_fn(
-                groups, schema_params, self.model_params.offset_column_name,
-                has_intercept=self.has_intercept, prior_models=model_weights))
-        for i in itertools.count():
-            with span("re.bucketize"):
-                bucket = next(buckets, None)
-            if bucket is None:
-                break
-            with span("re.upload"):
-                arrays = self._bucket_device_arrays(bucket, cache=cache,
-                                                    cache_key=i)
-            self._launch(bucket, arrays, pending, rungs)
-
-    def _launch(self, bucket, arrays, pending, rungs) -> None:
-        """Queue the solve of one bucket (or packed tier) on its rung."""
-        rung, solve = self._select_solver(bucket.u_cap,
+    def _launch(self, tier, arrays, pending, rungs) -> None:
+        """Queue the solve of one tier on its rung."""
+        rung, solve = self._select_solver(tier.u_cap,
                                           arrays["indices"].shape[0],
-                                          bucket.n_cap)
+                                          tier.n_cap)
         rungs[rung] = rungs.get(rung, 0) + 1
         with span("re.launch"):
             solved = solve(arrays)
-        pending.append((bucket, solved, arrays["theta0"]))
+        pending.append((tier, solved, arrays["theta0"]))
 
-    def _marshal_packed(self, fg, model_weights, schema_params, cache,
+    def _marshal_packed(self, groups, model_weights, schema_params, cache,
                         pending, rungs):
-        """The marshal of a FlatGroups with a feature block, on the model's
-        device (ops/re_pack.py FlatPack): the plan on the host, one upload
-        of the flat columns, pass 1 and the caps read back, every tier's
-        pack, then the solves. A tier takes its warm start from the prior
-        (reconciled on the host from the supports, which are then read
-        back first), else zeros made on the device.
+        """The fit's marshal on the model's device (ops/re_pack.py
+        FlatPack): the input as a FlatGroups, the plan on the host, one
+        upload of its flat columns, pass 1 and the caps read back, every
+        tier's pack, then the solves. A tier's warm start is the prior
+        reconciled on the host from the supports (then read back first),
+        else zeros made on the device.
 
-        `cache`: as _bucket_device_arrays', under ("flat", tier); a tier
-        hits when its sample cap, B, entity ids and sample counts match,
-        and then only its offsets are packed (from the offsets column
-        alone when every tier hits). Returns the FlatPack, whose supports
+        `cache` (the single-device branch of gdmix_tpu/models/
+        random_effect_lr.py:746-852): each tier's _STATIC_COLS and supports
+        under ("flat", tier). A tier hits when its sample cap, B, entity
+        ids and sample counts match; then only its offsets are packed (from
+        the offsets column alone when every tier hits). The caller owns the
+        invariant that only the offsets changed (workflow/pipeline.py).
+        Each tier packed into the cache adds one to static_upload_count.
+        Returns the FlatPack (None for no entity), whose supports
         _packed_supports reads back after the solves."""
         from gdmix_tpu_torch.ops import re_pack
         p = self.model_params
         with span("re.bucketize"):
+            if not len(groups):
+                return None
             pack = re_pack.FlatPack(
-                fg, label_column=schema_params.label_column_name,
+                groups, label_column=schema_params.label_column_name,
                 weight_column=schema_params.weight_column_name,
                 offset_column=p.offset_column_name, device=self.device,
                 dtype=self.dtype)
-            eids = np.asarray(fg.entity_ids, object)
+            eids = np.asarray(pack.fg.entity_ids, object)
             tiers = [_PackedTier(eids[t.members], pack.counts[t.members],
                                  t.n_cap, t.b) for t in pack.tiers]
             hits = [None if cache is None else _cached_tier(cache, i, t)
@@ -751,7 +721,7 @@ class RandomEffectLRModel(Model):
                 pack.supports()
         warm = len(model_weights) > 0
         off = 1 if self.has_intercept else 0
-        packed = []
+        inputs = []
         for i, (t, hit) in enumerate(zip(tiers, hits)):
             with span("re.bucketize"):
                 arrays = pack.tier(i, static=hit is None)
@@ -773,7 +743,7 @@ class RandomEffectLRModel(Model):
                     arrays["theta0"] = torch.zeros(
                         t.b, t.u_cap + off, dtype=self.dtype,
                         device=self.device)
-            packed.append(arrays)
+            inputs.append(arrays)
         # every tier is packed before any solve allocates its own tensors
         pack.release()
         if warm:
@@ -785,14 +755,14 @@ class RandomEffectLRModel(Model):
                 [(t.u_raw, t.support) for t in tiers],
                 [t.u_cap for t in tiers], [t.b for t in tiers],
                 model_weights, self.has_intercept)
-            for t, arrays, th0 in zip(tiers, packed, theta0):
+            for t, arrays, th0 in zip(tiers, inputs, theta0):
                 t.theta0 = th0
                 with span("re.upload"):
                     up = newton_inputs_from_numpy({"theta0": th0},
                                                   self.device, self.dtype)
                     self._uploaded(up.values())
                     arrays.update(up)
-        for t, arrays in zip(tiers, packed):
+        for t, arrays in zip(tiers, inputs):
             self._launch(t, arrays, pending, rungs)
         return pack
 
@@ -811,46 +781,6 @@ class RandomEffectLRModel(Model):
             if t.cache_entry is not None:
                 t.cache_entry.update(u_count=t.u_count, support=t.support,
                                      u_raw=t.u_raw)
-
-    def _bucket_device_arrays(self, bucket: EntityBucket, cache=None,
-                              cache_key=None):
-        """The bucket's solver inputs as tensors on the model's device.
-
-        `cache`/`cache_key`: multi-sweep device-tensor reuse (the single-
-        device branch of gdmix_tpu/models/random_effect_lr.py:746-852). The
-        pipeline's sweeps retrain identical records, only the offsets and
-        the warm start change, so the sweep-static columns (_STATIC_COLS)
-        stay on the device as the solver's tensors and only `offsets` and
-        `theta0` cross from sweep 2 on. A hit requires the entry under
-        `cache_key` (the bucket's index in the plan) to have the bucket's
-        shape, entity ids and sample counts; the caller owns the stronger
-        invariant that indices, values, labels and weights are unchanged
-        (workflow/pipeline.py changes only the offset column). Each upload
-        into a cache adds one to static_upload_count; the bytes uploaded
-        add to last_fit_bytes_up."""
-        cols = _STATIC_COLS + _DYNAMIC_COLS
-        if cache is not None:
-            ent = cache.get(cache_key)
-            if (ent is not None and ent["shape"] == bucket.indices.shape
-                    and ent["entity_ids"] == list(bucket.entity_ids)
-                    and np.array_equal(ent["sample_count"],
-                                       bucket.sample_count)):
-                dynamic = newton_inputs_from_numpy(
-                    {k: getattr(bucket, k) for k in _DYNAMIC_COLS},
-                    self.device, self.dtype)
-                self._uploaded(dynamic.values())
-                return dict(ent["static"], **dynamic)
-        arrays = newton_inputs_from_numpy(
-            {k: getattr(bucket, k) for k in cols}, self.device, self.dtype)
-        self._uploaded(arrays.values())
-        if cache is not None:
-            self.static_upload_count += 1
-            cache[cache_key] = dict(
-                shape=bucket.indices.shape,
-                entity_ids=list(bucket.entity_ids),
-                sample_count=np.array(bucket.sample_count, copy=True),
-                static={k: arrays[k] for k in _STATIC_COLS})
-        return arrays
 
     def _uploaded(self, tensors):
         """`tensors`, their bytes added to last_fit_bytes_up."""
@@ -907,32 +837,29 @@ class RandomEffectLRModel(Model):
                          if use_dense else ("lbfgs", _lbfgs_solver))
         return rung, factory(*key)
 
-    def _collect_bucket_table(self, bucket: EntityBucket, theta,
+    def _collect_bucket_table(self, tier: _PackedTier, theta,
                               variance) -> ModelTable:
-        """The bucket's [B, dim] solution (and variances) as ModelTable
+        """The tier's [B, dim] solution (and variances) as ModelTable
         columns (one masked gather, no per-entity python). `theta`: the
-        device solution, or the host θ0 of a bucket the solve did not move
+        device solution, or the host θ0 of a tier the solve did not move
         (float64, as the JAX package rebuilds it; no copy back)."""
-        b_real = len(bucket.entity_ids)
+        b_real = len(tier.entity_ids)
         thetas = (np.asarray(theta[:b_real], np.float64)
                   if isinstance(theta, np.ndarray)
                   else theta[:b_real].to("cpu", torch.float64).numpy())
         off = 1 if self.has_intercept else 0
         tau = self.model_params.sparsity_threshold
         thetas = np.where(np.abs(thetas) <= tau, 0.0, thetas)
-        u_count = bucket.u_count[:b_real].astype(np.int64)
-        u_cap = bucket.u_cap
+        u_count = tier.u_count[:b_real].astype(np.int64)
+        u_cap = tier.u_cap
         mask = np.arange(u_cap)[None, :] < u_count[:, None]
-        support = getattr(bucket, "support", None)
-        if support is None:
-            support = bucket.unique_global_indices[:b_real][mask]
         offs = np.zeros(b_real + 1, np.int64)
         np.cumsum(u_count, out=offs[1:])
         var = (None if variance is None
                else variance[:b_real].to("cpu", torch.float64).numpy())
         return ModelTable(
-            ids=np.asarray(bucket.entity_ids, object), offs=offs,
-            coef_ids=support,
+            ids=np.asarray(tier.entity_ids, object), offs=offs,
+            coef_ids=tier.support,
             coef_vals=thetas[:, off:off + u_cap][mask],
             icpt=thetas[:, 0].copy() if off else None,
             coef_vars=None if var is None else var[:, off:off + u_cap][mask],
@@ -1388,7 +1315,10 @@ class RandomEffectLRModel(Model):
         has_weight = schema_params.weight_column_name is not None and any(
             schema_params.weight_column_name in g.columns for g in groups)
         for bucket in buckets:
-            a = self._bucket_device_arrays(bucket)
+            a = newton_inputs_from_numpy(
+                {k: getattr(bucket, k)
+                 for k in _STATIC_COLS + ("offsets", "theta0")},
+                self.device, self.dtype)
             X = densify_bucket(a["indices"], a["values"], bucket.u_cap,
                                self.has_intercept)
             z_pc = torch.einsum("bnd,bd->bn", X, a["theta0"])

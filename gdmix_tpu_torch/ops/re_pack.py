@@ -1,6 +1,8 @@
 """The random-effect fit's marshal on the card: a columnar partition
 (data/bucketing.py FlatGroups) packed into the solver's tier tensors from
-one upload of its flat columns.
+one upload of its flat columns. Every input of the host plane reaches it
+through `flat_groups`: a List[EntityGroup] flattened, a FlatGroups without
+a feature block given an inert one.
 
 The plan stays on the host and is the JAX package's: `_sample_caps` and
 `plan_lane_buckets` of data/bucketing.py over the entities' record counts,
@@ -28,13 +30,15 @@ the kernels and how).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from gdmix_tpu_torch.data.bucketing import (_next_pow2, _round_up,
-                                            _sample_caps, plan_lane_buckets)
+from gdmix_tpu_torch.data.bucketing import (FlatGroups, _next_pow2,
+                                            _round_up, _sample_caps,
+                                            plan_lane_buckets)
 from gdmix_tpu_torch.ops import _cuda
 
 # iter_bucketize_flat's defaults, which fit_groups takes
@@ -331,6 +335,52 @@ class Tier(NamedTuple):
     base: int
 
 
+def flat_groups(groups, *, weight_column: Optional[str]) -> FlatGroups:
+    """Any input of the host plane as the FlatGroups FlatPack packs into
+    the tensors `bucketize` / `iter_bucketize_flat` give it. A FlatGroups
+    with a feature block stays as it is; one without (an intercept-only
+    coordinate) gets an inert [N, 1] block of nnz 0, so every entity packs
+    with the dummy support [0]. A List[EntityGroup] is flattened in list
+    order, each group's first sample_count records, its ids and values
+    padded to the largest nnz; a column a group lacks reads 1 for
+    `weight_column` and 0 for any other, as bucketize reads it."""
+    if not isinstance(groups, FlatGroups):
+        counts = np.array([g.sample_count for g in groups], np.int64)
+        starts, N = np.cumsum(counts) - counts, int(counts.sum())
+        nnz = np.zeros(N, np.int32)
+        for g, s, n in zip(groups, starts, counts):
+            lens = (g.rec_nnz if g.padded_indices is not None
+                    else [len(r) for r in g.ragged_indices])[:n]
+            nnz[s:s + len(lens)] = lens
+        idx = np.zeros((N, max(int(nnz.max(initial=0)), 1)), np.int32)
+        val = np.zeros(idx.shape)
+        for g, s, n in zip(groups, starts, counts):
+            if g.padded_indices is not None:
+                w = min(g.padded_indices.shape[1], idx.shape[1])
+                idx[s:s + n, :w] = g.padded_indices[:n, :w]
+                val[s:s + n, :w] = g.padded_values[:n, :w]
+                continue
+            for r, (i, v) in enumerate(zip(g.ragged_indices[:n],
+                                           g.ragged_values[:n])):
+                idx[s + r, :len(i)], val[s + r, :len(i)] = i, v
+        names = dict.fromkeys(k for g in groups for k in g.columns)
+        columns = {k: np.concatenate(
+            [np.asarray(g.columns[k])[:n] if k in g.columns
+             else np.full(n, 1 if k == weight_column else 0)
+             for g, n in zip(groups, counts)]) for k in names}
+        groups = FlatGroups(
+            entity_ids=np.array([g.entity_id for g in groups], object),
+            counts=counts, columns=columns, indices=idx, values=val,
+            rec_nnz=nnz)
+    if groups.indices is None:
+        N = int(np.asarray(groups.counts, np.int64).sum())
+        groups = dataclasses.replace(
+            groups, indices=np.zeros((N, 1), np.int32),
+            values=np.zeros((N, 1), np.float32),
+            rec_nnz=np.zeros(N, np.int32))
+    return groups
+
+
 def _float_column(a) -> np.ndarray:
     """A record column as it crosses: float32 and float64 as they are
     (the card rounds to the model's dtype), anything else as float64 (as
@@ -341,16 +391,18 @@ def _float_column(a) -> np.ndarray:
 
 
 class FlatPack:
-    """One fit's marshal of a FlatGroups whose `indices` are given, on one
-    device: the host plan at construction, then `upload` (the flat columns,
+    """One fit's marshal of any input of the host plane, on one device:
+    the input as a FlatGroups (flat_groups) and the host plan at
+    construction, then `upload` (the flat columns,
     one copy each), `supports` (pass 1 and its caps), and `tier` (pass 2 of
     one tier). `support_ids` is the buffer the host fetches after the
     solves: [E] the members' distinct-id counts in the plan's order, then
     their ids, each tier's after the last."""
 
-    def __init__(self, fg, *, label_column: Optional[str],
+    def __init__(self, groups, *, label_column: Optional[str],
                  weight_column: Optional[str], offset_column: Optional[str],
                  device, dtype):
+        fg = flat_groups(groups, weight_column=weight_column)
         self.fg, self.device, self.dtype = fg, torch.device(device), dtype
         self.names = {"labels": label_column, "weights": weight_column,
                       "offsets": offset_column}

@@ -84,8 +84,9 @@ def build_args(argv=None):
                     choices=["none", "simple", "full"])
     ap.add_argument("--dtype", default="float32")
     ap.add_argument("--host_plane", action="store_true",
-                    help="prewarm the host bucketize plane (fit_groups) "
-                         "instead of the sharded plane")
+                    help="prewarm the host plane (fit_groups: the host's "
+                         "plan, each tier packed on the device) instead "
+                         "of the sharded plane")
     return ap.parse_args(argv)
 
 

@@ -13,7 +13,8 @@ Final artifacts (photon-ml avro models, evalSummary.json) are still written,
 so the output stays drop-in compatible with the file-based workflow.
 
 Random effects train on either plane of RandomEffectLRModel: the host
-plane (numpy grouping + bucketize) or the entity-sharded plane (records
+plane (grouped on the host, tiered by the host's plan and packed on the
+device by ops/re_pack.py) or the entity-sharded plane (records
 routed to the mesh shard owning their entity, grouped and packed on the
 device: fit_records_sharded).
 
@@ -90,7 +91,8 @@ class InMemoryPipeline:
     memory, in one process or in each process of a group.
 
     re_mode selects the random-effect training plane: "host" groups
-    entities on the host and solves bucketed batches (fit_groups);
+    entities on the host, packs their tiers on the device and solves each
+    tier (fit_groups);
     "sharded" routes each record to the mesh shard owning its entity and
     groups and packs on the device (fit_records_sharded); "auto" takes
     "sharded" on a mesh of more than one device (parallel/mesh.get_mesh:
@@ -250,10 +252,10 @@ class InMemoryPipeline:
                     uid_column_name=params.uid_column_name,
                     offset_column_name=mp.offset_column_name)
                 # the records are the same in every sweep (only the offset
-                # column changes), so from sweep 2 on only offsets and θ0
-                # cross to the device (RandomEffectLRModel.
-                # _bucket_device_arrays; on the sharded plane only the
-                # offsets are routed again)
+                # column changes), so from sweep 2 on only the offsets are
+                # packed and θ0 crosses to the device (RandomEffectLRModel.
+                # _marshal_packed; on the sharded plane only the offsets
+                # are routed again)
                 cache = item.setdefault("dev_cache", {})
                 if self._use_sharded_re(item["train"]):
                     records = self._active_records(item["train"], pcfg)

@@ -1,9 +1,9 @@
 """The random-effect multi-sweep device cache and the warm-sweep downlink
-skip in the port (RandomEffectLRModel._bucket_device_arrays(cache=…),
-_bucket_moved), against the port's uncached path and the JAX package's
-cached one, in float64 on the CPU. Ports tests/test_device_cache.py (its
-sharded test is in tests/test_torch_sharded_re.py) and
-tests/test_warm_downlink_skip.py."""
+skip in the port (RandomEffectLRModel.fit_groups' device_cache, which
+_marshal_packed keeps under ("flat", tier); _bucket_moved), against the
+port's uncached path and the JAX package's cached one, in float64 on the
+CPU. Ports tests/test_device_cache.py (its sharded test is in
+tests/test_torch_sharded_re.py) and tests/test_warm_downlink_skip.py."""
 import copy
 
 import numpy as np
@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import gdmix_tpu_torch.models.random_effect_lr as port_re
+from gdmix_tpu_torch.ops import re_pack
 from gdmix_tpu_torch.ops.newton import newton_lr_batch
 from gdmix_tpu_torch.ops.newton_lanes import (newton_full_plain,
                                               newton_lr_batch_lanes)
@@ -49,15 +50,31 @@ def _assert_tables_close(got, want, rtol, atol):
 
 
 def _spy_uploads(monkeypatch):
-    """The column sets each bucket upload moves to the device."""
-    seen = []
+    """What a fit moves to the device: `upload`, each copy of the flat
+    columns (FlatPack.upload's `static`: False, the offsets and the maps
+    that pack them); `tier`, the tensors each tier's pack makes
+    (FlatPack.tier; with `static` False only the offsets); `theta0`, the
+    columns of each upload from the host (a prior's θ0)."""
+    seen = {"upload": [], "tier": [], "theta0": []}
+    upload, tier = re_pack.FlatPack.upload, re_pack.FlatPack.tier
     orig = port_re.newton_inputs_from_numpy
 
-    def spy(arrays, device, dtype):
-        seen.append(frozenset(arrays))
+    def upload_spy(self, static=True):
+        seen["upload"].append(static)
+        return upload(self, static=static)
+
+    def tier_spy(self, i, static=True):
+        out = tier(self, i, static=static)
+        seen["tier"].append(frozenset(out))
+        return out
+
+    def theta0_spy(arrays, device, dtype):
+        seen["theta0"].append(frozenset(arrays))
         return orig(arrays, device, dtype)
 
-    monkeypatch.setattr(port_re, "newton_inputs_from_numpy", spy)
+    monkeypatch.setattr(re_pack.FlatPack, "upload", upload_spy)
+    monkeypatch.setattr(re_pack.FlatPack, "tier", tier_spy)
+    monkeypatch.setattr(port_re, "newton_inputs_from_numpy", theta0_spy)
     return seen
 
 
@@ -77,7 +94,9 @@ def test_cached_refit_matches_uncached_and_jax(tmp_path, monkeypatch):
     seen = _spy_uploads(monkeypatch)
     got = model.fit_groups(groups2, w1, schema, device_cache=cache)
     assert model.static_upload_count == n_buckets
-    assert seen == [frozenset({"offsets", "theta0"})] * n_buckets
+    assert seen["upload"] == [False]
+    assert seen["tier"] == [frozenset({"offsets"})] * n_buckets
+    assert seen["theta0"] == [frozenset({"theta0"})] * n_buckets
     _assert_tables_close(got, want, rtol=1e-12, atol=1e-13)
 
     jm, jschema = _build_model(*files, tmp_path / "jax")
@@ -90,8 +109,9 @@ def test_cached_refit_matches_uncached_and_jax(tmp_path, monkeypatch):
 
 def test_changed_data_rejects_cache(tmp_path, monkeypatch):
     """An entry from other data (entities, shapes, counts) is not used: the
-    bucket uploads whole, into the cache, and the result is the uncached
-    one."""
+    flat columns upload whole, each tier packs whole into the cache (θ0,
+    a cold fit's zeros, made on the device), and the result is the
+    uncached one."""
     groups, files, model, schema = _setup(tmp_path, 9, 32)
     cache = {}
     model.fit_groups(groups, {}, schema, device_cache=cache)
@@ -100,15 +120,16 @@ def test_changed_data_rejects_cache(tmp_path, monkeypatch):
     want = model.fit_groups(groups2, {}, schema)
     seen = _spy_uploads(monkeypatch)
     got = model.fit_groups(groups2, {}, schema, device_cache=cache)
-    assert model.static_upload_count - before == len(seen) > 0
-    assert all(cols == frozenset(port_re._STATIC_COLS
-                                 + port_re._DYNAMIC_COLS) for cols in seen)
+    assert model.static_upload_count - before == len(seen["tier"]) > 0
+    assert seen["upload"] == [True] and seen["theta0"] == []
+    assert all(cols == frozenset(port_re._STATIC_COLS + ("offsets",))
+               for cols in seen["tier"])
     _assert_tables_close(got, want, rtol=1e-12, atol=1e-13)
 
 
 def test_cache_is_keyed_by_bucket_and_counts(tmp_path):
-    """The same entities under another count are a miss: the key holds
-    shape, entity ids and sample counts."""
+    """The same entities under another count are a miss: a hit needs the
+    tier's sample cap, B, entity ids and sample counts."""
     groups, _, model, schema = _setup(tmp_path, 9, 34)
     cache = {}
     model.fit_groups(groups, {}, schema, device_cache=cache)

@@ -1,19 +1,22 @@
 """The random-effect marshal on the model's device (ops/re_pack.py, the
-packed route of RandomEffectLRModel.fit_groups), on the CPU through the
+one route of RandomEffectLRModel.fit_groups), on the CPU through the
 plain versions of its two passes.
 
 Every tier tensor the solvers take must equal, bit for bit, what the host
-bucketizer (data/bucketing.py iter_bucketize_flat) and
-util/convert.py newton_inputs_from_numpy give on the same partition:
-indices, values, labels, weights, offsets, sample counts and θ0, in dtype
-and shape, with the same tiers, members, slot order and u_cap, and the
-supports the collection reads back equal to the bucketizer's padded ones.
-The cases: a pareto fleet whose heavy tail reaches n_cap ≥ 256, duplicate
-ids within a record and an entity, zero-nnz records, an entity with no
-live entry and one with no record, no nnz column (every entry live), a
-weight column, float64, warm starts from a ModelTable and from a dict, and
-the sweep cache's hit (only the offsets packed again). The fit's
-ModelTable must then equal the host bucketizer's route entry for entry."""
+bucketizer (data/bucketing.py: iter_bucketize_flat for a FlatGroups,
+bucketize for a List[EntityGroup]) and util/convert.py
+newton_inputs_from_numpy give on the same partition: indices, values,
+labels, weights, offsets, sample counts and θ0, in dtype and shape, with
+the same tiers, members, slot order and u_cap, and the supports the
+collection reads back equal to the bucketizer's padded ones. The cases: a
+pareto fleet whose heavy tail reaches n_cap ≥ 256, duplicate ids within a
+record and an entity, zero-nnz records, an entity with no live entry and
+one with no record, no nnz column (every entry live), a weight column,
+float64, warm starts from a ModelTable and from a dict, and the sweep
+cache's hit (only the offsets packed again); the object path's ragged,
+padded and mixed groups, with no offset column or no intercept; a
+FlatGroups without a feature block. The fit's ModelTable must then equal
+the host bucketizer's route entry for entry."""
 import dataclasses
 
 import numpy as np
@@ -22,13 +25,15 @@ import torch
 
 import chip_smoke
 import gdmix_tpu_torch.models.random_effect_lr as port_re
-from gdmix_tpu_torch.data.bucketing import FlatGroups, iter_bucketize_flat
+from gdmix_tpu_torch.data.bucketing import (FlatGroups, bucketize,
+                                            iter_bucketize_flat)
+from gdmix_tpu_torch.io.input_pipeline import EntityGroup
 from gdmix_tpu_torch.io.model_table import ModelTable
 from gdmix_tpu_torch.ops import re_pack
 from gdmix_tpu_torch.util.convert import newton_inputs_from_numpy
 
 D = 40          # the feature bag's width
-_COLS = port_re._STATIC_COLS + port_re._DYNAMIC_COLS
+_COLS = port_re._STATIC_COLS + ("offsets", "theta0")
 
 
 @pytest.fixture(autouse=True)
@@ -64,14 +69,39 @@ def fleet(seed, counts, K=4, nnz=True, weights=False):
                       rec_nnz=nz if nnz else None)
 
 
+def entity_groups(fg, form):
+    """fg's entities as a List[EntityGroup]: "ragged", each record's live
+    entries as arrays (an entity with no live entry lists no record, as
+    the loader gives a group without features); "padded", the [n, K]
+    block and its nnz as they are; "mixed", the two in turn."""
+    counts = np.asarray(fg.counts, np.int64)
+    starts = np.cumsum(counts) - counts
+    nz = fg.rec_nnz
+    groups = []
+    for e, (s, n) in enumerate(zip(starts, counts)):
+        rows = slice(s, s + n)
+        g = EntityGroup(entity_id=fg.entity_ids[e],
+                        columns={k: v[rows] for k, v in fg.columns.items()})
+        if form == "padded" or (form == "mixed" and e % 2):
+            g.padded_indices, g.padded_values = fg.indices[rows], \
+                fg.values[rows]
+            g.rec_nnz = nz[rows]
+        elif nz[rows].any():
+            g.ragged_indices = [fg.indices[r, :nz[r]].astype(np.int64)
+                                for r in range(s, s + n)]
+            g.ragged_values = [fg.values[r, :nz[r]] for r in range(s, s + n)]
+        groups.append(g)
+    return groups
+
+
 def _pareto_counts(seed, E, hi):
     rng = np.random.RandomState(seed)
     return np.minimum((rng.pareto(1.2, E) * 8 + 2).astype(np.int64), hi)
 
 
-def _model(tmp_path, dtype="float32", weights=False):
+def _model(tmp_path, dtype="float32", weights=False, **over):
     model, schema = chip_smoke.stage_model(D, str(tmp_path), dtype=dtype,
-                                           device="cpu")
+                                           device="cpu", **over)
     if weights:
         schema = dataclasses.replace(schema, weight_column_name="weight")
     return model, schema
@@ -82,28 +112,59 @@ def _captured(monkeypatch):
     seen = []
     inner = port_re.RandomEffectLRModel._launch
 
-    def spy(self, bucket, arrays, pending, rungs):
-        seen.append((bucket, dict(arrays)))
-        return inner(self, bucket, arrays, pending, rungs)
+    def spy(self, tier, arrays, pending, rungs):
+        seen.append((tier, dict(arrays)))
+        return inner(self, tier, arrays, pending, rungs)
     monkeypatch.setattr(port_re.RandomEffectLRModel, "_launch", spy)
     return seen
 
 
+def _buckets(groups, model, schema, prior):
+    """The host bucketizer's buckets of `groups`, as the fit would take
+    them."""
+    fn = (iter_bucketize_flat if isinstance(groups, FlatGroups)
+          else bucketize)
+    return list(fn(groups, schema, model.model_params.offset_column_name,
+                   has_intercept=model.has_intercept, prior_models=prior))
+
+
 def _host_route(monkeypatch):
-    """The fit's marshal through the host bucketizer, as before the packed
-    route: iter_bucketize_flat's buckets, each uploaded."""
-    def marshal(self, fg, weights, schema, cache, pending, rungs):
-        self._marshal_buckets(iter_bucketize_flat, fg, weights, schema,
-                              cache, pending, rungs)
+    """The fit's marshal through the host bucketizer: each of _buckets'
+    buckets uploaded whole (newton_inputs_from_numpy) and handed to
+    _launch as a tier carrying the bucketizer's supports and θ0."""
+    def marshal(self, groups, weights, schema, cache, pending, rungs):
+        for b in _buckets(groups, self, schema, weights):
+            br = len(b.entity_ids)
+            t = port_re._PackedTier(np.asarray(b.entity_ids, object),
+                                    b.sample_count[:br], b.n_cap,
+                                    b.indices.shape[0])
+            t.u_cap, t.u_count, t.theta0 = b.u_cap, b.u_count[:br], b.theta0
+            t.support = b.unique_global_indices[:br][
+                np.arange(b.u_cap)[None, :] < b.u_count[:br, None]]
+            self._launch(t, newton_inputs_from_numpy(
+                {k: getattr(b, k) for k in _COLS}, self.device, self.dtype),
+                pending, rungs)
     monkeypatch.setattr(port_re.RandomEffectLRModel, "_marshal_packed",
                         marshal)
-    monkeypatch.setattr(port_re.RandomEffectLRModel, "_packed_supports",
-                        lambda self, pack, tiers: None)
 
 
-def _assert_tiers_equal(seen, fg, model, schema, prior):
-    want = list(iter_bucketize_flat(fg, schema, "offset", has_intercept=True,
-                                    prior_models=prior))
+def _prior(model, groups, schema, kind):
+    """No prior, or a cold fit's models of two entities in three and one
+    of an entity not in `groups`, as a ModelTable or a dict."""
+    if kind is None:
+        return {}
+    cold = model.fit_groups(groups, {}, schema)
+    other = ModelTable(ids=np.array(["other"], object), offs=[0, 2],
+                       coef_ids=[0, 3], coef_vals=[0.5, -0.25],
+                       icpt=[0.1] if model.has_intercept else None)
+    weights = ModelTable.concat(
+        [cold.select_rows(np.flatnonzero(np.arange(len(cold)) % 3)), other],
+        has_intercept=model.has_intercept, with_variance=False)
+    return dict(weights) if kind == "dict" else weights
+
+
+def _assert_tiers_equal(seen, want, model, prior):
+    """The captured tiers against the buckets `want`."""
     assert [len(b.entity_ids) for b in want] \
         == [len(t.entity_ids) for t, _ in seen]
     for b, (t, got) in zip(want, seen):
@@ -123,6 +184,13 @@ def _assert_tiers_equal(seen, fg, model, schema, prior):
         if prior:
             np.testing.assert_array_equal(t.theta0, b.theta0)
     return want
+
+
+def _assert_fit_equals_host_route(monkeypatch, model, groups, schema, prior,
+                                  got):
+    monkeypatch.undo()
+    _host_route(monkeypatch)
+    _assert_tables_equal(got, model.fit_groups(groups, prior, schema))
 
 
 def _assert_tables_equal(got, want):
@@ -149,26 +217,77 @@ def test_packed_tiers_equal_host_bucketizer(tmp_path, monkeypatch, case,
     counts, fkw, mkw = CASES[case]
     fg = fleet(7, counts(), **fkw)
     model, schema = _model(tmp_path, **mkw)
-    weights = {}
-    if prior:
-        cold = model.fit_flat(fg, {}, schema)
-        # a prior that misses some of these entities and holds another
-        other = ModelTable(ids=np.array(["other"], object), offs=[0, 2],
-                           coef_ids=[0, 3], coef_vals=[0.5, -0.25],
-                           icpt=[0.1])
-        weights = ModelTable.concat(
-            [cold.select_rows(np.flatnonzero(np.arange(len(cold)) % 3)),
-             other], has_intercept=True, with_variance=False)
-        if prior == "dict":
-            weights = dict(weights)
+    weights = _prior(model, fg, schema, prior)
     seen = _captured(monkeypatch)
     got = model.fit_flat(fg, weights, schema)
-    want = _assert_tiers_equal(seen, fg, model, schema, weights)
+    want = _assert_tiers_equal(seen, _buckets(fg, model, schema, weights),
+                               model, weights)
     if case == "pareto_heavy_tail":
         assert max(b.n_cap for b in want) >= 256
-    monkeypatch.undo()
-    _host_route(monkeypatch)
-    _assert_tables_equal(got, model.fit_flat(fg, weights, schema))
+    _assert_fit_equals_host_route(monkeypatch, model, fg, schema, weights,
+                                  got)
+
+
+OBJECT_CASES = {
+    # (group form, fleet kwargs, columns dropped, model kwargs)
+    "ragged": ("ragged", {}, (), {}),
+    "padded_float64": ("padded", {}, (), {"dtype": "float64"}),
+    "mixed_weights_no_intercept": ("mixed", {"weights": True}, (),
+                                   {"weights": True,
+                                    "has_intercept": False}),
+    "ragged_no_offset": ("ragged", {}, ("offset",), {}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(OBJECT_CASES))
+@pytest.mark.parametrize("prior", [None, "table", "dict"])
+def test_object_path_packs_as_bucketize(tmp_path, monkeypatch, case, prior):
+    """A List[EntityGroup] through the one door (re_pack.flat_groups):
+    every tier bit-equal to bucketize's, and the fit to the host route's.
+    The fleet's zero-nnz records, its entity with no live entry (no record
+    listed in the ragged form) and its entity with no record stay in; a
+    weight column is missing from every third group."""
+    form, fkw, drop, mkw = OBJECT_CASES[case]
+    fg = fleet(9, np.concatenate([[4, 6, 0], _pareto_counts(5, 90, 60)]),
+               **fkw)
+    for name in drop:
+        del fg.columns[name]
+    groups = entity_groups(fg, form)
+    for g in groups[::3]:
+        g.columns.pop("weight", None)       # bucketize reads it as 1
+    model, schema = _model(tmp_path, **mkw)
+    weights = _prior(model, groups, schema, prior)
+    seen = _captured(monkeypatch)
+    got = model.fit_groups(groups, weights, schema)
+    want = _assert_tiers_equal(seen, _buckets(groups, model, schema, weights),
+                               model, weights)
+    assert len(want) > 1
+    _assert_fit_equals_host_route(monkeypatch, model, groups, schema,
+                                  weights, got)
+
+
+@pytest.mark.parametrize("prior", [None, "table", "dict"])
+def test_featureless_flat_groups_pack_the_dummy_support(tmp_path,
+                                                        monkeypatch, prior):
+    """A FlatGroups without a feature block (an intercept-only coordinate)
+    packs through the inert block flat_groups gives it: every entity with
+    the dummy support [0], u_count 1, u_cap 8 and k 4, each tier bit-equal
+    to iter_bucketize_flat's, and the fit to the host route's."""
+    fg = dataclasses.replace(fleet(11, _pareto_counts(6, 120, 80)),
+                             indices=None, values=None, rec_nnz=None)
+    model, schema = _model(tmp_path)
+    weights = _prior(model, fg, schema, prior)
+    seen = _captured(monkeypatch)
+    got = model.fit_groups(fg, weights, schema)
+    _assert_tiers_equal(seen, _buckets(fg, model, schema, weights), model,
+                        weights)
+    assert len(seen) > 1
+    for t, arrays in seen:
+        assert t.u_cap == 8 and arrays["indices"].shape[2] == 4
+        assert (t.u_count == 1).all() and not t.support.any()
+        assert len(t.support) == len(t.entity_ids)
+    _assert_fit_equals_host_route(monkeypatch, model, fg, schema, weights,
+                                  got)
 
 
 def test_cache_hit_packs_offsets_only(tmp_path, monkeypatch):
@@ -191,10 +310,8 @@ def test_cache_hit_packs_offsets_only(tmp_path, monkeypatch):
     theta0 = sum(a["theta0"].numel() * 4 for _, a in seen)
     assert model.last_fit_bytes_up == fg.columns["offset"].nbytes \
         + E * (4 + 8 + 4) + theta0
-    _assert_tiers_equal(seen, fg2, model, schema, w1)
-    monkeypatch.undo()
-    _host_route(monkeypatch)
-    _assert_tables_equal(got, model.fit_flat(fg2, w1, schema))
+    _assert_tiers_equal(seen, _buckets(fg2, model, schema, w1), model, w1)
+    _assert_fit_equals_host_route(monkeypatch, model, fg2, schema, w1, got)
 
 
 def test_supports_plain_matches_a_loop():

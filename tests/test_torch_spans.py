@@ -78,14 +78,12 @@ def test_fit_groups_spans_nest_in_the_three_phases(tmp_path, form):
             assert all(a <= s and e <= b for s, e in spans), sub
         assert sum(e - s for sub in subs
                    for s, e in _named(entries, sub)) <= b - a
-    # the groups' bucketizer: a step and an upload a bucket, a step that
-    # finds the end; the flat form packed on the device: the plan, pass 1
-    # and a pack a tier, and one upload of the flat columns
+    # either form packed on the device: the plan, pass 1 and a pack a
+    # tier, and one upload of the flat columns
     n_launch = len(_named(entries, "re.launch"))
     assert n_launch == len(_named(entries, "re.collect")) > 0
     assert len(_named(entries, "re.bucketize")) == n_launch + 2
-    assert len(_named(entries, "re.upload")) == (
-        1 if form == "flat" else n_launch)
+    assert len(_named(entries, "re.upload")) == 1
     # the trace holds each logged span as an annotation of its name
     logged = sorted(n for n, _, _ in entries)
     assert sorted(n for n, _, _ in notes if n.startswith("re.")) == logged
