@@ -43,7 +43,12 @@ Spans (util/timing.py): `tower.fit` (a `_fit_rows` call), `tower.step` (one
 Adam step) holding `tower.forward`, `tower.backward` and `tower.adam`,
 `tower.attention` (each BERT layer's attention call in a step's forward),
 `tower.validate` (the scoring pass and its AUC); `last_fit` counts the
-`steps` and the `host_syncs` (values read back to the host).
+`steps`, the `host_syncs` (values read back to the host: the epoch's loss,
+the AUC and, with BERT, the training rows' encoded positions once a fit
+and the packed size of each scoring forward) and, over the steps and the
+validation, the `encoded_positions` and the `padded_positions` the
+batches held (BERT encodes the positions its mask lets a query or the
+pooler read; the other encoders every one).
 
 Across processes (a process group; gdmix_tpu/models/deep_tower.py:288-530)
 training is data parallel: every process holds the full data and draws the
@@ -64,6 +69,7 @@ import json
 import logging
 import math
 import os
+from collections import Counter
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -246,9 +252,25 @@ def _attend(q, k, v, key_ok):
         return F.scaled_dot_product_attention(q, k, v, attn_mask=key_ok)
 
 
+def _bert_positions(mask):
+    """(keys, encoded positions) of a token_mask [B, L], both boolean
+    [B, L]: the keys are the mask's, or every position of a doc with no
+    tokens (flax's masking attends to them alike, and not NaN); the
+    encoded positions are the keys and each row's position 0, which the
+    pooler reads."""
+    key_ok = mask > 0
+    key_ok = key_ok | ~key_ok.any(-1, keepdim=True)
+    encoded = key_ok.clone()
+    encoded[:, 0] = True
+    return key_ok, encoded
+
+
 class _BertLayer(nn.Module):
     """BERT's post-LN block: a = LN(x + Wo·MHA(x) + bo), then
-    LN(a + W2·gelu(W1·a + b1) + b2), GELU exact (erf)."""
+    LN(a + W2·gelu(W1·a + b1) + b2), GELU exact (erf). forward takes the
+    encoded positions' rows x [T, h], their flat places `at` [T] in the
+    batch's [B·L] and the key mask [B, 1, 1, L]: every product, norm and
+    GELU runs on the T rows, attention in the batch's padded layout."""
 
     def __init__(self, c: BertConfig):
         super().__init__()
@@ -263,22 +285,33 @@ class _BertLayer(nn.Module):
         self.ff_out = nn.Linear(c.intermediate_size, h)
         self.ff_norm = nn.LayerNorm(h, eps=c.layer_norm_eps)
 
-    def forward(self, x, key_ok):
-        b, length, h = x.shape
+    def forward(self, x, at, key_ok):
+        b, length = key_ok.shape[0], key_ok.shape[-1]
 
         def heads(t):
-            return t.view(b, length, self.heads, -1).transpose(1, 2)
+            # [T, h] scattered to [B, heads, L, d], zero where not encoded
+            full = t.new_zeros(b * length, t.shape[-1]).index_copy_(0, at, t)
+            return full.view(b, length, self.heads, -1).transpose(1, 2)
         att = _attend(heads(self.query(x)), heads(self.key(x)),
                       heads(self.value(x)), key_ok)
-        a = self.attn_norm(x + self.attn_out(
-            att.transpose(1, 2).reshape(b, length, h)))
+        att = att.transpose(1, 2).reshape(b * length, -1).index_select(0, at)
+        a = self.attn_norm(x + self.attn_out(att))
         return self.ff_norm(a + self.ff_out(F.gelu(self.ff_in(a))))
 
 
 class _BertEncoder(nn.Module):
     """BERT's encoder over one text field: LN(word[t] + pos[i] + type[0]),
     the blocks, and the pooler tanh(Wp·x[:, 0] + bp). forward takes tokens
-    and token_mask [B, L] and gives [B, hidden_size]."""
+    and token_mask [B, L] and gives [B, hidden_size].
+
+    Only the encoded positions are computed: every key and each row's
+    position 0, which the pooler reads. A position outside that set is no
+    key, so it feeds only itself: no output or gradient of the set depends
+    on it. Their count T sizes the pack: `next_size`, where the caller
+    knows it (consumed by the next forward), else read back from the
+    device. `counts` gains each read (`host_syncs`), T
+    (`encoded_positions`) and B·L (`padded_positions`) until a caller
+    clears it."""
 
     def __init__(self, c: BertConfig):
         super().__init__()
@@ -291,18 +324,29 @@ class _BertEncoder(nn.Module):
         self.layers = nn.ModuleList(_BertLayer(c)
                                     for _ in range(c.num_hidden_layers))
         self.pooler = nn.Linear(h, h)
+        self.counts = Counter()
+        self.next_size: Optional[int] = None
 
     def forward(self, tokens, mask):
         length = tokens.shape[1]
-        x = self.embed_norm(self.word(tokens) + self.position.weight[:length]
+        key_ok, encoded = _bert_positions(mask)
+        size, self.next_size = self.next_size, None
+        if size is None:
+            at = encoded.reshape(-1).nonzero()[:, 0]    # reads T back
+            self.counts.update(host_syncs=1)
+        else:
+            at = torch.nonzero_static(encoded.reshape(-1), size=size)[:, 0]
+        self.counts.update(encoded_positions=len(at),
+                           padded_positions=encoded.numel())
+        x = self.embed_norm(self.word(tokens.reshape(-1).index_select(0, at))
+                            + self.position(at % length)
                             + self.token_type.weight[0])
-        key_ok = mask > 0
-        # a doc with no tokens attends to every position alike, as flax's
-        # masking gives (and not NaN)
-        key_ok = (key_ok | ~key_ok.any(-1, keepdim=True))[:, None, None, :]
         for layer in self.layers:
-            x = layer(x, key_ok)
-        return torch.tanh(self.pooler(x[:, 0]))
+            x = layer(x, at, key_ok[:, None, None, :])
+        # each row's position 0 is its first encoded one
+        per_row = encoded.sum(1)
+        return torch.tanh(self.pooler(
+            x.index_select(0, per_row.cumsum(0) - per_row)))
 
 
 class _TextWideTower(nn.Module):
@@ -337,10 +381,14 @@ class _TextWideTower(nn.Module):
                     f"max_len {max_len} is past BERT's "
                     f"max_position_embeddings {bert.max_position_embeddings}")
             self.bert = _BertEncoder(bert)
+            self.counts = self.bert.counts
             self.wide_w = nn.Parameter(torch.empty(num_wide))
             self.hidden = nn.Linear(bert.hidden_size + 1, num_hidden)
             self.logit = nn.Linear(num_hidden, 1)
             return
+        # the forwards' positions encoded and held (B·F·L) until a caller
+        # clears it: these encoders compute every one
+        self.counts = Counter()
         self.embed = nn.Embedding(vocab_size, num_units)
         self.wide_w = nn.Parameter(torch.empty(num_wide))
         if ftr_ext == "cnn":
@@ -399,6 +447,8 @@ class _TextWideTower(nn.Module):
         if self.bert is not None:
             reprs.append(self.bert(tokens[:, 0], token_mask[:, 0]))
         else:
+            self.counts.update(encoded_positions=token_mask.numel(),
+                               padded_positions=token_mask.numel())
             encode = {"cnn": self._encode_cnn, "lstm": self._encode_lstm,
                       "bert": self._encode_transformer,
                       "transformer": self._encode_transformer}[self.ftr_ext]
@@ -595,6 +645,9 @@ class DeepTowerModel(Model):
         # the last train(): per-epoch mean loss and validation AUC, the
         # best epoch, the fit's seconds
         self.last_fit: Optional[dict] = None
+        # with BERT, each training row's encoded positions (host), read
+        # once a fit
+        self._row_positions: Optional[torch.Tensor] = None
 
     # ------------------------------------------------------------------ data --
 
@@ -673,8 +726,7 @@ class DeepTowerModel(Model):
         live (the others' gathered)."""
         rank, nproc = process_index_and_count()
         per = len(idx) // nproc
-        local = {k: v[idx[rank * per:(rank + 1) * per]]
-                 for k, v in rows.items()}
+        local = self._batch(rows, idx[rank * per:(rank + 1) * per])
         p = self.model_params
         opt.zero_grad(set_to_none=True)
         with span("tower.forward"):
@@ -688,6 +740,7 @@ class DeepTowerModel(Model):
                 z_all = all_gather_rows(z.detach())
                 z = torch.cat([z_all[:rank * per], z,
                                z_all[(rank + 1) * per:]])
+                idx = idx.to(self.device, non_blocking=True)
                 data = pairwise_ranking_loss(z, rows["labels"][idx],
                                              rows["weights"][idx],
                                              rows["groups"][idx])
@@ -709,9 +762,20 @@ class DeepTowerModel(Model):
             opt.step()
         return flat[-1]
 
+    def _batch(self, rows, idx) -> Dict[str, torch.Tensor]:
+        """The training rows `idx` (ids in a host tensor) of `rows`,
+        gathered on the device. BERT's encoder is handed the count of
+        their encoded positions, summed on the host from the fit's one
+        read of each row's, so that no step waits on the device."""
+        if self.module.bert is not None:
+            self.module.bert.next_size = int(self._row_positions[idx].sum())
+        at = idx.to(self.device, non_blocking=True)
+        return {k: v[at] for k, v in rows.items()}
+
     def _step(self, opt, rows, idx, ranking: bool) -> torch.Tensor:
-        """One Adam step of one process over the rows `idx`; its loss."""
-        batch = {k: v[idx] for k, v in rows.items()}
+        """One Adam step of one process over the rows `idx` (ids in a host
+        tensor); its loss."""
+        batch = self._batch(rows, idx)
         opt.zero_grad(set_to_none=True)
         with span("tower.forward"):
             loss = tower_loss(self.module, batch, ranking,
@@ -751,9 +815,18 @@ class DeepTowerModel(Model):
             best_scores = None
             history = []
             steps = syncs = 0
+            self.module.counts.clear()
+            if self.module.bert is not None:
+                # each training row's encoded positions, read back once
+                self._row_positions = _bert_positions(
+                    train_t["mask"][:, 0])[1].sum(1).cpu()
+                syncs += 1
             for epoch in range(p.num_epochs):
-                perm = torch.as_tensor(rng_np.permutation(n),
-                                       device=self.device)
+                # the batches' ids stay on the host, pinned on a card so
+                # that each step's copy does not wait
+                perm = torch.as_tensor(rng_np.permutation(n))
+                if self.device.type == "cuda":
+                    perm = perm.pin_memory()
                 losses = []
                 for s in range(steps_per_epoch):
                     if steps == max_steps:
@@ -794,9 +867,13 @@ class DeepTowerModel(Model):
                 self.module.load_state_dict(best_state)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
+        counts = self.module.counts
         self.last_fit = {"epochs": history, "best_epoch": best_epoch,
                          "steps_per_epoch": steps_per_epoch, "steps": steps,
-                         "host_syncs": syncs, "seconds": fit_span.seconds}
+                         "host_syncs": syncs + counts["host_syncs"],
+                         "encoded_positions": counts["encoded_positions"],
+                         "padded_positions": counts["padded_positions"],
+                         "seconds": fit_span.seconds}
         logger.info("deep tower: best epoch %d of %d, %d steps an epoch, "
                     "%.3f s", best_epoch, p.num_epochs, steps_per_epoch,
                     self.last_fit["seconds"],

@@ -61,13 +61,27 @@ def _tower(seed=0):
     return tower.double()
 
 
-def _batch(seed=0, empty_first=False):
+# the batches' first rows (the others are documents of 1 to L − 2 tokens)
+_FIRST_ROWS = {
+    "docs": None,
+    "a-doc-with-no-tokens": np.zeros(_L, bool),
+    # [CLS][SEP] alone: the fewest positions a framed document has
+    "a-row-of-cls-sep-only": np.arange(_L) < 2,
+    # position 0 is no key: the pooler's position is encoded and attends,
+    # and no query attends to it
+    "a-left-padded-row": np.arange(_L) >= 5,
+}
+
+
+def _batch(seed=0, case="docs"):
     rng = np.random.RandomState(seed)
     lens = rng.randint(1, _L - 1, _B)
+    if case == "every-row-at-full-length":
+        lens[:] = _L - 2
     tokens = rng.randint(5, BERT["vocab_size"], (_B, 1, _L))
     mask = (np.arange(_L)[None, None, :] < lens[:, None, None] + 2)
-    if empty_first:
-        mask[0] = False
+    if _FIRST_ROWS.get(case) is not None:
+        mask[0, 0] = _FIRST_ROWS[case]
     tokens = np.where(mask, tokens, 0)
     return {"tokens": torch.as_tensor(tokens),
             "mask": torch.as_tensor(mask, dtype=torch.float64),
@@ -83,13 +97,16 @@ def _max_rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
-@pytest.mark.parametrize("empty_first", [False, True],
-                         ids=["docs", "a-doc-with-no-tokens"])
-def test_forward_loss_and_gradients_match_the_reference(empty_first):
-    """The logits, the loss and the gradient of every parameter; a doc
-    whose mask is all zeros attends to every position alike (finite, as
-    the reference's)."""
-    tower, batch = _tower(), _batch(empty_first=empty_first)
+@pytest.mark.parametrize("case", list(_FIRST_ROWS)
+                         + ["every-row-at-full-length"])
+def test_forward_loss_and_gradients_match_the_reference(case):
+    """The logits, the loss and the gradient of every parameter, computed
+    over the encoded positions only, against the reference's over every
+    position: documents; a doc whose mask is all zeros attends to every
+    position alike (finite, as the reference's); a row of [CLS][SEP]
+    only; a left-padded row, whose position 0 the pooler reads though no
+    query attends to it; no padding at all (every position encoded)."""
+    tower, batch = _tower(), _batch(case=case)
     ref = BertTower(BERT)
     P = ref.params(tower.state_dict())
     z = tower(batch["tokens"], batch["mask"], batch["indices"],
@@ -240,8 +257,11 @@ def test_fit_rows_records_the_tower_spans_and_counters(detext_data,
     """A fit cut short after 3 steps under a profiler: one `tower.fit`,
     3 `tower.step`s each holding a forward, a backward and an Adam span,
     an attention span a layer in each step's forward (none in scoring),
-    one `tower.validate`; `last_fit` counts the steps and the 2 values
-    read back (the epoch's loss, the AUC)."""
+    one `tower.validate`; `last_fit` counts the steps, the values read
+    back (the epoch's loss, the AUC, the training rows' encoded positions
+    once a fit, and the validation forward's packed size: no step reads
+    one), and the positions encoded and held over the 3 batches and the
+    validation rows."""
     from torch.profiler import profile
 
     from gdmix_tpu_torch.util import timing
@@ -277,5 +297,15 @@ def test_fit_rows_records_the_tower_spans_and_counters(detext_data,
             "tower.backward": 3, "tower.adam": 3, "tower.validate": 1,
             "tower.attention": 3 * BERT["num_hidden_layers"]}
     assert {n: names.count(n) for n in want} == want
-    assert (model.last_fit["steps"], model.last_fit["host_syncs"]) == (3, 2)
+    assert (model.last_fit["steps"], model.last_fit["host_syncs"]) \
+        == (3, 2 + 1 + 1)
+    # the batches' rows: the seed's permutation, as the fit draws it
+    seen = np.random.RandomState(params.seed).permutation(
+        rows["tokens"].shape[0])[:3 * params.batch_size]
+    masks = torch.cat([rows["mask"][torch.as_tensor(seen)], valid["mask"]])
+    # every framed document's keys start at its [CLS], so the encoded
+    # positions are the mask's
+    assert model.last_fit["encoded_positions"] == int(masks.sum())
+    assert model.last_fit["padded_positions"] == masks.numel()
+    assert model.last_fit["encoded_positions"] < masks.numel()
     assert scores.shape == (valid["tokens"].shape[0],)

@@ -15,10 +15,13 @@
   the loss after one epoch, so it is held to 1e-2·max|score| and 2e-3 of
   AUC (the JAX package's own test asks for a 0.98 correlation and 0.05
   of AUC, tests/test_deep_tower.py:201). Both losses: the pointwise one,
-  and the ranking one whose pairs span the two processes' halves.
+  and the ranking one whose pairs span the two processes' halves. BERT's
+  encoder under the pointwise loss, each process packing the encoded
+  positions of its own half of a batch, is held as the pointwise cnn.
 - NUM_WORKERS = 2 with no process group: independent replicas, each
   scoring its interleaved share; the union is every row once, equal to
   the one-worker scores (tests/test_deep_tower.py:167)."""
+import json
 import os
 
 import numpy as np
@@ -35,6 +38,11 @@ from tests.torch_multiproc_runner import launch
 
 RANKING = {"task_type": "ranking", "query_column": "user_id",
            "l2_reg_weight": 1e-4}
+# a small BERT (its config file is written by the test)
+BERT = {"ftr_ext": "bert", "max_len": 12, "learning_rate": 1e-3}
+BERT_CONFIG = dict(vocab_size=400, hidden_size=32, num_hidden_layers=2,
+                   num_attention_heads=4, intermediate_size=64,
+                   max_position_embeddings=16)
 
 
 @pytest.fixture(autouse=True)
@@ -54,11 +62,15 @@ def _scores(out_root, schema):
 
 
 @pytest.mark.parametrize("over,score_rtol,auc_atol", [
-    ({}, 1e-8, 1e-8), (RANKING, 1e-2, 2e-3)],
-    ids=["classification", "ranking"])
+    ({}, 1e-8, 1e-8), (RANKING, 1e-2, 2e-3), (BERT, 1e-8, 1e-8)],
+    ids=["classification", "ranking", "bert-classification"])
 def test_two_process_training_matches_one(detext_data, tmp_path, over,
                                           score_rtol, auc_atol):
     kw = dict(num_epochs=3, dtype="float64", **over)
+    if over is BERT:
+        kw["bert_config_file"] = str(tmp_path / "bert_config.json")
+        with open(kw["bert_config_file"], "w") as f:
+            json.dump(BERT_CONFIG, f)
     one_root, mp_root = str(tmp_path / "one"), str(tmp_path / "mp")
     one = _port_model(detext_data, one_root, **kw)
     one.train(one.training_data_dir, one.validation_data_dir,
@@ -87,7 +99,7 @@ def test_two_process_training_matches_one(detext_data, tmp_path, over,
     # processes wrote
     cold = _port_model(detext_data, mp_root, **kw)
     cold._load_checkpoint()
-    arrays = cold._load_arrays(cold.validation_data_dir, schema)
+    arrays = cold._rows(cold.validation_data_dir, schema)
     total = (cold._score_all(cold._on_device(arrays)).numpy()
              + arrays["offsets"])[np.argsort(arrays["uid"], kind="stable")]
     np.testing.assert_allclose(total, s2, rtol=1e-6, atol=1e-6)
