@@ -164,6 +164,25 @@ Phases, each printing one result line; any failure exits non-zero:
                 cache (a cached refit bit-equal to the uncached one, no
                 static upload) and the warm-sweep downlink skip (one host
                 read of the probe).
+  8b. varlen_attention — ModernBERT's attention kernel
+                (csrc/varlen_attention.cu), forward and backward, against
+                the plain versions in float64 and bit-equal over two
+                backward passes, on a pack of documents at the tiles' and
+                the window's edges and at the ModernBERT cell's shapes (16
+                documents of 64–8,192 rows, 12 heads), whole documents and
+                a window of 64, with each direction's ms and bound. Alone:
+                `python3 -c "import chip_smoke as c; card =
+                c.phase_device(); print(c.phase_varlen_attention(card))"`.
+     modernbert — the kernel on the main path: ModernBERT-base's tower
+                (benchmark/configs/detext-modernbert-base.json's widths)
+                through DeepTowerModel._fit_rows, two steps of 4
+                documents of 64–8,192 positions and the validation's
+                forward: 22 forward launches a forward pass and 22
+                backward launches a step, finite losses and scores; the
+                kernels line's varlen_attention launches. Alone:
+                `python3 -c "import chip_smoke as c, tempfile; card =
+                c.phase_device(); print(c.phase_modernbert(card,
+                tempfile.mkdtemp()))"`.
   9. detext   — the deep fixed effect (DeText): the JAX bench's deep-tower
                 cell (B = 4,096, L = 16, vocabulary 30,000, wide D =
                 10,000, K = 8; cnn windows 2 and 3, 64 filters, 64 units,
@@ -215,7 +234,7 @@ Phases, each printing one result line; any failure exits non-zero:
                 empty directory whose first fit includes its nvcc.
 Launch counts are zeroed just before each main-path run (4, two_phase, wide, 5,
 wide_d, 6, single_node, sharded, multiprocess — in each child process —,
-stream, detext, bench and prewarm in theirs) and read just after. Then one JSON line of per-kernel results
+stream, modernbert, detext, bench and prewarm in theirs) and read just after. Then one JSON line of per-kernel results
 and, last, the device line. Exits non-zero without a result when no card is present.
 Imports no JAX.
 """
@@ -477,7 +496,8 @@ def phase_build():
     from gdmix_tpu_torch.ops import _cuda
     t0 = time.perf_counter()
     _cuda.load_all(("fe_loss_grad", "ldlt_solve", "newton_lanes",
-                    "fe_hybrid", "windowed_scatter", "re_pack"))
+                    "fe_hybrid", "windowed_scatter", "re_pack",
+                    "varlen_attention"))
     _say("build", seconds=round(time.perf_counter() - t0, 2),
          nvcc={k: round(v, 2) for k, v in _cuda.build_seconds.items()})
     for name, rep in _cuda.ptxas_report.items():
@@ -4928,6 +4948,227 @@ def _detext_model(cfg, out_dir, **over):
     return DeepTowerModel(params, base, device=DEV), base
 
 
+# the ModernBERT cell's lengths (benchmark/traffic/
+# detext-modernbert-base.fe-fit-long.json): a document's tokens log-normal
+# around VARLEN_MEDIAN (σ VARLEN_SIGMA), clipped, then [CLS] and [SEP]
+VARLEN_MEDIAN, VARLEN_SIGMA, VARLEN_CLIP = 1024, 0.8, (62, 8190)
+VARLEN_HEADS, VARLEN_WINDOW = 12, 64
+
+
+def _varlen_row(tag, lens, window, reps=5):
+    """csrc/varlen_attention.cu at packed documents of `lens` (12 heads of
+    64): forward and backward against the plain versions in float64 on the
+    card (relative to each output's largest entry), the backward twice and
+    bit-equal, and each direction's ms by CUDA events beside its bound
+    (the benchmark's count of a call's work, `attention_call`) and the
+    plain float32 versions' ms."""
+    import torch
+    from benchmark.costs.modernbert import attention_call
+    from gdmix_tpu_torch.ops import varlen_attention as va
+    H, d = VARLEN_HEADS, va.HEAD_DIM
+    T, longest = int(sum(lens)), int(max(lens))
+    gen = torch.Generator(device="cuda").manual_seed(len(lens) + window)
+    q, k, v, do = (torch.randn(T, H, d, device="cuda", generator=gen)
+                   for _ in range(4))
+    offsets = torch.tensor(np.concatenate([[0], np.cumsum(lens)]),
+                           dtype=torch.int32, device="cuda")
+    o, lse = va.varlen_attention_forward(q, k, v, offsets, longest, window)
+    grads = va.varlen_attention_backward(q, k, v, o, lse, do, offsets,
+                                         longest, window)
+    again = va.varlen_attention_backward(q, k, v, o, lse, do, offsets,
+                                         longest, window)
+    torch.cuda.synchronize()
+    same = all(bool(torch.equal(a, b)) for a, b in zip(grads, again))
+    d64 = [t.double() for t in (q, k, v, do)]
+    o64, lse64 = va.varlen_attention_forward_plain(*d64[:3], offsets, window)
+    want = va.varlen_attention_backward_plain(*d64[:3], o.double(),
+                                              lse.double(), d64[3], offsets,
+                                              window)
+    errs = {name: float((got.double() - ref).abs().max() / ref.abs().max())
+            for name, got, ref in (("o", o, o64), ("lse", lse, lse64),
+                                   ("dq", grads[0], want[0]),
+                                   ("dk", grads[1], want[1]),
+                                   ("dv", grads[2], want[2]))}
+    del o64, lse64, want, d64
+    fwd_ms = _time_ms(lambda: va.varlen_attention_forward(
+        q, k, v, offsets, longest, window), reps)
+    bwd_ms = _time_ms(lambda: va.varlen_attention_backward(
+        q, k, v, o, lse, do, offsets, longest, window), reps)
+    plain_ms = _time_ms(lambda: va.varlen_attention_backward_plain(
+        q, k, v, *va.varlen_attention_forward_plain(q, k, v, offsets,
+                                                    window),
+        do, offsets, window), 1)
+    flops, nbytes = attention_call(lens, H, d, window)
+    fwd_bound, by = _bound(nbytes, flops)
+    bwd_bound, _ = _bound(*attention_call(lens, H, d, window,
+                                          backward=True)[::-1])
+    row = dict(max_abs_err=max(errs.values()), ms=fwd_ms + bwd_ms,
+               plain_ms=plain_ms, bound_ms=fwd_bound + bwd_bound,
+               bound_by=by, library_ms=None)
+    _say("varlen_attention", case=tag, T=T, docs=len(lens), longest=longest,
+         window=window, errs={k: f"{v:.2e}" for k, v in errs.items()},
+         deterministic=same, forward_ms=f"{fwd_ms:.3f}",
+         forward_bound_ms=f"{fwd_bound:.3f}",
+         forward_share=f"{100 * fwd_bound / fwd_ms:.1f}%",
+         backward_ms=f"{bwd_ms:.3f}", backward_bound_ms=f"{bwd_bound:.3f}",
+         backward_share=f"{100 * bwd_bound / bwd_ms:.1f}%",
+         plain_ms=f"{plain_ms:.2f}", bound_by=by)
+    _check(same, f"varlen_attention {tag}: two backward passes differ")
+    _check(max(errs.values()) <= 1e-4,
+           f"varlen_attention {tag}: {errs} against the float64 plain "
+           "version")
+    return row
+
+
+def phase_varlen_attention(card):
+    """The ModernBERT encoder's attention kernel (csrc/varlen_attention.cu)
+    on a pack of documents at the tiles' and the window's edges (1, 63,
+    64, 65, 129, 130, 300 rows) and at the ModernBERT cell's shapes (a
+    batch of 16 documents drawn as its traffic draws them, seed 0), whole
+    documents and the local layers' window of 64. Returns {"varlen_attention":
+    the cell's global row, the worst error of every case}; its launches are
+    phase_modernbert's."""
+    rng = np.random.default_rng(0)
+    lens = np.clip(np.rint(np.exp(rng.normal(np.log(VARLEN_MEDIAN),
+                                             VARLEN_SIGMA, 16))),
+                   *VARLEN_CLIP).astype(np.int64) + 2
+    edges = [1, 63, 64, 65, 129, 130, 300]
+    rows = {}
+    for tag, ls, window in (("edges_full", edges, -1),
+                            ("edges_window", edges, VARLEN_WINDOW),
+                            ("cell_full", lens, -1),
+                            ("cell_window", lens, VARLEN_WINDOW)):
+        rows[tag] = _varlen_row(tag, ls.tolist() if hasattr(ls, "tolist")
+                                else ls, window)
+    row = dict(rows["cell_full"],
+               max_abs_err=max(r["max_abs_err"] for r in rows.values()))
+    _say("varlen_attention", card=repr(card), lengths=lens.tolist())
+    return {"varlen_attention": row}
+
+
+# ModernBERT-base's tower on the main path: its widths from the cell's
+# configuration file, documents of these many positions (two of the 8,192
+# the model takes), MODERNBERT_BATCH a step
+MODERNBERT_CONFIG = os.path.join(ROOT, "benchmark", "configs",
+                                 "detext-modernbert-base.json")
+MODERNBERT_TRAIN = (8192, 64, 1500, 130, 3000, 65, 8192, 700)
+MODERNBERT_VALID = (8192, 300, 64, 2000)
+MODERNBERT_BATCH = 4
+MODERNBERT_WIDE = 44
+
+
+def _modernbert_rows(c, lens, seed):
+    """Per-row tensors on the card of documents of `lens` positions: [CLS],
+    ids below the special ones, [SEP], then [PAD] to max_len; 3 wide
+    entries a row, labels half 1."""
+    import torch
+    rng = np.random.default_rng(seed)
+    n, length = len(lens), c["max_len"]
+    lens = np.asarray(lens)
+    pos = np.arange(length)[None, :]
+    first_special = min(c["special_ids"].values())
+    tokens = np.where(pos < lens[:, None],
+                      rng.integers(0, first_special, (n, length)),
+                      c["pad_token_id"])
+    tokens[:, 0] = c["cls_token_id"]
+    tokens[np.arange(n), lens - 1] = c["sep_token_id"]
+    cols = dict(tokens=tokens[:, None],
+                mask=(pos < lens[:, None]).astype(np.float32)[:, None],
+                indices=rng.integers(0, MODERNBERT_WIDE, (n, 3)),
+                values=rng.uniform(0.5, 1.0, (n, 3)).astype(np.float32),
+                labels=(np.arange(n) % 2).astype(np.float32),
+                weights=np.ones(n, np.float32),
+                offsets=np.zeros(n, np.float32),
+                groups=np.zeros(n, np.int64))
+    return {k: torch.as_tensor(v, device=DEV) for k, v in cols.items()}
+
+
+def phase_modernbert(card, tmp):
+    """ModernBERT-base's tower (`--ftr_ext=bert --bert_config_file=` its
+    config.json, every width as published) through DeepTowerModel's
+    _fit_rows on the card: one epoch of MODERNBERT_BATCH-document steps
+    over documents of up to 8,192 positions, then the validation's
+    forward. The varlen kernel's launches, zeroed just before, must be the
+    encoder's: one forward a layer a forward pass (the steps' and the
+    validation's) and one backward a layer a step; the fit's losses and
+    scores finite. Returns {"varlen_attention": its launches}."""
+    import torch
+    from gdmix_tpu_torch.models.deep_tower import (DeepTowerModel,
+                                                   DeepTowerParams,
+                                                   _ModernBertEncoder)
+    from gdmix_tpu_torch.ops import varlen_attention as va
+    from gdmix_tpu_torch.params import Params
+    with open(MODERNBERT_CONFIG) as f:
+        c = json.load(f)
+    config = os.path.join(tmp, "config.json")
+    with open(config, "w") as f:
+        json.dump({k: v for k, v in c.items()
+                   if k not in ("name", "source", "reduced", "assumed")}, f)
+    vocab = os.path.join(tmp, "vocab.txt")
+    with open(vocab, "w") as f:
+        f.write("\n".join(f"[unused{i}]" for i in range(c["vocab_size"]))
+                + "\n")
+    md_file, _ = _write_metadata(os.path.join(tmp, "md"), MODERNBERT_WIDE)
+    params = DeepTowerParams(
+        metadata_file=md_file, output_model_dir=tmp,
+        feature_bag="per_entity", vocab_file=vocab, bert_config_file=config,
+        ftr_ext="bert", max_len=c["max_len"], num_hidden=c["num_hidden"],
+        task_type="classification", learning_rate=c["learning_rate"],
+        batch_size=MODERNBERT_BATCH, num_epochs=1, dtype="float32", seed=0)
+    base = Params(action="train", stage="fixed_effect", model_type="detext",
+                  label_column_name="response", uid_column_name="uid",
+                  weight_column_name=None,
+                  prediction_score_column_name="predictionScore")
+    model = DeepTowerModel(params, base, device=DEV)
+    _check(isinstance(model.module.bert, _ModernBertEncoder),
+           f"modernbert: built {type(model.module.bert).__name__}")
+    train = _modernbert_rows(c, MODERNBERT_TRAIN, 1)
+    valid = _modernbert_rows(c, MODERNBERT_VALID, 2)
+    state = model._initial_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    va.varlen_attention_forward.launches = 0
+    va.varlen_attention_backward.launches = 0
+    # ---- the main path ----
+    t0 = time.perf_counter()
+    scores = model._fit_rows(train, valid, state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd = va.varlen_attention_forward.launches
+    bwd = va.varlen_attention_backward.launches
+    # ----
+    lf = model.last_fit
+    layers = c["num_hidden_layers"]
+    passes = lf["steps"] + 1            # the steps' and the validation's
+    loss = lf["epochs"][0]["loss"]
+    _say("modernbert", layers=layers, steps=lf["steps"],
+         forward_launches=fwd, backward_launches=bwd,
+         attention_calls_full=lf["attention_calls_full"],
+         attention_calls_window=lf["attention_calls_window"],
+         longest_document=lf["longest_document"],
+         encoded_positions=lf["encoded_positions"],
+         padded_positions=lf["padded_positions"],
+         host_syncs=lf["host_syncs"], loss=f"{loss:.6f}",
+         val_auc=f"{lf['epochs'][0]['val_auc']:.4f}", wall_s=f"{wall:.3f}",
+         peak_gib=_gib(torch.cuda.max_memory_allocated()),
+         card=repr(card))
+    _check(lf["steps"] == len(MODERNBERT_TRAIN) // MODERNBERT_BATCH,
+           f"modernbert: {lf['steps']} steps")
+    _check(fwd == layers * passes and bwd == layers * lf["steps"],
+           f"modernbert: {fwd} forward and {bwd} backward launches of the "
+           f"varlen kernel over {passes} forward passes and {lf['steps']} "
+           f"steps of {layers} layers")
+    _check(fwd == lf["attention_calls_full"] + lf["attention_calls_window"],
+           f"modernbert: {fwd} launches against the encoder's {lf}")
+    _check(lf["longest_document"] == max(MODERNBERT_TRAIN + MODERNBERT_VALID)
+           and lf["encoded_positions"]
+           == sum(MODERNBERT_TRAIN) + sum(MODERNBERT_VALID),
+           f"modernbert: the documents' positions: {lf}")
+    _check(np.isfinite(loss) and bool(torch.isfinite(scores).all()),
+           f"modernbert: loss {loss}, scores {scores}")
+    return {"varlen_attention": fwd + bwd}
+
+
 def phase_detext(card, tmp):
     """The deep fixed effect (DeText) on the card. (a) The bench's
     deep-tower cell at full width: one step against the CPU's float64
@@ -5304,6 +5545,8 @@ KERNELS = (
     ("re_pack_tier", "gdmix_tpu_torch/csrc/re_pack.cu",
      "none: the JAX package packs on the host (gdmix_tpu/data/bucketing.py "
      "iter_bucketize_flat)"),
+    ("varlen_attention", "gdmix_tpu_torch/csrc/varlen_attention.cu",
+     "none: the JAX package has no ModernBERT encoder"),
 )
 
 
@@ -5355,6 +5598,9 @@ def main():
         launches[name] += n
     for name, err in phase_stream(card).items():
         res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+    res.update(phase_varlen_attention(card))
+    with tempfile.TemporaryDirectory(prefix="gdx_smoke_modernbert_") as tmp:
+        launches.update(phase_modernbert(card, tmp))
     with tempfile.TemporaryDirectory(prefix="gdx_smoke_detext_") as tmp:
         errs, _ = phase_detext(card, tmp)
     for name, err in errs.items():

@@ -57,16 +57,22 @@ def _print_help() -> None:
 
 
 def kernel_launches() -> dict:
-    """{kernel: launches} of this process, from each wrapper's counter."""
+    """{kernel: launches} of this process, from each wrapper's counter
+    (the varlen attention's forward and backward under one name)."""
     from gdmix_tpu_torch.ops import (fe_hybrid, fe_loss_grad, linsolve,
-                                     newton_lanes, re_pack, windowed_scatter)
-    return {f.__name__: f.launches for f in (
+                                     newton_lanes, re_pack, varlen_attention,
+                                     windowed_scatter)
+    out = {f.__name__: f.launches for f in (
         newton_lanes.newton_full, newton_lanes.newton_block,
         linsolve.spd_solve_batched, linsolve.spd_solve_batched_mrhs,
         fe_loss_grad.fe_loss_grad_fused, fe_loss_grad.fe_gather_entries,
         fe_loss_grad.fe_scatter_entries, fe_hybrid.fe_hybrid_hot,
         windowed_scatter.windowed_scatter_add, re_pack.re_supports,
         re_pack.re_pack_tier)}
+    out["varlen_attention"] = (
+        varlen_attention.varlen_attention_forward.launches
+        + varlen_attention.varlen_attention_backward.launches)
+    return out
 
 
 def run(argv) -> None:

@@ -389,7 +389,7 @@ def test_dag_mode_runs_full_pipeline(ml_data, tmp_path, caplog):
                 for name, r in done.items() if name.endswith("-tf-train")}
     assert sorted(launches) == [f"{c}-tf-train" for c in sorted(COORDS)]
     for counts in launches.values():
-        assert len(counts) == 11 and not any(counts.values()), counts
+        assert len(counts) == 12 and not any(counts.values()), counts
     aucs = {}
     for coord in COORDS:
         with open(os.path.join(out, coord, "metric",
